@@ -1,0 +1,186 @@
+"""The one-call end-to-end pipeline, on the port.
+
+    from repro_torch.api import Provisioner
+    report = Provisioner(scenario, workload="diffusion",
+                         scheduler="stacking", allocator="inv_se").run()
+
+runs P1 (bandwidth allocation) -> P2 (batch-denoising plan) -> validate
+-> simulate -> execution on the workload's U-Net, and bundles the result
+in a ``ProvisionReport``.  Omitting the workload gives the analytic
+pipeline alone.  The port of ``repro.api.provisioner.Provisioner``'s
+static path; components are chosen by name from the plain dicts
+``SCHEDULERS`` and ``ALLOCATORS`` below, or passed as callables.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.api.workloads import DiffusionWorkload
+from repro_torch.core.bandwidth import (coordinate_refine, equal_allocate,
+                                        inv_se_allocate, make_plan,
+                                        pso_allocate)
+from repro_torch.core.delay_model import DelayModel
+from repro_torch.core.plan import BatchPlan
+from repro_torch.core.quality_model import PowerLawFID, QualityModel
+from repro_torch.core.service import Scenario
+from repro_torch.core.simulator import SimResult, simulate
+from repro_torch.core.stacking import stacking
+
+
+def _equal(scn, scheduler=None, delay=None, quality=None, **_):
+    return equal_allocate(scn)
+
+
+def _inv_se(scn, scheduler=None, delay=None, quality=None, **_):
+    return inv_se_allocate(scn)
+
+
+def _pso(scn, scheduler, delay, quality, **kw):
+    return pso_allocate(scn, scheduler, delay, quality, **kw).alloc
+
+
+def _coordinate(scn, scheduler, delay, quality, *, init="inv_se", **kw):
+    """Hill-climb refinement of a closed-form split (``init``: an
+    allocator name, default ``inv_se``)."""
+    start = ALLOCATORS[init](scn, scheduler, delay, quality)
+    return coordinate_refine(scn, start, scheduler, delay, quality,
+                             **kw).alloc
+
+
+SCHEDULERS = {"stacking": stacking}
+ALLOCATORS = {"equal": _equal, "inv_se": _inv_se, "pso": _pso,
+              "coordinate": _coordinate}
+WORKLOADS = {"diffusion": DiffusionWorkload}
+
+
+def _pick(table: dict, choice, kind: str):
+    if not isinstance(choice, str):
+        return choice
+    if choice not in table:
+        raise ValueError(f"unknown {kind} {choice!r}; expected one of "
+                         f"{sorted(table)}")
+    return table[choice]
+
+
+@dataclasses.dataclass
+class ProvisionReport:
+    """Everything one provisioning round produced."""
+    scenario: Scenario
+    allocation: np.ndarray                    # B_k (Hz), sums to budget
+    tau_prime: Dict[int, float]               # generation budgets
+    plan: BatchPlan                           # P2 solution
+    sim: SimResult                            # analytic timeline + quality
+    content: Optional[Dict[int, Any]] = None  # per-service images
+    timings: List[Tuple[int, float]] = dataclasses.field(
+        default_factory=list)                 # measured (batch_size, s)
+    delay: Optional[DelayModel] = None
+    quality: Optional[QualityModel] = None
+    scheduler_name: str = ""
+    allocator_name: str = ""
+    workload_name: str = ""
+
+    @property
+    def mean_fid(self) -> float:
+        return self.sim.mean_fid
+
+    @property
+    def outage_rate(self) -> float:
+        return self.sim.outage_rate
+
+    def summary(self) -> str:
+        head = (f"[{self.workload_name or 'analytic'}] "
+                f"scheduler={self.scheduler_name} "
+                f"allocator={self.allocator_name} "
+                f"batches={self.plan.num_batches}")
+        return head + "\n" + self.sim.summary()
+
+
+class Provisioner:
+    """Binds a scenario to one (workload, scheduler, allocator) choice.
+
+    workload: ``None`` (analytic only), ``"diffusion"`` (a
+    ``DiffusionWorkload`` on ``device``) or a workload instance.
+    ``allocator_kwargs`` pass through to the P1 solver
+    (``num_particles``, ``iters``, ``seed``, ...)."""
+
+    def __init__(self, scenario: Scenario, *, workload=None,
+                 scheduler="stacking", allocator="pso",
+                 delay: Optional[DelayModel] = None,
+                 quality: Optional[QualityModel] = None,
+                 allocator_kwargs: Optional[dict] = None,
+                 device="cuda"):
+        self.scenario = scenario
+        self.scheduler_name = getattr(scheduler, "__name__", str(scheduler))
+        self.allocator_name = getattr(allocator, "__name__", str(allocator))
+        self.scheduler = _pick(SCHEDULERS, scheduler, "scheduler")
+        self.allocator = _pick(ALLOCATORS, allocator, "allocator")
+        wl = workload
+        if isinstance(wl, str):
+            wl = _pick(WORKLOADS, wl, "workload")(device=device)
+        self.workload = wl
+        self.workload_name = getattr(wl, "name", "") if wl else ""
+        self.delay = delay if delay is not None else (
+            wl.default_delay() if wl else DelayModel())
+        self.quality = quality if quality is not None else (
+            wl.default_quality() if wl else PowerLawFID())
+        self.allocator_kwargs = dict(allocator_kwargs or {})
+
+    # -- pipeline stages ------------------------------------------------
+    def allocate(self) -> np.ndarray:
+        """P1: bandwidth allocation under the current delay/quality."""
+        return np.asarray(self.allocator(
+            self.scenario, self.scheduler, self.delay, self.quality,
+            **self.allocator_kwargs))
+
+    def plan(self, alloc: np.ndarray) -> Tuple[Dict[int, float], BatchPlan]:
+        """P2: generation budgets + batch plan under an allocation."""
+        return make_plan(self.scenario, alloc, self.scheduler, self.delay,
+                         self.quality)
+
+    def calibrate(self, generator: Optional[torch.Generator] = None,
+                  **kw) -> DelayModel:
+        """Measure the workload's real g(X) and adopt it for planning."""
+        if self.workload is None:
+            raise ValueError("no workload to calibrate against")
+        self.delay = self.workload.calibrate(generator, **kw)
+        return self.delay
+
+    # -- one-call end-to-end --------------------------------------------
+    def run(self, generator: Optional[torch.Generator] = None, *,
+            timed: bool = False, calibrate: bool = False,
+            validate: bool = True,
+            latents: Optional[Mapping[int, Any]] = None
+            ) -> ProvisionReport:
+        """(calibrate) -> allocate -> plan -> (validate) -> simulate ->
+        execute.
+
+        calibrate: measure the workload's delay curve first and plan
+            with the fitted model (the Fig.-1a loop).
+        timed: record per-batch wall clock during execution.
+        latents: initial noise per service id (default: drawn from
+            ``generator``).
+        """
+        if calibrate:
+            self.calibrate(generator)
+        alloc = self.allocate()
+        tp, plan = self.plan(alloc)
+        if validate:
+            plan.validate(gen_deadlines=tp)
+        sim = simulate(self.scenario, alloc, plan, self.quality)
+        content, timings = None, []
+        if self.workload is not None:
+            out = self.workload.execute(plan, generator, timed=timed,
+                                        latents=latents)
+            content, timings = out.content, out.timings
+        return ProvisionReport(
+            scenario=self.scenario, allocation=alloc, tau_prime=tp,
+            plan=plan, sim=sim, content=content, timings=timings,
+            delay=self.delay, quality=self.quality,
+            scheduler_name=self.scheduler_name,
+            allocator_name=self.allocator_name,
+            workload_name=self.workload_name)

@@ -1,0 +1,16 @@
+"""Hand-written CUDA kernels for Hopper, one per TPU kernel of the
+reference (``src/repro/kernels``).
+
+Each kernel package ships:
+  csrc/<name>.cu  -- the CUDA C++ source for sm_90a, with a plain C entry
+                     point (built and loaded by ``build.py``)
+  <name>/ref.py   -- the plain PyTorch version of the same function
+  <name>/ops.py   -- the wrapper: the plain version for a CPU tensor,
+                     the kernel for a CUDA tensor (or it raises), and a
+                     launch count
+
+The wrapper decides by the tensor's device alone.  There is no switch
+and no fallback: a CUDA tensor never reaches the plain version.
+
+Kernels ported: groupnorm_silu (diffusion U-Net hot spot).
+"""
