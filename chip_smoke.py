@@ -8,13 +8,14 @@ when it does not hold:
 
   1. device   -- needs torch.cuda.is_available(); prints the card's name
                  and power limit; turns TF32 off for cuDNN and matmul.
-  2. build    -- builds every CUDA kernel of the path with nvcc (all
-                 sources at once) and prints the build seconds.
-  3. kernels  -- each kernel's wrapper against its plain PyTorch version
-                 on the card, at every shape one full-width U-Net forward
-                 gives it, B in {1, 8, 16}, float32 (tol 2e-5) and
-                 bfloat16 (tol 2e-2); times at B=16: kernel, plain
-                 version, library yardstick and the bound.
+  2. build    -- builds every CUDA kernel (groupnorm_silu, rmsnorm,
+                 flash_attention, decode_attention) with nvcc, one
+                 process per source, all at once; prints the seconds.
+  3. kernels  -- groupnorm_silu's wrapper against its plain PyTorch
+                 version on the card, at every shape one full-width
+                 U-Net forward gives it, B in {1, 8, 16}, float32 (tol
+                 2e-5) and bfloat16 (tol 2e-2); times at B=16: kernel,
+                 plain version, library yardstick and the bound.
   4. main     -- the full-width ddim-cifar10 U-Net (35.7M params, random
                  weights from a seed) through the port's Provisioner on
                  the card: calibrate g(X) at batch 1..16, a K=8 scenario
@@ -30,6 +31,31 @@ when it does not hold:
                  (plain version), same params with conv_out redrawn and
                  same latents; final images agree within 1e-3 (max abs
                  error).
+  7. llm-kernels -- full-width TinyLlama-1.1B (1.1B f32 params drawn
+                 on the card from a seed): the shapes one prefill
+                 (prompt 128) and one decode step (cache 512) give
+                 rmsnorm, flash_attention and decode_attention; each
+                 wrapper against its plain version at those shapes,
+                 B in {1, 8}, float32, bfloat16 and f32-q/bf16-cache,
+                 windows 0 and 48 (tol 2e-5 / 2e-2); times at B=8 in
+                 the path's types: kernel, plain, library (F.rms_norm,
+                 F.scaled_dot_product_attention), bound.
+  8. llm-main -- the same model through Provisioner(workload=
+                 DecodeWorkload(...)): calibrate g(X) at batch 1..16, a
+                 K=8 scenario with deadlines in multiples of g(8), then
+                 inv_se -> stacking -> validate -> simulate -> timed
+                 execute.  Launch counts must be exactly 22 flash per
+                 prefill, 22 decode per decode step and 45 rmsnorm per
+                 forward; every request gets its planned tokens.
+  9. llm-trace -- one decode step at batch 8: device busy and idle
+                 share, kernels by device time, host time per wrapper.
+ 10. llm-parity -- K=2, prompt 16, 4 tokens each through DecodeWorkload
+                 on the card (kernels) and the CPU (plain versions), on
+                 weights drawn with std 0.02 (see parity_params): equal
+                 greedy tokens (or a difference inside the logits'
+                 margin) and the first decode step's logits within 2e-2
+                 of the largest |logit|.  The reference init's gap is
+                 reported, not gated.
 
 The last lines are the card (nvidia-smi), one JSON object with the
 kernels' numbers and, last, {"ok": true, "device": {...}}.  Details go
@@ -107,7 +133,8 @@ def phase_device():
 
 def phase_build():
     from repro_torch.kernels import build
-    names = ["groupnorm_silu"]
+    names = ["groupnorm_silu", "rmsnorm", "flash_attention",
+             "decode_attention"]
     t0 = time.perf_counter()
     took = build.build(names)
     log(f"[build] {names} in {time.perf_counter() - t0:.1f} s "
@@ -436,6 +463,598 @@ def phase_parity(cfg, params):
     return dict(max_abs_err=err, image_scale=scale, tol=PARITY_TOL)
 
 
+# ---------------------------------------------------------------------------
+# The llm_decode path: full-width TinyLlama-1.1B through the port
+# ---------------------------------------------------------------------------
+
+LLM_PROMPT, LLM_MAX_LEN = 128, 512
+DEV = "cuda"                       # where the llm phases put the model
+LLM_WINDOW = 48                    # its start falls mid-tile in both kernels
+LLM_PARITY_TOL = 2e-2              # logits, card vs CPU, bf16 KV cache,
+                                   # relative to the largest |logit|
+LLM_PARITY_STD = 0.02              # parity weights: Llama's init range
+RMS_OPS_PER_ELEMENT = 4            # x*x+acc, /d+eps (per row), *rsqrt, *w
+
+
+def _sync():
+    import torch
+    if torch.device(DEV).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _llm_ops():
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rms
+    return {"rmsnorm": (rms, "rmsnorm"),
+            "flash_attention": (fa, "flash_attention"),
+            "decode_attention": (dec, "decode_attention")}
+
+
+def _zero_llm_counts():
+    for mod, _ in _llm_ops().values():
+        mod.launches = 0
+
+
+def _llm_counts():
+    return {name: mod.launches for name, (mod, _) in _llm_ops().items()}
+
+
+def _dt(t):
+    return str(t.dtype).replace("torch.", "")
+
+
+def llm_shapes(cfg, params):
+    """(kernel, per-row shapes and types) -> calls in one prefill of a
+    LLM_PROMPT-token prompt plus one decode step against a LLM_MAX_LEN
+    cache, recorded on the card with B=1."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.models import api
+    seen = collections.Counter()
+    real = {}
+
+    def wrap(name, fn):
+        def record(*args, **kw):
+            sig = tuple((tuple(a.shape[1:]), _dt(a)) for a in args
+                        if isinstance(a, torch.Tensor) and a.dim() > 1)
+            seen[(name, sig)] += 1
+            return fn(*args, **kw)
+        return record
+    run = RunConfig()
+    toks = torch.zeros((1, LLM_PROMPT), dtype=torch.int64, device=DEV)
+    for name, (mod, attr) in _llm_ops().items():
+        real[name] = getattr(mod, attr)
+        setattr(mod, attr, wrap(name, real[name]))
+    try:
+        _, cache = api.make_prefill_step(cfg, run, LLM_MAX_LEN)(params, toks)
+        api.make_decode_step(cfg, run)(params, toks[:, -1:], cache)
+    finally:
+        for name, (mod, attr) in _llm_ops().items():
+            setattr(mod, attr, real[name])
+    return dict(sorted(seen.items()))
+
+
+def _bound(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _check_close(name, got, want, tol_key, err):
+    import torch
+    got, want = got.float(), want.float()
+    e = float((got - want).abs().max())
+    err[tol_key] = max(err.get(tol_key, 0.0), e)
+    tol = TOL[tol_key]
+    check(bool(torch.allclose(got, want, atol=tol, rtol=tol)),
+          f"{name}: max abs err {e:.3g} over tolerance {tol}")
+
+
+def phase_llm_kernels(shapes):
+    """Each new kernel against its plain version at every recorded
+    full-width shape, B in {1, 8}: float32, bfloat16 and (decode) f32 q
+    over a bf16 cache, plus a windowed case of each attention kernel.
+    Times at B=8 in the path's own types: kernel, plain version, library
+    yardstick, bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    rng = np.random.default_rng(21)
+
+    def randn(shape, dt=f32):
+        return torch.randn(shape, generator=gen, device=DEV).to(dt)
+    errs = {k: {} for k in ("rmsnorm", "flash_attention", "decode_attention")}
+    rows = []
+    for (name, sig), calls in shapes.items():
+        log(f"[llm-kernels] {name}: {calls} call(s) per prefill + decode "
+            f"step at {sig}")
+        for B in (1, 8):
+            if name == "rmsnorm":
+                (xs, xdt), = sig
+                x32 = randn((B,) + xs)
+                for xd in (f32, bf16):
+                    for sd in (f32, bf16):
+                        x, w = x32.to(xd), randn(xs[-1:], sd)
+                        key = "bfloat16" if bf16 in (xd, sd) else "float32"
+                        _check_close(f"rmsnorm {B}x{xs} {xd}/{sd}",
+                                     rms.rmsnorm(x, w), rmsnorm_ref(x, w),
+                                     key, errs[name])
+                if B == 8:
+                    w = randn(xs[-1:])
+                    nb = _nbytes(x32, x32, w)
+                    bound, by = _bound(nb, RMS_OPS_PER_ELEMENT * x32.numel())
+                    rows.append(dict(
+                        kernel=name, shape=[B, *xs], types="float32",
+                        calls=calls, bound_ms=bound, bound_by=by, bytes=nb,
+                        ms=device_time_ms(lambda: rms.rmsnorm(x32, w)),
+                        plain_ms=device_time_ms(lambda: rmsnorm_ref(x32, w)),
+                        library_ms=device_time_ms(lambda: F.rms_norm(
+                            x32, xs[-1:], w, 1e-6))))
+            elif name == "flash_attention":
+                (qs, _), (ks, _), _ = sig
+                q32, k32, v32 = randn((B,) + qs), randn((B,) + ks), \
+                    randn((B,) + ks)
+                for window in (0, LLM_WINDOW):
+                    for dt in (f32, bf16):
+                        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+                        _check_close(
+                            f"flash_attention {B}x{qs} {dt} w={window}",
+                            fa.flash_attention(q, k, v, window=window),
+                            attention_ref(q, k, v, window=window),
+                            "bfloat16" if dt == bf16 else "float32",
+                            errs[name])
+                if B == 8:
+                    S, H, D = qs
+                    pairs = S * (S + 1) // 2 * B * H
+                    nb = _nbytes(q32, q32, k32, v32)
+                    bound, by = _bound(nb, 4 * D * pairs)
+                    qt, kt, vt = (t.transpose(1, 2).contiguous()
+                                  for t in (q32, k32, v32))
+                    rows.append(dict(
+                        kernel=name, shape=[B, *qs], kv_shape=[B, *ks],
+                        types="float32", calls=calls, bound_ms=bound,
+                        bound_by=by, bytes=nb, flops=4 * D * pairs,
+                        ms=device_time_ms(
+                            lambda: fa.flash_attention(q32, k32, v32)),
+                        plain_ms=device_time_ms(
+                            lambda: attention_ref(q32, k32, v32)),
+                        library_ms=device_time_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt, is_causal=True,
+                                enable_gqa=True))))
+            else:
+                (qs, qdt), (cs, cdt), _ = sig
+                S, KV, D = cs
+                H = qs[1]
+                q32 = randn((B,) + qs)
+                k32, v32 = randn((B,) + cs), randn((B,) + cs)
+                cur = torch.tensor(rng.integers(1, S + 1, B),
+                                   dtype=torch.int32, device=DEV)
+                for window in (0, LLM_WINDOW):
+                    for qd, cd in ((f32, f32), (bf16, bf16), (f32, bf16)):
+                        q, k, v = q32.to(qd), k32.to(cd), v32.to(cd)
+                        _check_close(
+                            f"decode_attention {B}x{qs} over {cs} "
+                            f"{qd}/{cd} w={window}",
+                            dec.decode_attention(q, k, v, cur,
+                                                 window=window),
+                            decode_attention_ref(q, k, v, cur,
+                                                 window=window),
+                            "bfloat16" if bf16 in (qd, cd) else "float32",
+                            errs[name])
+                if B == 8:
+                    # the path's types: f32 q over a bf16 cache
+                    kb, vb = k32.to(bf16), v32.to(bf16)
+                    valid = int(cur.clamp(max=S).sum())
+                    nb = (_nbytes(q32, q32, cur)
+                          + 2 * valid * KV * D * kb.element_size())
+                    bound, by = _bound(nb, 4 * D * H * valid)
+                    qt = q32.to(bf16).transpose(1, 2).contiguous()
+                    kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (kb, vb))
+                    mask = (torch.arange(S, device=DEV)[None]
+                            < cur[:, None])[:, None, None, :]
+                    rows.append(dict(
+                        kernel=name, shape=[B, *qs], cache_shape=[B, *cs],
+                        types="float32 q, bfloat16 cache", calls=calls,
+                        cur_len=cur.tolist(), bound_ms=bound, bound_by=by,
+                        bytes=nb, flops=4 * D * H * valid,
+                        ms=device_time_ms(
+                            lambda: dec.decode_attention(q32, kb, vb, cur)),
+                        plain_ms=device_time_ms(
+                            lambda: decode_attention_ref(q32, kb, vb, cur)),
+                        library_ms=device_time_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt, attn_mask=mask,
+                                enable_gqa=True))))
+    _sync()
+    for name, e in errs.items():
+        log(f"[llm-kernels] {name}: all recorded shapes x B in (1, 8) "
+            f"match the plain version: max abs err "
+            + ", ".join(f"{k} {v:.3g} (tol {TOL[k]})"
+                        for k, v in sorted(e.items())))
+    log("[llm-kernels] B=8, device time per call (CUDA graph, L2-warm); "
+        "library: F.rms_norm, F.scaled_dot_product_attention (decode: "
+        "bf16 q, boolean cur_len mask)")
+    for r in rows:
+        log(f"[llm-kernels] {r['kernel']:>16} {str(tuple(r['shape'])):>18} "
+            f"x{r['calls']:<2} kernel {r['ms'] * 1e3:9.2f} us  plain "
+            f"{r['plain_ms'] * 1e3:9.2f} us  library "
+            f"{r['library_ms'] * 1e3:9.2f} us  bound "
+            f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']})  "
+            f"bound/kernel {r['bound_ms'] / r['ms']:.3f}")
+    sources = {
+        "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:27",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:86",
+        "decode_attention": "src/repro/kernels/decode_attention/kernel.py:73"}
+    summaries = []
+    for name, replaces in sources.items():
+        mine = [r for r in rows if r["kernel"] == name]
+
+        def total(key, mine=mine):
+            return sum(r[key] * r["calls"] for r in mine)
+        e = errs[name]
+        summaries.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces, launches=0,
+            max_abs_err=e.get("float32", 0.0),
+            max_abs_err_bf16=e.get("bfloat16", 0.0),
+            ms=total("ms"), plain_ms=total("plain_ms"),
+            bound_ms=total("bound_ms"),
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in mine)
+            else "operations",
+            library_ms=total("library_ms"),
+            timed_as="sum over its calls in one prefill (prompt "
+                     f"{LLM_PROMPT}) + one decode step (cache "
+                     f"{LLM_MAX_LEN}) at B=8, the path's types"))
+    return summaries, rows
+
+
+def phase_llm_main(cfg, params, card):
+    """Full-width TinyLlama through the port's Provisioner: calibrate
+    g(X), a K=8 scenario, inv_se -> stacking -> validate -> simulate ->
+    timed execute.  Kernel counts are zeroed before and read after."""
+    import numpy as np
+    import torch
+    from repro_torch.api import DecodeWorkload, Provisioner
+    from repro_torch.core.delay_model import DelayModel, fit
+    from repro_torch.core.service import Scenario, ServiceRequest
+    L = cfg.num_layers
+    n_params = sum(int(np.prod(p.shape)) for p in _leaves(params))
+    wl = DecodeWorkload(cfg=cfg, params=params, max_len=LLM_MAX_LEN,
+                        prompt_len=LLM_PROMPT, device=DEV)
+    eng = wl._eng()
+    log(f"[llm-main] {cfg.name}: {n_params} params (seeded random, "
+        f"float32 on the card), KV cache {wl.run.kv_cache_dtype}, prompt "
+        f"{LLM_PROMPT}, max_len {LLM_MAX_LEN}")
+    _zero_llm_counts()
+    sizes, reps = (1, 2, 4, 8, 16), 5
+    p0, d0 = eng.prefill_calls, eng.decode_calls
+    curve = wl.measure_delay_curve(batch_sizes=sizes, reps=reps)
+    cal = _llm_counts()
+    cal_prefills = eng.prefill_calls - p0
+    cal_decodes = eng.decode_calls - d0
+    check(cal_prefills == len(sizes)
+          and cal_decodes == len(sizes) * (1 + reps),
+          f"calibration made {cal_prefills} prefills and {cal_decodes} "
+          f"decode steps")
+    check(cal == {"rmsnorm": (2 * L + 1) * (cal_prefills + cal_decodes),
+                  "flash_attention": L * cal_prefills,
+                  "decode_attention": L * cal_decodes},
+          f"calibration launches {cal}")
+    raw = fit([c[0] for c in curve], [c[1] for c in curve])
+    # the reference's refit floor (DelayModel.refit), as for the U-Net
+    g = DelayModel(a=max(raw.a, 1e-9), b=max(raw.b, 1e-9))
+    log(f"[llm-main] decode delay curve (batch, best-of-{reps} s per "
+        f"step): " + ", ".join(f"{x}: {s * 1e3:.3f} ms" for x, s in curve))
+    log(f"[llm-main] fitted g(X) = {raw.a * 1e3:.4f} ms * X + "
+        f"{raw.b * 1e3:.4f} ms on {card}; planning with a = {g.a * 1e3:.4f} ms, b = "
+        f"{g.b * 1e3:.4f} ms")
+    K = 8
+    multiples = np.linspace(10.0, 40.0, K)
+    scn = Scenario(services=[
+        ServiceRequest(id=k, deadline=float(multiples[k] * g.g(K) + 0.05),
+                       spectral_eff=7.0) for k in range(K)],
+        total_bandwidth_hz=40_000.0, content_bits=512.0)
+    _zero_llm_counts()
+    p0, d0 = eng.prefill_calls, eng.decode_calls
+    t0 = time.perf_counter()
+    rep = Provisioner(scn, workload=wl, scheduler="stacking",
+                      allocator="inv_se", delay=g, device=DEV).run(
+        timed=True)
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = _llm_counts()
+    prefills, decodes = eng.prefill_calls - p0, eng.decode_calls - d0
+    plan = rep.plan
+    check(decodes == plan.num_batches,
+          f"{decodes} decode steps for {plan.num_batches} batches")
+    check(launches == {"rmsnorm": (2 * L + 1) * (prefills + decodes),
+                       "flash_attention": L * prefills,
+                       "decode_attention": L * decodes},
+          f"main path launches {launches} for {prefills} prefills and "
+          f"{decodes} decode steps")
+    steps = [plan.steps_completed[k] for k in range(K)]
+    check(min(steps) > 0, f"a request got no tokens: {steps}")
+    for k, toks in rep.content.items():
+        check(len(toks) == plan.steps_completed[k]
+              and all(0 <= t < cfg.vocab_size for t in toks),
+              f"request {k}: {len(toks)} tokens, planned "
+              f"{plan.steps_completed[k]}")
+    measured = sum(s for _, s in rep.timings)
+    predicted = plan.makespan()
+    tokens = sum(steps)
+    log(f"[llm-main] K={K}: {plan.num_batches} batches, sizes "
+        f"{dict(sorted(collections.Counter(plan.batch_sizes()).items()))}, "
+        f"tokens per request {steps}, {prefills} prefill call(s)")
+    log(f"[llm-main] mean TokenQuality {rep.mean_fid:.4f}, outage "
+        f"{rep.outage_rate:.1%}; decode measured {measured:.4f} s (sum of "
+        f"timed batches), predicted {predicted:.4f} s (plan makespan under "
+        f"the fit), measured/predicted {measured / predicted:.4f}; "
+        f"{tokens / measured:.1f} tokens/s; whole run {wall:.3f} s")
+    log(f"[llm-main] launches: calibration {cal}, provisioning {launches} "
+        f"= per prefill (22 flash, 45 rmsnorm) and per decode step (22 "
+        f"decode, 45 rmsnorm)")
+    return dict(n_params=n_params, curve=curve, fit_a=raw.a, fit_b=raw.b,
+                a=g.a, b=g.b, K=K, batches=plan.num_batches,
+                batch_sizes=plan.batch_sizes(), steps=steps,
+                mean_quality=rep.mean_fid, outage_rate=rep.outage_rate,
+                measured_s=measured, predicted_s=predicted,
+                tokens_per_s=tokens / measured, wall_s=wall,
+                prefills=prefills, decodes=decodes,
+                calibration_launches=cal, provision_launches=launches,
+                launches={k: cal[k] + launches[k] for k in launches}), wl
+
+
+def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
+    """Where one decode step's time goes at ``batch`` (prompt
+    LLM_PROMPT): torch.profiler for device time by kernel, the same steps
+    unprofiled for wall time; host time of one call of each wrapper."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rms
+    eng = wl._eng()
+    toks = np.random.default_rng(3).integers(
+        0, eng.cfg.vocab_size, (batch, LLM_PROMPT)).astype(np.int32)
+    _, cache = eng.prefill(toks)
+    tok = torch.zeros((batch, 1), dtype=torch.int64, device=DEV)
+    eng.decode(tok, cache)
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.decode(tok, cache)
+    _sync()
+    wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.decode(tok, cache)
+        _sync()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev = {e.key: e.self_device_time_total / steps for e in events}
+    launches = sum(e.count for e in events) / steps
+    device_us = sum(dev.values())
+    busy = device_us / wall_us
+
+    def share(pattern):
+        return sum(v for k, v in dev.items() if pattern in k)
+    ours = {"rmsnorm": share("rmsnorm_kernel"),
+            "decode_attention": share("decode_kernel")}
+    log(f"[llm-trace] one decode step at batch {batch}, cache "
+        f"{LLM_MAX_LEN}, position {LLM_PROMPT}: wall {wall_us:.0f} us "
+        f"(unprofiled), device busy {device_us:.0f} us = {busy:.1%} of "
+        f"wall, idle {1 - busy:.1%}; {launches:.0f} kernels per step; "
+        + ", ".join(f"{k} {v:.0f} us" for k, v in ours.items()))
+    for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[llm-trace]   {v:9.1f} us/step  {k[:90]}")
+    x = torch.randn((batch, 1, 2048), device=DEV)
+    w = torch.ones(2048, device=DEV)
+    q = torch.randn((1, 16, 32, 64), device=DEV)
+    kv = torch.randn((1, 16, 4, 64), device=DEV)
+    qd = torch.randn((batch, 1, 32, 64), device=DEV)
+    cd = torch.randn((batch, LLM_MAX_LEN, 4, 64), device=DEV).to(
+        torch.bfloat16)
+    cur = torch.full((batch,), LLM_PROMPT, dtype=torch.int32, device=DEV)
+    host = {}
+    for name, fn in (("rmsnorm wrapper", lambda: rms.rmsnorm(x, w)),
+                     ("flash_attention wrapper",
+                      lambda: fa.flash_attention(q, kv, kv)),
+                     ("decode_attention wrapper",
+                      lambda: dec.decode_attention(qd, cd, cd, cur)),
+                     ("torch.add", lambda: x + 1.0)):
+        fn()
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host[name] = (time.perf_counter() - t0) * 1e6 / 200
+        _sync()
+    log("[llm-trace] host us per call (200 calls, no sync): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    return dict(batch=batch, wall_us=wall_us, device_us=device_us,
+                busy=busy, launches_per_step=launches, ours_us=ours,
+                top=sorted(dev.items(), key=lambda kv: -kv[1])[:8],
+                host_us_per_call=host)
+
+
+def _greedy_logits(cfg, params, prompt, tokens, device):
+    """Logits of each decode step when ``prompt`` is followed by
+    ``tokens`` (the engine's order: prompt[-1] is re-fed first)."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.models import api
+    run = RunConfig()
+    p = torch.as_tensor(prompt[None].astype("int64"), device=device)
+    _, cache = api.make_prefill_step(cfg, run, LLM_MAX_LEN)(params, p)
+    step = api.make_decode_step(cfg, run)
+    out, tok = [], p[:, -1:]
+    for t in tokens:
+        logits, cache = step(params, tok, cache)
+        out.append(logits[0, -1].cpu())
+        tok = torch.tensor([[t]], device=device)
+    return out
+
+
+def parity_params(cfg):
+    """Full-width params for the parity phase: every random leaf normal
+    with std LLM_PARITY_STD (norm scales 1), drawn on the card.
+
+    The reference's init (``fan_in = shape[-2]``, copied as it is) gives
+    wq a fan_in of H and wk one of KV: q has std sqrt(d/H) = 8, k
+    sqrt(d/KV) = 22.6, so attention scores have a std of ~180 and each
+    softmax is one-hot.  Rounding differences then flip which key wins,
+    and the logits of two correct implementations part by O(1)
+    (``reference_init_gap`` reports it).  At std 0.02 the scores are
+    O(1) and the comparison measures the kernels, not that chaos."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import P, init_params, map_schema
+    sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
+                     else P(p.shape, scale=LLM_PARITY_STD),
+                     transformer.schema(cfg))
+    return init_params(sch, torch.Generator(device=DEV).manual_seed(5), DEV)
+
+
+def reference_init_gap(cfg, params):
+    """Card vs CPU logits of the first decode step on the main path's
+    params (the reference's init).  Reported, not gated: see
+    ``parity_params`` for why they part."""
+    import numpy as np
+    prompt = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, 16).astype(np.int32)
+    card = _greedy_logits(cfg, params, prompt, [0], DEV)[0]
+    cpu = _greedy_logits(cfg, _tree_to(params, "cpu"), prompt, [0], "cpu")[0]
+    gap = float((card - cpu).abs().max())
+    log(f"[llm-parity] reference init (not gated): first decode step "
+        f"logits card vs CPU max abs gap {gap:.3g} at |logit| <= "
+        f"{float(cpu.abs().max()):.3g}; argmax {int(card.argmax())} vs "
+        f"{int(cpu.argmax())}")
+    return dict(max_abs_gap=gap, scale=float(cpu.abs().max()),
+                argmax_equal=int(card.argmax()) == int(cpu.argmax()))
+
+
+def phase_llm_parity(cfg):
+    """K=2, prompt 16, 4 tokens each, through DecodeWorkload on the card
+    (kernels) and on the CPU (plain versions), same params
+    (``parity_params``): the greedy tokens and the first decode step's
+    logits."""
+    import torch
+    from repro_torch.api import DecodeWorkload
+    from repro_torch.core.delay_model import DelayModel
+    from repro_torch.core.plan import BatchPlan
+    prompt_len, n = 16, 4
+    plan = BatchPlan(batches=[[(0, i), (1, i)] for i in range(n)],
+                     start_times=[float(i) for i in range(n)],
+                     steps_completed={0: n, 1: n}, delay=DelayModel())
+    params = parity_params(cfg)
+    cpu_params = _tree_to(params, "cpu")
+    out = {}
+    for dev, p in ((DEV, params), ("cpu", cpu_params)):
+        wl = DecodeWorkload(cfg=cfg, params=p, max_len=LLM_MAX_LEN,
+                            prompt_len=prompt_len, device=dev)
+        before = _llm_counts()
+        out[dev] = wl.execute(plan).content
+        if dev == DEV:
+            after = _llm_counts()
+            check(after["decode_attention"] - before["decode_attention"]
+                  == cfg.num_layers * n, "parity run on the card did not "
+                  "launch decode_attention per layer and step")
+        prompts = {k: wl._prompt(k, cfg.vocab_size) for k in (0, 1)}
+    first = {dev: _greedy_logits(cfg, p, prompts[0], [0], dev)[0]
+             for dev, p in ((DEV, params), ("cpu", cpu_params))}
+    err = float((first[DEV] - first["cpu"]).abs().max())
+    scale = float(first["cpu"].abs().max())
+    tol = LLM_PARITY_TOL * scale
+    check(err <= tol, f"first decode step logits, card vs CPU: max abs "
+          f"err {err:.3g} over {tol:.3g} = {LLM_PARITY_TOL} x the largest "
+          f"|logit| {scale:.3g}")
+    margins = []
+    for k in (0, 1):
+        a, b = out[DEV][k], out["cpu"][k]
+        if a == b:
+            continue
+        i = next(j for j in range(n) if a[j] != b[j])
+        logits = _greedy_logits(cfg, cpu_params, prompts[k], b[:i + 1],
+                                "cpu")[i]
+        top2 = torch.topk(logits, 2).values
+        margin = float(top2[0] - top2[1])
+        margins.append(dict(request=k, step=i, margin=margin))
+        log(f"[llm-parity] request {k} differs at token {i}: card "
+            f"{a[i]}, CPU {b[i]}; CPU top-2 logit margin {margin:.3g}")
+        check(margin <= tol,
+              f"request {k}: tokens differ at step {i} with a top-2 "
+              f"margin {margin:.3g} over the logits tolerance {tol:.3g}")
+    log(f"[llm-parity] K=2, prompt {prompt_len}, {n} tokens each: card "
+        f"{out[DEV]}, CPU {out['cpu']} "
+        f"({'equal' if not margins else 'differ within the margin'}); "
+        f"first decode step logits max abs err {err:.3g} at |logit| <= "
+        f"{scale:.3g} (tolerance {LLM_PARITY_TOL} x {scale:.3g}); weights "
+        f"normal(0, {LLM_PARITY_STD})")
+    return dict(tokens_card=out[DEV], tokens_cpu=out["cpu"],
+                logits_max_abs_err=err, logits_scale=scale,
+                tol=tol, margins=margins, weight_std=LLM_PARITY_STD)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_llm(card, cfg=None):
+    """The llm_decode path on ``cfg`` (default: full-width TinyLlama)."""
+    import torch
+    from repro_torch.configs.tinyllama_1_1b import CONFIG
+    from repro_torch.models import api
+    LLM = cfg or CONFIG
+    t0 = time.perf_counter()
+    params = api.init_model(LLM, torch.Generator(device=DEV).manual_seed(0),
+                            DEV)
+    _sync()
+    log(f"[llm] {LLM.name} params drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    shapes = llm_shapes(LLM, params)
+    L = LLM.num_layers
+    per = collections.Counter()
+    for (name, _), n in shapes.items():
+        per[name] += n
+    check(dict(per) == {"rmsnorm": 2 * (2 * L + 1), "flash_attention": L,
+                        "decode_attention": L},
+          f"one prefill + one decode step made {dict(per)} kernel calls")
+    summaries, rows = phase_llm_kernels(shapes)
+    main_path, wl = phase_llm_main(LLM, params, card)
+    for s in summaries:
+        s["launches"] = main_path["launches"][s["name"]]
+    trace = phase_llm_trace(wl)
+    del wl
+    chaos = reference_init_gap(LLM, params)
+    del params
+    parity = phase_llm_parity(LLM)
+    parity["reference_init_gap"] = chaos
+    return summaries, dict(kernel_rows=rows, main=main_path, trace=trace,
+                           parity=parity)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -454,16 +1073,18 @@ def main() -> int:
     kernel["launches"] = main_path["launches"]
     trace = phase_trace(wl)
     parity = phase_parity(CONFIG, wl.params)
+    del wl
+    llm_kernels, llm = phase_llm(card)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         kernel=kernel, kernel_rows=rows, main=main_path, trace=trace,
-        parity=parity,
+        parity=parity, llm_kernels=llm_kernels, llm=llm,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": [kernel] + llm_kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@
                          scheduler="stacking", allocator="inv_se").run()
 
 runs P1 (bandwidth allocation) -> P2 (batch-denoising plan) -> validate
--> simulate -> execution on the workload's U-Net, and bundles the result
+-> simulate -> execution on the workload's model (the U-Net, or the
+transformer for ``workload="llm_decode"``), and bundles the result
 in a ``ProvisionReport``.  Omitting the workload gives the analytic
 pipeline alone.  The port of ``repro.api.provisioner.Provisioner``'s
 static path; components are chosen by name from the plain dicts
@@ -20,7 +21,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api.workloads import DiffusionWorkload
+from repro_torch.api.workloads import DecodeWorkload, DiffusionWorkload
 from repro_torch.core.bandwidth import (coordinate_refine, equal_allocate,
                                         inv_se_allocate, make_plan,
                                         pso_allocate)
@@ -55,7 +56,7 @@ def _coordinate(scn, scheduler, delay, quality, *, init="inv_se", **kw):
 SCHEDULERS = {"stacking": stacking}
 ALLOCATORS = {"equal": _equal, "inv_se": _inv_se, "pso": _pso,
               "coordinate": _coordinate}
-WORKLOADS = {"diffusion": DiffusionWorkload}
+WORKLOADS = {"diffusion": DiffusionWorkload, "llm_decode": DecodeWorkload}
 
 
 def _pick(table: dict, choice, kind: str):
@@ -75,7 +76,7 @@ class ProvisionReport:
     tau_prime: Dict[int, float]               # generation budgets
     plan: BatchPlan                           # P2 solution
     sim: SimResult                            # analytic timeline + quality
-    content: Optional[Dict[int, Any]] = None  # per-service images
+    content: Optional[Dict[int, Any]] = None  # images or tokens
     timings: List[Tuple[int, float]] = dataclasses.field(
         default_factory=list)                 # measured (batch_size, s)
     delay: Optional[DelayModel] = None
@@ -104,7 +105,8 @@ class Provisioner:
     """Binds a scenario to one (workload, scheduler, allocator) choice.
 
     workload: ``None`` (analytic only), ``"diffusion"`` (a
-    ``DiffusionWorkload`` on ``device``) or a workload instance.
+    ``DiffusionWorkload`` on ``device``), ``"llm_decode"`` (a
+    ``DecodeWorkload`` on ``device``) or a workload instance.
     ``allocator_kwargs`` pass through to the P1 solver
     (``num_particles``, ``iters``, ``seed``, ...)."""
 

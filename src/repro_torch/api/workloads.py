@@ -1,11 +1,14 @@
-"""The diffusion workload: the DDIM ``BatchDenoisingExecutor`` behind the
-calls a ``Provisioner`` makes (calibrate, execute, open a session).
+"""The workloads behind the calls a ``Provisioner`` makes (calibrate,
+execute, open a session): ``DiffusionWorkload`` wraps the DDIM
+``BatchDenoisingExecutor`` (the paper's image generation) and
+``DecodeWorkload`` the LLM ``ServingEngine`` (one denoising task == one
+decode token).
 
-The port of ``repro.api.workloads.DiffusionWorkload``.  Randomness is a
-``torch.Generator`` instead of a jax key; ``execute`` and
-``open_session`` also take ``latents=`` (service id -> (H, W, C) array)
-so a run can start from given noise.  The model is built lazily, at the
-first call that needs it.
+The port of ``repro.api.workloads``.  Randomness is a
+``torch.Generator`` instead of a jax key; the diffusion workload's
+``execute`` and ``open_session`` also take ``latents=`` (service id ->
+(H, W, C) array) so a run can start from given noise.  Models are built
+lazily, at the first call that needs them.
 """
 
 from __future__ import annotations
@@ -13,16 +16,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.config import RunConfig, get_config, smoke_variant
 from repro_torch.configs.ddim_cifar10 import SMOKE
 from repro_torch.core.delay_model import DelayModel, fit
 from repro_torch.core.plan import BatchPlan
 from repro_torch.core.quality_model import PowerLawFID, QualityModel
 from repro_torch.diffusion import unet
 from repro_torch.diffusion.executor import BatchDenoisingExecutor
+from repro_torch.models import api as models_api
 from repro_torch.models.params import init_params
+from repro_torch.serving.engine import Request, ServingEngine, TokenQuality
 
 
 @dataclasses.dataclass
@@ -100,3 +107,112 @@ class DiffusionWorkload:
                      latents: Optional[Mapping[int, Any]] = None):
         """Stepwise execution handle (``DenoiseSession``)."""
         return self._ex().open_session(plan, generator, latents)
+
+
+class DecodeWorkload:
+    """Deadline-aware autoregressive decoding on the ``ServingEngine``.
+
+    cfg: a ``ModelConfig`` (default: the smoke variant of ``arch``);
+    params: its param tree on any device (default: ``init_model`` from a
+    CPU generator seeded ``init_seed``); run: a ``RunConfig`` (default:
+    bfloat16 KV cache); device: where the model runs.  Prompts are
+    ``prompt_len`` tokens drawn as the reference draws them, so both
+    packages serve identical prompts."""
+
+    name = "llm_decode"
+
+    def __init__(self, cfg=None, params=None, run=None,
+                 max_len: int = 128, prompt_len: int = 8,
+                 arch: str = "tinyllama-1.1b", engine=None,
+                 init_seed: int = 0, device="cuda"):
+        self.cfg = cfg
+        self.params = params
+        self.run = run
+        self.max_len = max_len
+        self.prompt_len = prompt_len
+        self.arch = arch
+        self._engine = engine
+        self.init_seed = init_seed
+        self.device = resolve_device(device) if engine is None \
+            else engine.device
+
+    def _eng(self) -> ServingEngine:
+        if self._engine is None:
+            cfg = self.cfg if self.cfg is not None \
+                else smoke_variant(get_config(self.arch))
+            params = self.params
+            if params is None:
+                params = models_api.init_model(
+                    cfg, torch.Generator().manual_seed(self.init_seed),
+                    self.device)
+            run = self.run if self.run is not None else RunConfig()
+            self._engine = ServingEngine(cfg, params, run, self.max_len,
+                                         delay=self.default_delay(),
+                                         device=self.device)
+            self.cfg, self.params, self.run = cfg, self._engine.params, run
+        return self._engine
+
+    def default_delay(self) -> DelayModel:
+        # the reference's CPU-scale guesses, not a card measurement;
+        # calibrate() measures the real g(X)
+        return DelayModel(a=0.002, b=0.02)
+
+    def default_quality(self) -> QualityModel:
+        return TokenQuality()
+
+    def measure_delay_curve(self,
+                            generator: Optional[torch.Generator] = None,
+                            batch_sizes: Sequence[int] = (1, 2, 4),
+                            reps: int = 2):
+        """Fig. 1a raw data for decode steps: [(X, best seconds)]
+        (``generator`` is unused: the prompts are zeros, as in the
+        reference's calibration)."""
+        return self._eng().measure_decode_curve(batch_sizes, reps)
+
+    def calibrate(self, generator: Optional[torch.Generator] = None, *,
+                  batch_sizes: Sequence[int] = (1, 2, 4),
+                  reps: int = 2) -> DelayModel:
+        """Fit g(X) from timed decode steps."""
+        return self._eng().measure_decode_delay(batch_sizes=batch_sizes,
+                                                reps=reps)
+
+    def _prompt(self, service_id: int, vocab: int) -> np.ndarray:
+        rng = np.random.default_rng(self.init_seed * 7919 + service_id)
+        return rng.integers(0, vocab, self.prompt_len).astype(np.int32)
+
+    def _load_requests(self, plan: BatchPlan) -> None:
+        eng = self._eng()
+        top = max(plan.steps_completed.values(), default=0)
+        if self.prompt_len + top > self.max_len:
+            raise ValueError(
+                f"plan wants {top} tokens but max_len={self.max_len} "
+                f"leaves room for {self.max_len - self.prompt_len}; "
+                f"raise max_len or tighten deadlines")
+        eng.requests.clear()
+        for k in sorted(plan.steps_completed):
+            eng.requests[k] = Request(
+                id=k, prompt=self._prompt(k, eng.cfg.vocab_size),
+                deadline=float("inf"))
+
+    def execute(self, plan: BatchPlan,
+                generator: Optional[torch.Generator] = None, *,
+                timed: bool = False,
+                latents: Optional[Mapping[int, Any]] = None
+                ) -> WorkloadOutput:
+        """Greedy tokens per request (``generator`` is unused: decoding
+        is argmax).  Decoding starts from prompts, so ``latents`` must be
+        None."""
+        if latents is not None:
+            raise ValueError("llm_decode starts from prompts; it takes no "
+                             "latents")
+        self._load_requests(plan)
+        eng = self._eng()
+        out = eng.execute(plan, timed=timed)
+        return WorkloadOutput(content={k: list(v) for k, v in out.items()},
+                              timings=list(eng.last_timings))
+
+    def open_session(self, plan: BatchPlan,
+                     generator: Optional[torch.Generator] = None):
+        """Stepwise decode handle (``DecodeSession``)."""
+        self._load_requests(plan)
+        return self._eng().open_session(plan)

@@ -12,5 +12,22 @@ Each kernel package ships:
 The wrapper decides by the tensor's device alone.  There is no switch
 and no fallback: a CUDA tensor never reaches the plain version.
 
-Kernels ported: groupnorm_silu (diffusion U-Net hot spot).
+Kernels ported: groupnorm_silu (diffusion U-Net hot spot), rmsnorm,
+flash_attention (prefill) and decode_attention (flash-decode over the
+KV cache) on the transformer's serving path.
 """
+
+from __future__ import annotations
+
+import torch
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """Call the C entry ``fn(*args, stream)`` on the current stream of
+    ``device``.  Enters ``torch.cuda.device`` only when ``device`` is
+    not the current one, to keep the host cost of a launch low."""
+    if device.index is not None and \
+            device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream().cuda_stream)
+    return fn(*args, torch.cuda.current_stream().cuda_stream)

@@ -1,0 +1,116 @@
+"""Wrapper for flash-decode attention.
+
+A CPU tensor goes to the plain version (``ref.decode_attention_ref``);
+a CUDA tensor launches the kernel of ``csrc/decode_attention.cu`` or
+raises.  q and the cache may differ in type (float32 q over a bfloat16
+cache is the serving path's default).  ``launches`` counts kernel
+launches, so a run can show that its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build, launch
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)        # the kernel's compiled head sizes
+MAX_GROUP = 32                   # query heads per KV head the kernel holds
+_MAX_GRID = 65535
+
+
+@functools.cache
+def _entry():
+    fn = build.load("decode_attention").decode_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_cache, v_cache, window):
+    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
+            or k_cache.shape != v_cache.shape:
+        raise ValueError(f"decode_attention: q must be (B,1,H,D) and the "
+                         f"caches (B,S,KV,D), got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    B, _, H, D = q.shape
+    _, S, KV, Dk = k_cache.shape
+    if k_cache.shape[0] != B or Dk != D or KV < 1 or H % KV:
+        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} and "
+                         f"cache {tuple(k_cache.shape)} do not fit "
+                         f"(H = KV * G)")
+    if D not in HEAD_DIMS or H // KV > MAX_GROUP:
+        raise ValueError(f"decode_attention: head_dim {D} must be in "
+                         f"{HEAD_DIMS} and H/KV = {H // KV} at most "
+                         f"{MAX_GROUP}")
+    if q.dtype not in _DTYPES or k_cache.dtype not in _DTYPES \
+            or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"decode_attention: q and the caches must be "
+                        f"float32 or bfloat16, the two caches of one type; "
+                        f"got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    if k_cache.device != q.device or v_cache.device != q.device:
+        raise ValueError("decode_attention: q and caches on different "
+                         "devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    if not (q.is_contiguous() and k_cache.is_contiguous()
+            and v_cache.is_contiguous()):
+        raise ValueError("decode_attention: q and caches must be contiguous")
+    if window < 0:
+        raise ValueError(f"decode_attention: window must be >= 0, got "
+                         f"{window}")
+    if B > _MAX_GRID or KV > _MAX_GRID:
+        raise ValueError(f"decode_attention: B={B} or KV={KV} over the grid "
+                         f"limit {_MAX_GRID}")
+
+
+def _cur_tensor(cur_len, B: int, device) -> torch.Tensor:
+    if isinstance(cur_len, torch.Tensor):
+        if cur_len.device != device:
+            raise ValueError(f"decode_attention: cur_len on {cur_len.device}"
+                             f", q on {device}")
+        if cur_len.dim() == 0:
+            cur_len = cur_len.expand(B)
+        if cur_len.shape != (B,):
+            raise ValueError(f"decode_attention: cur_len must be ({B},), "
+                             f"got {tuple(cur_len.shape)}")
+        return cur_len.to(torch.int32).contiguous()
+    return torch.full((B,), int(cur_len), dtype=torch.int32, device=device)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_len, *,
+                     window: int = 0) -> torch.Tensor:
+    """One query token per row against the cache: q (B,1,H,D), caches
+    (B,S,KV,D), ``cur_len`` (B,) (or one int) valid entries per row,
+    including the token just written.  Positions >= cur_len, and with
+    ``window`` those < cur_len - window, are masked.  f32 scores, softmax
+    and PV product; output in q's type."""
+    global launches
+    _check(q, k_cache, v_cache, window)
+    B, _, H, D = q.shape
+    cur = _cur_tensor(cur_len, B, q.device)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, cur, window=window)
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    o = torch.empty_like(q)
+    if q.numel() == 0:
+        return o
+    rc = launch(_entry(), q.device, q.data_ptr(), k_cache.data_ptr(),
+                v_cache.data_ptr(), cur.data_ptr(), o.data_ptr(), B, S, H,
+                KV, D, int(window), 1.0 / math.sqrt(D), _DTYPES[q.dtype],
+                _DTYPES[k_cache.dtype])
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {rc} at q {tuple(q.shape)}, cache "
+                           f"{tuple(k_cache.shape)}")
+    launches += 1
+    return o

@@ -1,0 +1,94 @@
+"""Wrapper for forward flash attention.
+
+A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
+tensor launches the kernel of ``csrc/flash_attention.cu`` or raises.
+``launches`` counts kernel launches, so a run can show that its path
+went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build, launch
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)        # the kernel's compiled head sizes
+_MAX_GRID_YZ = 65535
+
+
+@functools.cache
+def _entry():
+    fn = build.load("flash_attention").flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q must be (B,Sq,H,D) and k, v "
+                         f"(B,Skv,KV,D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    _, Skv, KV, Dk = k.shape
+    if k.shape[0] != B or Dk != D or KV < 1 or H % KV:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} and "
+                         f"k {tuple(k.shape)} do not fit (H = KV * G)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {D} not in "
+                         f"{HEAD_DIMS}")
+    if Sq > Skv:
+        raise ValueError(f"flash_attention: Sq={Sq} > Skv={Skv}; queries "
+                         f"align to the end of the keys")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must share one type, "
+                        f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k, v on different devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+    if window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got "
+                         f"{window}")
+    if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: B={B} or H={H} over the grid "
+                         f"limit {_MAX_GRID_YZ}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Softmax attention of q (B,Sq,H,D) over k, v (B,Skv,KV,D), query
+    head h reading KV head h // (H/KV); query i sits at key position
+    i + Skv - Sq (ends aligned).  f32 scores and accumulation; output in
+    q's type."""
+    global launches
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    if q.numel() == 0:
+        return o
+    rc = launch(_entry(), q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), B, Sq, Skv, H, KV, D,
+                int(bool(causal)), int(window), Skv - Sq,
+                1.0 / math.sqrt(D), _DTYPES[q.dtype])
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc} at q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}")
+    launches += 1
+    return o

@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launch
 from repro_torch.kernels.groupnorm_silu.ref import (groupnorm_silu_ref,
                                                     num_groups_for)
 
@@ -68,12 +68,9 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    fn = _entry()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                y.data_ptr(), B, H * W, C, G, float(eps), _DTYPES[x.dtype],
-                stream)
+    rc = launch(_entry(), x.device, x.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), y.data_ptr(), B, H * W, C, G, float(eps),
+                _DTYPES[x.dtype])
     if rc != 0:
         raise RuntimeError(f"groupnorm_silu kernel launch failed: CUDA "
                            f"error {rc} at shape {tuple(x.shape)}")

@@ -1,0 +1,227 @@
+"""Transformer layer primitives, in PyTorch (functional, over plain
+param dicts).
+
+The port of ``repro.models.layers``: norms, rotary embeddings (split
+halves), the MLP, the attention projections, attention over a full
+sequence and over a KV cache, and the embedding.  Leaves keep the
+reference's layouts (``wq (d,H,hd)``, ``wo (H,hd,d)``, ``up/gate (d,f)``,
+``head (d,V)``).
+
+``rmsnorm``, ``chunked_attention`` and ``decode_attention`` go through
+the kernel wrappers: a CPU tensor takes the plain version, a CUDA tensor
+the hand-written kernel (or the wrapper raises).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.models.params import P
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """The reference's ``layers.rmsnorm`` (f32 statistics, output in x's
+    type), through the RMSNorm kernel's wrapper."""
+    return rmsnorm_ops.rmsnorm(x, scale, eps)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def norm_schema(cfg, d=None):
+    d = d or cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return {"scale": P((d,), init="ones")}
+    return {"scale": P((d,), init="ones"), "bias": P((d,), init="zeros")}
+
+
+def apply_norm(cfg, p, x):
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin) for ``apply_rope``, each (..., S, 1, D): [cos, cos]
+    and [-sin, sin] over the two halves.  One table serves every layer
+    of a forward or decode step."""
+    freqs = rope_freqs(head_dim, theta, positions.device)     # (D/2,)
+    angles = positions[..., None].float() * freqs            # (..., S, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return (torch.cat([cos, cos], dim=-1)[..., None, :],
+            torch.cat([-sin, sin], dim=-1)[..., None, :])
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               tables=None) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).  Rotates
+    the two halves of each head (not interleaved pairs):
+    [x1 cos - x2 sin, x1 sin + x2 cos], written as
+    x * [cos, cos] + [x2, x1] * [-sin, sin], which rounds the same.
+    ``tables``: ``rope_tables(positions, D, theta)``, when the caller
+    has it."""
+    cos, sin = tables if tables is not None \
+        else rope_tables(positions, x.shape[-1], theta)
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    return (xf * cos + torch.cat([x2, x1], dim=-1) * sin).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def _act(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(name)
+
+
+def mlp_schema(cfg, d_ff=None):
+    d, f = cfg.d_model, (d_ff or cfg.d_ff)
+    s = {"up": P((d, f)), "down": P((f, d))}
+    if cfg.gated_mlp:
+        s["gate"] = P((d, f))
+    return s
+
+
+def apply_mlp(cfg, p, x):
+    act = _act(cfg.activation)
+    h = x @ p["up"]
+    if cfg.gated_mlp:
+        h = h * act(x @ p["gate"])
+    else:
+        h = act(h)
+    return h @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# Attention projections
+# ---------------------------------------------------------------------------
+
+def attn_schema(cfg):
+    d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    s = {"wq": P((d, H, hd)), "wk": P((d, KV, hd)), "wv": P((d, KV, hd)),
+         "wo": P((H, hd, d))}
+    if cfg.use_qkv_bias:
+        s["bq"] = P((H, hd), init="zeros")
+        s["bk"] = P((KV, hd), init="zeros")
+        s["bv"] = P((KV, hd), init="zeros")
+    if cfg.qk_norm:
+        s["q_norm"] = P((hd,), init="ones")
+        s["k_norm"] = P((hd,), init="ones")
+    return s
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def qkv_project(cfg, p, x, kv_x=None, positions=None, rope: bool = True,
+                rope_tab=None):
+    """Returns q (B,S,H,D), k/v (B,Skv,KV,D).  ``rope_tab``: the
+    ``rope_tables`` of ``positions``, when the caller has them."""
+    kv_x = x if kv_x is None else kv_x
+    q = _project(x, p["wq"])
+    k = _project(kv_x, p["wk"])
+    v = _project(kv_x, p["wv"])
+    if cfg.use_qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rmsnorm(q.contiguous(), p["q_norm"])
+        k = rmsnorm(k.contiguous(), p["k_norm"])
+    if rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta, rope_tab)
+        k = apply_rope(k, positions, cfg.rope_theta, rope_tab)
+    return q, k, v
+
+
+def out_project(p, o: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd")."""
+    h, k, d = p["wo"].shape
+    return o.reshape(*o.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
+
+
+# ---------------------------------------------------------------------------
+# Attention over a full sequence (prefill)
+# ---------------------------------------------------------------------------
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0):
+    """Softmax attention of q (B,S,H,D) over k, v (B,S,KV,D) with GQA,
+    through the flash-attention kernel's wrapper.
+
+    Only Sq == Skv is ported.  There the reference's choices agree: its
+    jnp path aligns the starts of q and k (``q_offset=0``) and its Pallas
+    kernel the ends (``q_offset = Skv - Sq``).  Cross and continuation
+    attention (Sq != Skv) come with the model families that need them,
+    so they raise here on every device.
+    """
+    if q.shape[1] != k.shape[1]:
+        raise NotImplementedError(
+            f"chunked_attention: Sq={q.shape[1]} != Skv={k.shape[1]} "
+            f"(cross or continuation attention) is not ported")
+    return flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (single query token vs. KV cache)
+# ---------------------------------------------------------------------------
+
+def decode_attention(q, k_cache, v_cache, cur_len, *, window: int = 0):
+    """q: (B,1,H,D); caches: (B,S,KV,D); cur_len: (B,) valid cache
+    entries *including* the new token already written.  Through the
+    flash-decode kernel's wrapper, which keeps p in float32 as the
+    reference's Pallas kernel does (its jnp path casts p to the cache's
+    type first)."""
+    return decode_ops.decode_attention(q, k_cache, v_cache, cur_len,
+                                       window=window)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_schema(cfg):
+    s = {"tok": P((cfg.vocab_size, cfg.d_model), init="embed")}
+    if not cfg.tie_embeddings:
+        s["head"] = P((cfg.d_model, cfg.vocab_size))
+    return s
+
+
+def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def unembed(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    return x @ w

@@ -11,6 +11,10 @@ schema we derive
 
 Convolution leaves are stored OIHW, the layout ``F.conv2d`` takes; the
 reference stores them HWIO, and ``params_from_numpy`` transposes them.
+Every other leaf keeps the reference's layout: the transformer's
+``wq (d,H,hd)``, ``wo (H,hd,d)``, ``up``/``gate (d,f)`` and ``head
+(d,V)``, stacked ``(L, ...)`` over layers, arrive as they are, with no
+transpose.
 """
 
 from __future__ import annotations
@@ -27,14 +31,16 @@ class P:
     """A parameter leaf.  ``conv`` marks an OIHW convolution weight
     (HWIO in the reference)."""
     shape: Tuple[int, ...]
-    init: str = "normal"      # normal | zeros | ones
+    init: str = "normal"      # normal | zeros | ones | embed
     scale: Optional[float] = None
     conv: bool = False
 
     @property
     def fan_in(self) -> int:
         # the reference takes shape[-2] of its HWIO / (in, out) leaves:
-        # the input channels, which sit at index 1 of an OIHW weight
+        # the input channels, which sit at index 1 of an OIHW weight.
+        # Copied as it is for every other leaf, stacked (L, ...) ones
+        # included: it gives wq (d,H,hd) a fan_in of H.
         if self.conv:
             return self.shape[1]
         return self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
@@ -55,15 +61,20 @@ def map_schema(fn, schema, path: str = ""):
 def init_params(schema, generator: torch.Generator, device,
                 dtype: torch.dtype = torch.float32):
     """Random params: normal(0, 1/sqrt(fan_in)) unless the leaf pins a
-    scale, ones/zeros where the leaf says so.  Drawn on the generator's
-    device, then moved to ``device``."""
+    scale, normal(0, scale or 0.02) for ``embed`` leaves, ones/zeros
+    where the leaf says so.  Drawn on the generator's device, then moved
+    to ``device``."""
     def make(p: P, _path):
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dtype, device=device)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=dtype, device=device)
-        scale = p.scale if p.scale is not None \
-            else 1.0 / np.sqrt(max(p.fan_in, 1))
+        if p.init == "embed":
+            scale = p.scale or 0.02
+        elif p.scale is not None:
+            scale = p.scale
+        else:
+            scale = 1.0 / np.sqrt(max(p.fan_in, 1))
         w = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                         device=generator.device) * scale
         return w.to(device=device, dtype=dtype)

@@ -1,0 +1,145 @@
+"""The port's flash-decode attention against the reference's Pallas
+kernel (interpret mode) and its jnp oracle, on the same numpy inputs,
+at the sweep of tests/test_kernels.py (MHA, GQA, MQA; windows 0 and 64;
+float32 and bfloat16), windows 16 and 48 (starts inside a block), the
+mixed float32-q / bfloat16-cache case the serving path runs, and
+``layers.decode_attention`` against the reference's model path.
+
+Tolerances are the reference's kernel-test ones (tests/test_kernels.py):
+2e-5 in float32, 2e-2 when bfloat16 is involved (and against the JAX
+model path, which casts p to the cache's type before the PV product).
+cur_len is drawn >= 1, as in the reference's tests: with 0 the oracles
+give the mean of v and the kernels 0 (see the port's ref.py).  On the
+CPU the wrapper runs the plain version and launches nothing; the CUDA
+kernel itself is checked on the card by tests/test_torch_cuda.py.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.decode_attention.kernel import decode_attention_pallas  # noqa: E402
+from repro.kernels.decode_attention.ref import decode_attention_ref as jax_ref  # noqa: E402
+from repro.models.layers import decode_attention as jax_model  # noqa: E402
+from repro_torch.kernels.decode_attention import ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _inputs(B, S, H, KV, D, seed=3):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, 1, H, D)).astype(np.float32),
+            rng.standard_normal((B, S, KV, D)).astype(np.float32),
+            rng.standard_normal((B, S, KV, D)).astype(np.float32),
+            np.random.default_rng(0).integers(1, S + 1, B).astype(np.int32))
+
+
+def _f32(a):
+    return np.asarray(a.float() if isinstance(a, torch.Tensor) else
+                      jnp.asarray(a, jnp.float32), np.float32)
+
+
+def _run(shape, window, q_dtype, c_dtype, bs, seed=3):
+    q, kc, vc, cur = _inputs(*shape, seed=seed)
+    got = decode_attention_ref(torch.tensor(q).to(TDT[q_dtype]),
+                               torch.tensor(kc).to(TDT[c_dtype]),
+                               torch.tensor(vc).to(TDT[c_dtype]),
+                               torch.tensor(cur), window=window)
+    jargs = (jnp.asarray(q, JDT[q_dtype]), jnp.asarray(kc, JDT[c_dtype]),
+             jnp.asarray(vc, JDT[c_dtype]), jnp.asarray(cur))
+    return got, (jax_ref(*jargs, window=window),
+                 decode_attention_pallas(*jargs, window=window, bs=bs,
+                                         interpret=True))
+
+
+SWEEP = [((2, 256, 4, 2, 64), 64), ((1, 128, 8, 8, 32), 32),
+         ((3, 512, 4, 1, 128), 128)]
+
+
+@pytest.mark.parametrize("shape,bs", SWEEP)
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_ref_and_pallas(shape, bs, window, dtype):
+    got, wants = _run(shape, window, dtype, dtype, bs)
+    B, _, H, _, D = shape
+    assert got.dtype == TDT[dtype] and got.shape == (B, 1, H, D)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    for want in wants:
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("window", [0, 16, 48])
+def test_mixed_f32_q_bf16_cache_matches(window):
+    """The serving path's default: float32 q over a bfloat16 cache, at
+    TinyLlama's head geometry (H=32, KV=4, D=64); output float32."""
+    got, wants = _run((2, 256, 32, 4, 64), window, "float32", "bfloat16",
+                      64, seed=5)
+    assert got.dtype == torch.float32
+    for want in wants:
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("window", [16, 48])
+def test_windows_starting_inside_a_block(window):
+    got, wants = _run((3, 256, 8, 2, 64), window, "float32", "float32", 64,
+                      seed=6)
+    for want in wants:
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("c_dtype", ["float32", "bfloat16"])
+def test_layer_decode_attention_matches_jax_model_path(c_dtype):
+    """layers.decode_attention (through the wrapper) against the
+    reference's jnp model path, which casts p to the cache's type."""
+    q, kc, vc, cur = _inputs(2, 128, 8, 2, 64, seed=7)
+    before = ops.launches
+    got = layers.decode_attention(torch.tensor(q),
+                                  torch.tensor(kc).to(TDT[c_dtype]),
+                                  torch.tensor(vc).to(TDT[c_dtype]),
+                                  torch.tensor(cur))
+    assert ops.launches == before
+    want = jax_model(jnp.asarray(q), jnp.asarray(kc, JDT[c_dtype]),
+                     jnp.asarray(vc, JDT[c_dtype]), jnp.asarray(cur))
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
+
+
+def test_wrapper_runs_plain_version_on_cpu_and_takes_an_int_length():
+    q, kc, vc, _ = (torch.tensor(a) for a in _inputs(2, 64, 4, 2, 32))
+    before = ops.launches
+    got = ops.decode_attention(q, kc, vc, 17, window=8)
+    assert ops.launches == before
+    want = decode_attention_ref(q, kc, vc, torch.full((2,), 17), window=8)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_zero_length_row_gives_mean_of_v_in_the_plain_version():
+    """Documented difference: the oracle gives the mean of v for
+    cur_len 0, the kernels 0.  The serving path never passes 0."""
+    q, kc, vc, _ = (torch.tensor(a) for a in _inputs(1, 16, 2, 2, 32))
+    got = ops.decode_attention(q, kc, vc, torch.tensor([0]))
+    torch.testing.assert_close(got[0, 0], vc[0].mean(0), atol=1e-6,
+                               rtol=1e-6)
+
+
+def test_wrapper_rejects_bad_inputs():
+    q, kc, vc, cur = (torch.tensor(a) for a in _inputs(2, 64, 4, 2, 64))
+    with pytest.raises(ValueError):
+        ops.decode_attention(torch.cat([q, q], 1), kc, vc, cur)  # 2 tokens
+    with pytest.raises(TypeError):
+        ops.decode_attention(q, kc, vc.bfloat16(), cur)          # k != v type
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kc, vc, cur[:1])                 # cur shape
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kc[..., :48].contiguous(),
+                             vc[..., :48].contiguous(), cur)     # D mismatch
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kc.transpose(1, 2), vc, cur)     # layout

@@ -1,0 +1,133 @@
+"""The port's flash attention against the reference's Pallas kernel
+(interpret mode) and its jnp oracle, on the same numpy inputs, at the
+sweeps of tests/test_kernels.py (MHA, GQA, MQA with a longer kv, D up
+to 128; causal and not; windows 16, 48 and 64), plus
+``layers.chunked_attention`` against the reference's.
+
+Tolerances are the reference's kernel-test ones (tests/test_kernels.py):
+2e-5 in float32, 2e-2 in bfloat16.  On the CPU the wrapper runs the
+plain version and launches nothing; the CUDA kernel itself is checked
+on the card by tests/test_torch_cuda.py.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.flash_attention.kernel import flash_attention_pallas  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: E402
+from repro.models.layers import chunked_attention as jax_chunked  # noqa: E402
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+
+DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _inputs(B, Sq, Skv, H, KV, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, D)).astype(np.float32),
+            rng.standard_normal((B, Skv, KV, D)).astype(np.float32),
+            rng.standard_normal((B, Skv, KV, D)).astype(np.float32))
+
+
+def _f32(a):
+    return np.asarray(a.float() if isinstance(a, torch.Tensor) else
+                      jnp.asarray(a, jnp.float32), np.float32)
+
+
+def _both(arrays, dtype):
+    tdt, jdt, _ = DTYPES[dtype]
+    return ([torch.tensor(a).to(tdt) for a in arrays],
+            [jnp.asarray(a, jdt) for a in arrays])
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", [
+    (1, 64, 64, 2, 2, 32),       # MHA
+    (2, 64, 64, 4, 2, 64),       # GQA
+    (1, 32, 128, 4, 1, 64),      # MQA, longer kv (ends aligned)
+    (1, 128, 128, 2, 2, 128),
+    (1, 64, 64, 8, 1, 64),       # TinyLlama's head geometry (G=8, D=64)
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_matches_jax_ref_and_pallas(B, Sq, Skv, H, KV, D, causal,
+                                          dtype):
+    tol = DTYPES[dtype][2]
+    (q, k, v), (jq, jk, jv) = _both(_inputs(B, Sq, Skv, H, KV, D), dtype)
+    got = attention_ref(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    for want in (jax_ref(jq, jk, jv, causal=causal),
+                 flash_attention_pallas(jq, jk, jv, causal=causal, bq=32,
+                                        bk=32, interpret=True)):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("window", [16, 48, 64])
+def test_plain_matches_jax_window(window):
+    """Windows whose start falls inside a 32-key block (16, 48) and on a
+    block edge (64)."""
+    (q, k, v), (jq, jk, jv) = _both(_inputs(2, 128, 128, 4, 2, 32, seed=1),
+                                    "float32")
+    got = attention_ref(q, k, v, causal=True, window=window)
+    for want in (jax_ref(jq, jk, jv, causal=True, window=window),
+                 flash_attention_pallas(jq, jk, jv, causal=True,
+                                        window=window, bq=32, bk=32,
+                                        interpret=True)):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+def test_chunked_attention_matches_reference(window):
+    """The model-level call: the port's chunked_attention (through the
+    wrapper) against the reference's jnp chunked path (q_offset 0) at
+    Sq == Skv, where its start alignment and the kernel's end alignment
+    agree."""
+    (q, k, v), (jq, jk, jv) = _both(_inputs(2, 96, 96, 8, 2, 64, seed=2),
+                                    "float32")
+    before = ops.launches
+    got = layers.chunked_attention(q, k, v, causal=True, window=window)
+    assert ops.launches == before
+    want = jax_chunked(jq, jk, jv, causal=True, window=window, q_chunk=32,
+                       kv_chunk=32)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+
+
+def test_chunked_attention_raises_for_cross_attention():
+    q, k, v = (torch.tensor(a) for a in _inputs(1, 8, 16, 2, 2, 32))
+    with pytest.raises(NotImplementedError):
+        layers.chunked_attention(q, k, v, causal=False)
+
+
+def test_wrapper_runs_plain_version_on_cpu():
+    q, k, v = (torch.tensor(a) for a in _inputs(2, 16, 16, 4, 2, 64, seed=3))
+    before = ops.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=5)
+    assert ops.launches == before
+    torch.testing.assert_close(got, attention_ref(q, k, v, window=5),
+                               atol=0, rtol=0)
+
+
+def test_wrapper_rejects_bad_inputs():
+    q, k, v = (torch.tensor(a) for a in _inputs(1, 16, 16, 4, 2, 64))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k[:, :, :1].expand(-1, -1, 3, -1)
+                            .contiguous(), v)                 # H % KV
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., :48].contiguous(),
+                            k[..., :48].contiguous(),
+                            v[..., :48].contiguous())         # head_dim 48
+    with pytest.raises(ValueError):
+        ops.flash_attention(torch.cat([q, q], 1), k, v)       # Sq > Skv
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.bfloat16(), v)               # mixed types
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2), k, v)          # layout
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, window=-1)

@@ -116,7 +116,7 @@ for name in names:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not bad, bad
-assert len(names) >= 20, names
+assert len(names) >= 41, names
 print(len(names))
 """
     src = str(Path(__file__).resolve().parents[1] / "src")
@@ -134,4 +134,4 @@ def test_port_sources_name_no_jax_or_repro_import():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     bad = [f"{f.relative_to(root)}: {m.group(0).strip()}"
            for f in files for m in pattern.finditer(f.read_text())]
-    assert len(files) > 20 and not bad, bad
+    assert len(files) >= 43 and not bad, bad
