@@ -31,22 +31,24 @@ when it does not hold:
                  (plain version), same params with conv_out redrawn and
                  same latents; final images agree within 1e-3 (max abs
                  error).
-  7. llm-kernels -- full-width TinyLlama-1.1B (1.1B f32 params drawn
-                 on the card from a seed): the shapes one prefill
-                 (prompt 128) and one decode step (cache 512) give
-                 rmsnorm, flash_attention and decode_attention; each
-                 wrapper against its plain version at those shapes,
-                 B in {1, 8}, float32, bfloat16 and f32-q/bf16-cache,
-                 windows 0 and 48 (tol 2e-5 / 2e-2); times at B=8 in
-                 the path's types: kernel, plain, library (F.rms_norm,
-                 F.scaled_dot_product_attention), bound.
-  8. llm-main -- the same model through Provisioner(workload=
+  7. llm-main -- full-width TinyLlama-1.1B (1.1B f32 params drawn on
+                 the card from a seed) through Provisioner(workload=
                  DecodeWorkload(...)): calibrate g(X) at batch 1..16, a
                  K=8 scenario with deadlines in multiples of g(8), then
                  inv_se -> stacking -> validate -> simulate -> timed
                  execute.  Launch counts must be exactly 22 flash per
                  prefill, 22 decode per decode step and 45 rmsnorm per
-                 forward; every request gets its planned tokens.
+                 forward; every request gets its planned tokens.  Every
+                 kernel call is recorded by its shapes and types.
+  8. llm-kernels -- rmsnorm, flash_attention and decode_attention, each
+                 wrapper against its plain version at every call shape
+                 phase llm-main gave it (batch 1..16; prompt 32 in the
+                 calibration, 128 in provisioning; cache 512) and at the
+                 shapes of one request (one prefill and one decode step)
+                 with B in {1, 8}: float32, bfloat16 and f32-q/bf16-
+                 cache, windows 0 and 48 (tol 2e-5 / 2e-2); times at B=8
+                 in the path's types: kernel, plain, library
+                 (F.rms_norm, F.scaled_dot_product_attention), bound.
   9. llm-trace -- one decode step at batch 8: device busy and idle
                  share, kernels by device time, host time per wrapper.
  10. llm-parity -- K=2, prompt 16, 4 tokens each through DecodeWorkload
@@ -54,8 +56,10 @@ when it does not hold:
                  weights drawn with std 0.02 (see parity_params): equal
                  greedy tokens (or a difference inside the logits'
                  margin) and the first decode step's logits within 2e-2
-                 of the largest |logit|.  The reference init's gap is
-                 reported, not gated.
+                 of the largest |logit|.  On both these weights and the
+                 reference's init, logit_witness reports (ungated) the
+                 card with kernels, the card with plain versions, the
+                 CPU, and the CPU with the embedding moved by one ulp.
 
 The last lines are the card (nvidia-smi), one JSON object with the
 kernels' numbers and, last, {"ok": true, "device": {...}}.  Details go
@@ -65,6 +69,7 @@ to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import subprocess
@@ -468,7 +473,6 @@ def phase_parity(cfg, params):
 # ---------------------------------------------------------------------------
 
 LLM_PROMPT, LLM_MAX_LEN = 128, 512
-DEV = "cuda"                       # where the llm phases put the model
 LLM_WINDOW = 48                    # its start falls mid-tile in both kernels
 LLM_PARITY_TOL = 2e-2              # logits, card vs CPU, bf16 KV cache,
                                    # relative to the largest |logit|
@@ -476,62 +480,83 @@ LLM_PARITY_STD = 0.02              # parity weights: Llama's init range
 RMS_OPS_PER_ELEMENT = 4            # x*x+acc, /d+eps (per row), *rsqrt, *w
 
 
-def _sync():
-    import torch
-    if torch.device(DEV).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def _llm_ops():
+    """Kernel name -> the module of its wrapper (of the same name)."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rmsnorm import ops as rms
-    return {"rmsnorm": (rms, "rmsnorm"),
-            "flash_attention": (fa, "flash_attention"),
-            "decode_attention": (dec, "decode_attention")}
+    return {"rmsnorm": rms, "flash_attention": fa, "decode_attention": dec}
+
+
+def _plain_llm():
+    """Kernel name -> its plain PyTorch version."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    return {"rmsnorm": rmsnorm_ref, "flash_attention": attention_ref,
+            "decode_attention": decode_attention_ref}
 
 
 def _zero_llm_counts():
-    for mod, _ in _llm_ops().values():
+    for mod in _llm_ops().values():
         mod.launches = 0
 
 
 def _llm_counts():
-    return {name: mod.launches for name, (mod, _) in _llm_ops().items()}
+    return {name: mod.launches for name, mod in _llm_ops().items()}
 
 
 def _dt(t):
     return str(t.dtype).replace("torch.", "")
 
 
+@contextlib.contextmanager
+def _swapped(make):
+    """Put ``make(name, wrapper)`` in the place of each llm wrapper (the
+    model's layers call them through their modules), and the wrappers
+    back after."""
+    ops = _llm_ops()
+    real = {name: getattr(mod, name) for name, mod in ops.items()}
+    for name, mod in ops.items():
+        setattr(mod, name, make(name, real[name]))
+    try:
+        yield
+    finally:
+        for name, mod in ops.items():
+            setattr(mod, name, real[name])
+
+
+def _recording(seen, drop_batch=False):
+    """Count each llm wrapper call in ``seen`` by (kernel, shapes and
+    types of its tensor arguments of rank > 1), the batch dimension
+    dropped or kept; the wrapper itself runs and counts its launch."""
+    import torch
+    lo = 1 if drop_batch else 0
+
+    def make(name, fn):
+        def record(*args, **kw):
+            seen[(name, tuple((tuple(a.shape[lo:]), _dt(a)) for a in args
+                              if isinstance(a, torch.Tensor)
+                              and a.dim() > 1))] += 1
+            return fn(*args, **kw)
+        return record
+    return _swapped(make)
+
+
 def llm_shapes(cfg, params):
     """(kernel, per-row shapes and types) -> calls in one prefill of a
     LLM_PROMPT-token prompt plus one decode step against a LLM_MAX_LEN
-    cache, recorded on the card with B=1."""
+    cache, recorded on the card with B=1: what one request costs each
+    kernel on the provisioning path, the unit the kernels are timed in."""
     import torch
     from repro_torch.config import RunConfig
     from repro_torch.models import api
     seen = collections.Counter()
-    real = {}
-
-    def wrap(name, fn):
-        def record(*args, **kw):
-            sig = tuple((tuple(a.shape[1:]), _dt(a)) for a in args
-                        if isinstance(a, torch.Tensor) and a.dim() > 1)
-            seen[(name, sig)] += 1
-            return fn(*args, **kw)
-        return record
     run = RunConfig()
-    toks = torch.zeros((1, LLM_PROMPT), dtype=torch.int64, device=DEV)
-    for name, (mod, attr) in _llm_ops().items():
-        real[name] = getattr(mod, attr)
-        setattr(mod, attr, wrap(name, real[name]))
-    try:
+    toks = torch.zeros((1, LLM_PROMPT), dtype=torch.int64, device="cuda")
+    with _recording(seen, drop_batch=True):
         _, cache = api.make_prefill_step(cfg, run, LLM_MAX_LEN)(params, toks)
         api.make_decode_step(cfg, run)(params, toks[:, -1:], cache)
-    finally:
-        for name, (mod, attr) in _llm_ops().items():
-            setattr(mod, attr, real[name])
     return dict(sorted(seen.items()))
 
 
@@ -556,137 +581,142 @@ def _check_close(name, got, want, tol_key, err):
           f"{name}: max abs err {e:.3g} over tolerance {tol}")
 
 
-def phase_llm_kernels(shapes):
-    """Each new kernel against its plain version at every recorded
-    full-width shape, B in {1, 8}: float32, bfloat16 and (decode) f32 q
-    over a bf16 cache, plus a windowed case of each attention kernel.
-    Times at B=8 in the path's own types: kernel, plain version, library
-    yardstick, bound."""
-    import numpy as np
+def _check_llm_kernel(name, sig, randn, rng, err):
+    """The wrapper of ``name`` against its plain version at one call
+    shape ``sig`` (batch included), fresh random inputs: float32,
+    bfloat16 and (decode) f32 q over a bf16 cache; the attention kernels
+    causal, at window 0 (the path's) and LLM_WINDOW."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    run, plain = getattr(_llm_ops()[name], name), _plain_llm()[name]
+    if name == "rmsnorm":
+        (xs, _), = sig
+        x32 = randn(xs)
+        for xd in (f32, bf16):
+            for sd in (f32, bf16):
+                x, w = x32.to(xd), randn(xs[-1:]).to(sd)
+                _check_close(f"rmsnorm {xs} {xd}/{sd}", run(x, w),
+                             plain(x, w),
+                             "bfloat16" if bf16 in (xd, sd) else "float32",
+                             err)
+    elif name == "flash_attention":
+        (qs, _), (ks, _), _ = sig
+        q32, k32, v32 = randn(qs), randn(ks), randn(ks)
+        for window in (0, LLM_WINDOW):
+            for dt in (f32, bf16):
+                q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+                _check_close(f"flash_attention {qs} {dt} w={window}",
+                             run(q, k, v, window=window),
+                             plain(q, k, v, window=window),
+                             "bfloat16" if dt == bf16 else "float32", err)
+    else:
+        (qs, _), (cs, _), _ = sig
+        q32, k32, v32 = randn(qs), randn(cs), randn(cs)
+        cur = torch.tensor(rng.integers(1, cs[1] + 1, cs[0]),
+                           dtype=torch.int32, device="cuda")
+        for window in (0, LLM_WINDOW):
+            for qd, cd in ((f32, f32), (bf16, bf16), (f32, bf16)):
+                q, k, v = q32.to(qd), k32.to(cd), v32.to(cd)
+                _check_close(f"decode_attention {qs} over {cs} {qd}/{cd} "
+                             f"w={window}",
+                             run(q, k, v, cur, window=window),
+                             plain(q, k, v, cur, window=window),
+                             "bfloat16" if bf16 in (qd, cd) else "float32",
+                             err)
+
+
+def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
+    """Device time of one call of ``name`` at per-row shape ``sig`` and
+    batch B, in the path's types (f32 activations, bf16 cache): kernel,
+    plain version, library yardstick, and the bound."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import ops as dec
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.rmsnorm import ops as rms
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    f32, bf16 = torch.float32, torch.bfloat16
-    gen = torch.Generator(device=DEV).manual_seed(21)
+    run, plain = getattr(_llm_ops()[name], name), _plain_llm()[name]
+    if name == "rmsnorm":
+        (xs, _), = sig
+        x, w = randn((B,) + xs), randn(xs[-1:])
+        nb = _nbytes(x, x, w)
+        bound, by = _bound(nb, RMS_OPS_PER_ELEMENT * x.numel())
+        return dict(kernel=name, shape=[B, *xs], types="float32",
+                    calls=calls, bound_ms=bound, bound_by=by, bytes=nb,
+                    ms=device_time_ms(lambda: run(x, w)),
+                    plain_ms=device_time_ms(lambda: plain(x, w)),
+                    library_ms=device_time_ms(
+                        lambda: F.rms_norm(x, xs[-1:], w, 1e-6)))
+    if name == "flash_attention":
+        (qs, _), (ks, _), _ = sig
+        q, k, v = randn((B,) + qs), randn((B,) + ks), randn((B,) + ks)
+        S, H, D = qs
+        pairs = S * (S + 1) // 2 * B * H
+        nb = _nbytes(q, q, k, v)
+        bound, by = _bound(nb, 4 * D * pairs)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return dict(kernel=name, shape=[B, *qs], kv_shape=[B, *ks],
+                    types="float32", calls=calls, bound_ms=bound,
+                    bound_by=by, bytes=nb, flops=4 * D * pairs,
+                    ms=device_time_ms(lambda: run(q, k, v)),
+                    plain_ms=device_time_ms(lambda: plain(q, k, v)),
+                    library_ms=device_time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True)))
+    (qs, _), (cs, _), _ = sig
+    S, KV, D = cs
+    H = qs[1]
+    q = randn((B,) + qs)
+    kb = randn((B,) + cs).to(torch.bfloat16)
+    vb = randn((B,) + cs).to(torch.bfloat16)
+    cur = torch.tensor(rng.integers(1, S + 1, B), dtype=torch.int32,
+                       device="cuda")
+    valid = int(cur.clamp(max=S).sum())
+    nb = _nbytes(q, q, cur) + 2 * valid * KV * D * kb.element_size()
+    bound, by = _bound(nb, 4 * D * H * valid)
+    qt = q.to(torch.bfloat16).transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (kb, vb))
+    mask = (torch.arange(S, device="cuda")[None]
+            < cur[:, None])[:, None, None, :]
+    return dict(kernel=name, shape=[B, *qs], cache_shape=[B, *cs],
+                types="float32 q, bfloat16 cache", calls=calls,
+                cur_len=cur.tolist(), bound_ms=bound, bound_by=by,
+                bytes=nb, flops=4 * D * H * valid,
+                ms=device_time_ms(lambda: run(q, kb, vb, cur)),
+                plain_ms=device_time_ms(lambda: plain(q, kb, vb, cur)),
+                library_ms=device_time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True)))
+
+
+def phase_llm_kernels(shapes, seen):
+    """Each new kernel against its plain version at every call shape the
+    main path gave it (``seen``: calibration at batch 1..16 and prompt
+    min(32, max_len - 2), provisioning at prompt LLM_PROMPT), and at the
+    one-request shapes (``shapes``) with B in {1, 8}; then times at B=8
+    per one-request shape: kernel, plain version, library yardstick,
+    bound."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(21)
     rng = np.random.default_rng(21)
 
-    def randn(shape, dt=f32):
-        return torch.randn(shape, generator=gen, device=DEV).to(dt)
-    errs = {k: {} for k in ("rmsnorm", "flash_attention", "decode_attention")}
-    rows = []
-    for (name, sig), calls in shapes.items():
-        log(f"[llm-kernels] {name}: {calls} call(s) per prefill + decode "
-            f"step at {sig}")
-        for B in (1, 8):
-            if name == "rmsnorm":
-                (xs, xdt), = sig
-                x32 = randn((B,) + xs)
-                for xd in (f32, bf16):
-                    for sd in (f32, bf16):
-                        x, w = x32.to(xd), randn(xs[-1:], sd)
-                        key = "bfloat16" if bf16 in (xd, sd) else "float32"
-                        _check_close(f"rmsnorm {B}x{xs} {xd}/{sd}",
-                                     rms.rmsnorm(x, w), rmsnorm_ref(x, w),
-                                     key, errs[name])
-                if B == 8:
-                    w = randn(xs[-1:])
-                    nb = _nbytes(x32, x32, w)
-                    bound, by = _bound(nb, RMS_OPS_PER_ELEMENT * x32.numel())
-                    rows.append(dict(
-                        kernel=name, shape=[B, *xs], types="float32",
-                        calls=calls, bound_ms=bound, bound_by=by, bytes=nb,
-                        ms=device_time_ms(lambda: rms.rmsnorm(x32, w)),
-                        plain_ms=device_time_ms(lambda: rmsnorm_ref(x32, w)),
-                        library_ms=device_time_ms(lambda: F.rms_norm(
-                            x32, xs[-1:], w, 1e-6))))
-            elif name == "flash_attention":
-                (qs, _), (ks, _), _ = sig
-                q32, k32, v32 = randn((B,) + qs), randn((B,) + ks), \
-                    randn((B,) + ks)
-                for window in (0, LLM_WINDOW):
-                    for dt in (f32, bf16):
-                        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
-                        _check_close(
-                            f"flash_attention {B}x{qs} {dt} w={window}",
-                            fa.flash_attention(q, k, v, window=window),
-                            attention_ref(q, k, v, window=window),
-                            "bfloat16" if dt == bf16 else "float32",
-                            errs[name])
-                if B == 8:
-                    S, H, D = qs
-                    pairs = S * (S + 1) // 2 * B * H
-                    nb = _nbytes(q32, q32, k32, v32)
-                    bound, by = _bound(nb, 4 * D * pairs)
-                    qt, kt, vt = (t.transpose(1, 2).contiguous()
-                                  for t in (q32, k32, v32))
-                    rows.append(dict(
-                        kernel=name, shape=[B, *qs], kv_shape=[B, *ks],
-                        types="float32", calls=calls, bound_ms=bound,
-                        bound_by=by, bytes=nb, flops=4 * D * pairs,
-                        ms=device_time_ms(
-                            lambda: fa.flash_attention(q32, k32, v32)),
-                        plain_ms=device_time_ms(
-                            lambda: attention_ref(q32, k32, v32)),
-                        library_ms=device_time_ms(
-                            lambda: F.scaled_dot_product_attention(
-                                qt, kt, vt, is_causal=True,
-                                enable_gqa=True))))
-            else:
-                (qs, qdt), (cs, cdt), _ = sig
-                S, KV, D = cs
-                H = qs[1]
-                q32 = randn((B,) + qs)
-                k32, v32 = randn((B,) + cs), randn((B,) + cs)
-                cur = torch.tensor(rng.integers(1, S + 1, B),
-                                   dtype=torch.int32, device=DEV)
-                for window in (0, LLM_WINDOW):
-                    for qd, cd in ((f32, f32), (bf16, bf16), (f32, bf16)):
-                        q, k, v = q32.to(qd), k32.to(cd), v32.to(cd)
-                        _check_close(
-                            f"decode_attention {B}x{qs} over {cs} "
-                            f"{qd}/{cd} w={window}",
-                            dec.decode_attention(q, k, v, cur,
-                                                 window=window),
-                            decode_attention_ref(q, k, v, cur,
-                                                 window=window),
-                            "bfloat16" if bf16 in (qd, cd) else "float32",
-                            errs[name])
-                if B == 8:
-                    # the path's types: f32 q over a bf16 cache
-                    kb, vb = k32.to(bf16), v32.to(bf16)
-                    valid = int(cur.clamp(max=S).sum())
-                    nb = (_nbytes(q32, q32, cur)
-                          + 2 * valid * KV * D * kb.element_size())
-                    bound, by = _bound(nb, 4 * D * H * valid)
-                    qt = q32.to(bf16).transpose(1, 2).contiguous()
-                    kt, vt = (t.transpose(1, 2).contiguous()
-                              for t in (kb, vb))
-                    mask = (torch.arange(S, device=DEV)[None]
-                            < cur[:, None])[:, None, None, :]
-                    rows.append(dict(
-                        kernel=name, shape=[B, *qs], cache_shape=[B, *cs],
-                        types="float32 q, bfloat16 cache", calls=calls,
-                        cur_len=cur.tolist(), bound_ms=bound, bound_by=by,
-                        bytes=nb, flops=4 * D * H * valid,
-                        ms=device_time_ms(
-                            lambda: dec.decode_attention(q32, kb, vb, cur)),
-                        plain_ms=device_time_ms(
-                            lambda: decode_attention_ref(q32, kb, vb, cur)),
-                        library_ms=device_time_ms(
-                            lambda: F.scaled_dot_product_attention(
-                                qt, kt, vt, attn_mask=mask,
-                                enable_gqa=True))))
-    _sync()
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    todo = set(seen) | {(name, tuple(((B,) + s, t) for s, t in sig))
+                        for name, sig in shapes for B in (1, 8)}
+    errs = {name: {} for name in _llm_ops()}
+    done = collections.defaultdict(list)
+    for name, sig in sorted(todo):
+        _check_llm_kernel(name, sig, randn, rng, errs[name])
+        done[name].append(sig[0][0])
+    torch.cuda.synchronize()
+    check(set(done) == set(errs), f"kernels checked: {sorted(done)}")
     for name, e in errs.items():
-        log(f"[llm-kernels] {name}: all recorded shapes x B in (1, 8) "
-            f"match the plain version: max abs err "
-            + ", ".join(f"{k} {v:.3g} (tol {TOL[k]})"
-                        for k, v in sorted(e.items())))
+        batches = sorted({s[0] for s in done[name]})
+        rows = sorted({s[1:] for s in done[name]})
+        log(f"[llm-kernels] {name}: {len(done[name])} call shapes (B in "
+            f"{batches}, per row {rows}) match the plain version: max abs "
+            f"err " + ", ".join(f"{k} {v:.3g} (tol {TOL[k]})"
+                                for k, v in sorted(e.items())))
+    rows = [_time_llm_kernel(name, sig, calls, randn, rng)
+            for (name, sig), calls in shapes.items()]
     log("[llm-kernels] B=8, device time per call (CUDA graph, L2-warm); "
         "library: F.rms_norm, F.scaled_dot_product_attention (decode: "
         "bf16 q, boolean cur_len mask)")
@@ -719,6 +749,7 @@ def phase_llm_kernels(shapes):
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in mine)
             else "operations",
             library_ms=total("library_ms"),
+            checked_shapes=[list(s) for s in done[name]],
             timed_as="sum over its calls in one prefill (prompt "
                      f"{LLM_PROMPT}) + one decode step (cache "
                      f"{LLM_MAX_LEN}) at B=8, the path's types"))
@@ -728,7 +759,10 @@ def phase_llm_kernels(shapes):
 def phase_llm_main(cfg, params, card):
     """Full-width TinyLlama through the port's Provisioner: calibrate
     g(X), a K=8 scenario, inv_se -> stacking -> validate -> simulate ->
-    timed execute.  Kernel counts are zeroed before and read after."""
+    timed execute.  Kernel counts are zeroed before and read after, and
+    every wrapper call is recorded by its shapes and types (a Counter
+    update per call, against ~40 us of host time per wrapper call), so
+    phase llm-kernels checks each kernel at the shapes this run gave it."""
     import numpy as np
     import torch
     from repro_torch.api import DecodeWorkload, Provisioner
@@ -737,15 +771,17 @@ def phase_llm_main(cfg, params, card):
     L = cfg.num_layers
     n_params = sum(int(np.prod(p.shape)) for p in _leaves(params))
     wl = DecodeWorkload(cfg=cfg, params=params, max_len=LLM_MAX_LEN,
-                        prompt_len=LLM_PROMPT, device=DEV)
+                        prompt_len=LLM_PROMPT, device="cuda")
     eng = wl._eng()
     log(f"[llm-main] {cfg.name}: {n_params} params (seeded random, "
         f"float32 on the card), KV cache {wl.run.kv_cache_dtype}, prompt "
         f"{LLM_PROMPT}, max_len {LLM_MAX_LEN}")
-    _zero_llm_counts()
+    seen = collections.Counter()
     sizes, reps = (1, 2, 4, 8, 16), 5
+    _zero_llm_counts()
     p0, d0 = eng.prefill_calls, eng.decode_calls
-    curve = wl.measure_delay_curve(batch_sizes=sizes, reps=reps)
+    with _recording(seen):
+        curve = wl.measure_delay_curve(batch_sizes=sizes, reps=reps)
     cal = _llm_counts()
     cal_prefills = eng.prefill_calls - p0
     cal_decodes = eng.decode_calls - d0
@@ -763,8 +799,8 @@ def phase_llm_main(cfg, params, card):
     log(f"[llm-main] decode delay curve (batch, best-of-{reps} s per "
         f"step): " + ", ".join(f"{x}: {s * 1e3:.3f} ms" for x, s in curve))
     log(f"[llm-main] fitted g(X) = {raw.a * 1e3:.4f} ms * X + "
-        f"{raw.b * 1e3:.4f} ms on {card}; planning with a = {g.a * 1e3:.4f} ms, b = "
-        f"{g.b * 1e3:.4f} ms")
+        f"{raw.b * 1e3:.4f} ms on {card}; planning with a = "
+        f"{g.a * 1e3:.4f} ms, b = {g.b * 1e3:.4f} ms")
     K = 8
     multiples = np.linspace(10.0, 40.0, K)
     scn = Scenario(services=[
@@ -774,10 +810,11 @@ def phase_llm_main(cfg, params, card):
     _zero_llm_counts()
     p0, d0 = eng.prefill_calls, eng.decode_calls
     t0 = time.perf_counter()
-    rep = Provisioner(scn, workload=wl, scheduler="stacking",
-                      allocator="inv_se", delay=g, device=DEV).run(
-        timed=True)
-    _sync()
+    with _recording(seen):
+        rep = Provisioner(scn, workload=wl, scheduler="stacking",
+                          allocator="inv_se", delay=g, device="cuda").run(
+            timed=True)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _llm_counts()
     prefills, decodes = eng.prefill_calls - p0, eng.decode_calls - d0
@@ -809,7 +846,7 @@ def phase_llm_main(cfg, params, card):
         f"{tokens / measured:.1f} tokens/s; whole run {wall:.3f} s")
     log(f"[llm-main] launches: calibration {cal}, provisioning {launches} "
         f"= per prefill (22 flash, 45 rmsnorm) and per decode step (22 "
-        f"decode, 45 rmsnorm)")
+        f"decode, 45 rmsnorm); {len(seen)} distinct call shapes")
     return dict(n_params=n_params, curve=curve, fit_a=raw.a, fit_b=raw.b,
                 a=g.a, b=g.b, K=K, batches=plan.num_batches,
                 batch_sizes=plan.batch_sizes(), steps=steps,
@@ -818,7 +855,8 @@ def phase_llm_main(cfg, params, card):
                 tokens_per_s=tokens / measured, wall_s=wall,
                 prefills=prefills, decodes=decodes,
                 calibration_launches=cal, provision_launches=launches,
-                launches={k: cal[k] + launches[k] for k in launches}), wl
+                launches={k: cal[k] + launches[k] for k in launches}), \
+        wl, seen
 
 
 def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
@@ -829,26 +867,24 @@ def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.decode_attention import ops as dec
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.rmsnorm import ops as rms
+    ops = _llm_ops()
     eng = wl._eng()
     toks = np.random.default_rng(3).integers(
         0, eng.cfg.vocab_size, (batch, LLM_PROMPT)).astype(np.int32)
     _, cache = eng.prefill(toks)
-    tok = torch.zeros((batch, 1), dtype=torch.int64, device=DEV)
+    tok = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
     eng.decode(tok, cache)
-    _sync()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.decode(tok, cache)
-    _sync()
+    torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             eng.decode(tok, cache)
-        _sync()
+        torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     dev = {e.key: e.self_device_time_total / steps for e in events}
@@ -867,28 +903,31 @@ def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
         + ", ".join(f"{k} {v:.0f} us" for k, v in ours.items()))
     for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[llm-trace]   {v:9.1f} us/step  {k[:90]}")
-    x = torch.randn((batch, 1, 2048), device=DEV)
-    w = torch.ones(2048, device=DEV)
-    q = torch.randn((1, 16, 32, 64), device=DEV)
-    kv = torch.randn((1, 16, 4, 64), device=DEV)
-    qd = torch.randn((batch, 1, 32, 64), device=DEV)
-    cd = torch.randn((batch, LLM_MAX_LEN, 4, 64), device=DEV).to(
+    x = torch.randn((batch, 1, 2048), device="cuda")
+    w = torch.ones(2048, device="cuda")
+    q = torch.randn((1, 16, 32, 64), device="cuda")
+    kv = torch.randn((1, 16, 4, 64), device="cuda")
+    qd = torch.randn((batch, 1, 32, 64), device="cuda")
+    cd = torch.randn((batch, LLM_MAX_LEN, 4, 64), device="cuda").to(
         torch.bfloat16)
-    cur = torch.full((batch,), LLM_PROMPT, dtype=torch.int32, device=DEV)
+    cur = torch.full((batch,), LLM_PROMPT, dtype=torch.int32, device="cuda")
     host = {}
-    for name, fn in (("rmsnorm wrapper", lambda: rms.rmsnorm(x, w)),
+    for name, fn in (("rmsnorm wrapper",
+                      lambda: ops["rmsnorm"].rmsnorm(x, w)),
                      ("flash_attention wrapper",
-                      lambda: fa.flash_attention(q, kv, kv)),
+                      lambda: ops["flash_attention"].flash_attention(
+                          q, kv, kv)),
                      ("decode_attention wrapper",
-                      lambda: dec.decode_attention(qd, cd, cd, cur)),
+                      lambda: ops["decode_attention"].decode_attention(
+                          qd, cd, cd, cur)),
                      ("torch.add", lambda: x + 1.0)):
         fn()
-        _sync()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(200):
             fn()
         host[name] = (time.perf_counter() - t0) * 1e6 / 200
-        _sync()
+        torch.cuda.synchronize()
     log("[llm-trace] host us per call (200 calls, no sync): "
         + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
     return dict(batch=batch, wall_us=wall_us, device_us=device_us,
@@ -922,42 +961,62 @@ def parity_params(cfg):
     The reference's init (``fan_in = shape[-2]``, copied as it is) gives
     wq a fan_in of H and wk one of KV: q has std sqrt(d/H) = 8, k
     sqrt(d/KV) = 22.6, so attention scores have a std of ~180 and each
-    softmax is one-hot.  Rounding differences then flip which key wins,
-    and the logits of two correct implementations part by O(1)
-    (``reference_init_gap`` reports it).  At std 0.02 the scores are
-    O(1) and the comparison measures the kernels, not that chaos."""
+    softmax is one-hot.  Rounding then decides which key wins, and the
+    logits of two correct computations part by O(1) (``logit_witness``
+    measures it).  At std 0.02 the scores are O(1) and the comparison
+    measures the kernels."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.models.params import P, init_params, map_schema
     sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
                      else P(p.shape, scale=LLM_PARITY_STD),
                      transformer.schema(cfg))
-    return init_params(sch, torch.Generator(device=DEV).manual_seed(5), DEV)
+    return init_params(sch, torch.Generator(device="cuda").manual_seed(5),
+                       "cuda")
 
 
-def reference_init_gap(cfg, params):
-    """Card vs CPU logits of the first decode step on the main path's
-    params (the reference's init).  Reported, not gated: see
-    ``parity_params`` for why they part."""
+def logit_witness(cfg, params, cpu_params, label):
+    """The first decode step's logits (a 16-token prompt from seed 9)
+    four ways on the same params: the card with the kernels, the card
+    with the plain versions in their place (the same cuBLAS matmuls),
+    the CPU, and the CPU with every token-embedding entry moved by one
+    ulp in a random direction.  Where one ulp of input moves the CPU's
+    own logits about as far as the card's differ from the CPU's, the
+    params make the logits a matter of rounding, whatever computes
+    them.  Reported, not gated."""
     import numpy as np
+    import torch
     prompt = np.random.default_rng(9).integers(
         0, cfg.vocab_size, 16).astype(np.int32)
-    card = _greedy_logits(cfg, params, prompt, [0], DEV)[0]
-    cpu = _greedy_logits(cfg, _tree_to(params, "cpu"), prompt, [0], "cpu")[0]
-    gap = float((card - cpu).abs().max())
-    log(f"[llm-parity] reference init (not gated): first decode step "
-        f"logits card vs CPU max abs gap {gap:.3g} at |logit| <= "
-        f"{float(cpu.abs().max()):.3g}; argmax {int(card.argmax())} vs "
-        f"{int(cpu.argmax())}")
-    return dict(max_abs_gap=gap, scale=float(cpu.abs().max()),
-                argmax_equal=int(card.argmax()) == int(cpu.argmax()))
+
+    def first(p, device):
+        return _greedy_logits(cfg, p, prompt, [0], device)[0]
+    out = {"card": first(params, "cuda")}
+    with _swapped(lambda name, _: _plain_llm()[name]):
+        out["card_plain"] = first(params, "cuda")
+    out["cpu"] = first(cpu_params, "cpu")
+    tok = cpu_params["embed"]["tok"]
+    up = torch.rand(tok.shape, generator=torch.Generator().manual_seed(13))
+    moved = torch.nextafter(tok, torch.where(up < 0.5, math.inf, -math.inf))
+    out["cpu_ulp"] = first(dict(cpu_params, embed=dict(
+        cpu_params["embed"], tok=moved)), "cpu")
+    gaps = {f"{a} vs {b}": float((out[a] - out[b]).abs().max())
+            for a, b in (("card", "cpu"), ("card_plain", "cpu"),
+                         ("card", "card_plain"), ("cpu_ulp", "cpu"))}
+    argmax = {k: int(v.argmax()) for k, v in out.items()}
+    scale = float(out["cpu"].abs().max())
+    log(f"[llm-witness] {label}: first decode step logits, |logit| <= "
+        f"{scale:.3g}; max abs gap "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f"; argmax {argmax}")
+    return dict(label=label, scale=scale, gaps=gaps, argmax=argmax)
 
 
 def phase_llm_parity(cfg):
     """K=2, prompt 16, 4 tokens each, through DecodeWorkload on the card
     (kernels) and on the CPU (plain versions), same params
     (``parity_params``): the greedy tokens and the first decode step's
-    logits."""
+    logits; then ``logit_witness`` on these params."""
     import torch
     from repro_torch.api import DecodeWorkload
     from repro_torch.core.delay_model import DelayModel
@@ -969,20 +1028,20 @@ def phase_llm_parity(cfg):
     params = parity_params(cfg)
     cpu_params = _tree_to(params, "cpu")
     out = {}
-    for dev, p in ((DEV, params), ("cpu", cpu_params)):
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
         wl = DecodeWorkload(cfg=cfg, params=p, max_len=LLM_MAX_LEN,
                             prompt_len=prompt_len, device=dev)
         before = _llm_counts()
         out[dev] = wl.execute(plan).content
-        if dev == DEV:
+        if dev == "cuda":
             after = _llm_counts()
             check(after["decode_attention"] - before["decode_attention"]
                   == cfg.num_layers * n, "parity run on the card did not "
                   "launch decode_attention per layer and step")
         prompts = {k: wl._prompt(k, cfg.vocab_size) for k in (0, 1)}
     first = {dev: _greedy_logits(cfg, p, prompts[0], [0], dev)[0]
-             for dev, p in ((DEV, params), ("cpu", cpu_params))}
-    err = float((first[DEV] - first["cpu"]).abs().max())
+             for dev, p in (("cuda", params), ("cpu", cpu_params))}
+    err = float((first["cuda"] - first["cpu"]).abs().max())
     scale = float(first["cpu"].abs().max())
     tol = LLM_PARITY_TOL * scale
     check(err <= tol, f"first decode step logits, card vs CPU: max abs "
@@ -990,7 +1049,7 @@ def phase_llm_parity(cfg):
           f"|logit| {scale:.3g}")
     margins = []
     for k in (0, 1):
-        a, b = out[DEV][k], out["cpu"][k]
+        a, b = out["cuda"][k], out["cpu"][k]
         if a == b:
             continue
         i = next(j for j in range(n) if a[j] != b[j])
@@ -1005,14 +1064,17 @@ def phase_llm_parity(cfg):
               f"request {k}: tokens differ at step {i} with a top-2 "
               f"margin {margin:.3g} over the logits tolerance {tol:.3g}")
     log(f"[llm-parity] K=2, prompt {prompt_len}, {n} tokens each: card "
-        f"{out[DEV]}, CPU {out['cpu']} "
+        f"{out['cuda']}, CPU {out['cpu']} "
         f"({'equal' if not margins else 'differ within the margin'}); "
         f"first decode step logits max abs err {err:.3g} at |logit| <= "
         f"{scale:.3g} (tolerance {LLM_PARITY_TOL} x {scale:.3g}); weights "
         f"normal(0, {LLM_PARITY_STD})")
-    return dict(tokens_card=out[DEV], tokens_cpu=out["cpu"],
+    witness = logit_witness(cfg, params, cpu_params,
+                            f"weights normal(0, {LLM_PARITY_STD})")
+    return dict(tokens_card=out["cuda"], tokens_cpu=out["cpu"],
                 logits_max_abs_err=err, logits_scale=scale,
-                tol=tol, margins=margins, weight_std=LLM_PARITY_STD)
+                tol=tol, margins=margins, weight_std=LLM_PARITY_STD,
+                witness=witness)
 
 
 def _tree_to(tree, device):
@@ -1021,36 +1083,37 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_llm(card, cfg=None):
-    """The llm_decode path on ``cfg`` (default: full-width TinyLlama)."""
+def phase_llm(card):
+    """The llm_decode path on full-width TinyLlama-1.1B."""
     import torch
     from repro_torch.configs.tinyllama_1_1b import CONFIG
     from repro_torch.models import api
-    LLM = cfg or CONFIG
     t0 = time.perf_counter()
-    params = api.init_model(LLM, torch.Generator(device=DEV).manual_seed(0),
-                            DEV)
-    _sync()
-    log(f"[llm] {LLM.name} params drawn on the card in "
+    params = api.init_model(CONFIG,
+                            torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    torch.cuda.synchronize()
+    log(f"[llm] {CONFIG.name} params drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s")
-    shapes = llm_shapes(LLM, params)
-    L = LLM.num_layers
+    shapes = llm_shapes(CONFIG, params)
+    L = CONFIG.num_layers
     per = collections.Counter()
     for (name, _), n in shapes.items():
         per[name] += n
     check(dict(per) == {"rmsnorm": 2 * (2 * L + 1), "flash_attention": L,
                         "decode_attention": L},
           f"one prefill + one decode step made {dict(per)} kernel calls")
-    summaries, rows = phase_llm_kernels(shapes)
-    main_path, wl = phase_llm_main(LLM, params, card)
+    main_path, wl, seen = phase_llm_main(CONFIG, params, card)
+    summaries, rows = phase_llm_kernels(shapes, seen)
     for s in summaries:
         s["launches"] = main_path["launches"][s["name"]]
     trace = phase_llm_trace(wl)
     del wl
-    chaos = reference_init_gap(LLM, params)
+    chaos = logit_witness(CONFIG, params, _tree_to(params, "cpu"),
+                          "reference init")
     del params
-    parity = phase_llm_parity(LLM)
-    parity["reference_init_gap"] = chaos
+    parity = phase_llm_parity(CONFIG)
+    parity["reference_init_witness"] = chaos
     return summaries, dict(kernel_rows=rows, main=main_path, trace=trace,
                            parity=parity)
 

@@ -5,7 +5,10 @@ the full model's head geometry (G=8, D=64), given the same params (the
 reference's ``init_model`` through ``params_from_numpy``) and prompts.
 
 The reference runs with REPRO_FORCE_PALLAS=1 (its Pallas kernels in
-interpret mode): the kernels the port follows.  Plans, allocations and
+interpret mode): the kernels the port follows.  Interpret mode is slow,
+so the engine is compared on the GQA variant, once per cache type; the
+smoke variant's tokens are compared through the Provisioner, with the
+default bfloat16 cache.  Plans, allocations and
 mean quality are compared with ``==`` (the same NumPy planning core);
 tokens with ``==``.  With the default bfloat16 cache the tokens are
 equal too on these inputs; a flip there would be a near-tie of two
@@ -50,17 +53,28 @@ def _prompts(vocab):
     return [rng.integers(0, vocab, n).astype(np.int32) for n in (8, 8, 5)]
 
 
-@pytest.fixture(scope="module", params=list(VARIANTS))
+_MODELS = {}
+
+
+def _model(variant):
+    """(cfg, params, jcfg, jp) of one variant, made once per process."""
+    if variant not in _MODELS:
+        kw = VARIANTS[variant]
+        cfg = dataclasses.replace(
+            smoke_variant(get_config("tinyllama-1.1b")), **kw)
+        jcfg = dataclasses.replace(
+            jax_smoke(jax_get_config("tinyllama-1.1b")), **kw)
+        jp = jax_api.init_model(jcfg, jax.random.PRNGKey(0))
+        params = params_from_numpy(
+            transformer.schema(cfg), jax.tree_util.tree_map(np.asarray, jp),
+            "cpu")
+        _MODELS[variant] = cfg, params, jcfg, jp
+    return _MODELS[variant]
+
+
+@pytest.fixture(params=list(VARIANTS))
 def model(request):
-    kw = VARIANTS[request.param]
-    cfg = dataclasses.replace(smoke_variant(get_config("tinyllama-1.1b")),
-                              **kw)
-    jcfg = dataclasses.replace(jax_smoke(jax_get_config("tinyllama-1.1b")),
-                               **kw)
-    jp = jax_api.init_model(jcfg, jax.random.PRNGKey(0))
-    params = params_from_numpy(transformer.schema(cfg),
-                               jax.tree_util.tree_map(np.asarray, jp), "cpu")
-    return cfg, params, jcfg, jp
+    return _model(request.param)
 
 
 def _serve(engine, prompts):
@@ -82,9 +96,10 @@ def _margin(cfg, params, run, prompt, tokens, step):
     return float(top[0] - top[1])
 
 
-@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
-def test_engine_plan_and_tokens_match_reference(model, kv_dtype):
-    cfg, params, jcfg, jp = model
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"],
+                         ids=["gqa-float32", "gqa-bfloat16"])
+def test_engine_plan_and_tokens_match_reference(kv_dtype):
+    cfg, params, jcfg, jp = _model("gqa")
     prompts = _prompts(cfg.vocab_size)
     delay = dict(a=0.002, b=0.02)
     with pytest.MonkeyPatch.context() as mp:

@@ -7,7 +7,11 @@ cache and ``decode_step`` logits, on TinyLlama's smoke variant (4 heads,
 
 The reference runs with REPRO_FORCE_PALLAS=1 (its Pallas kernels in
 interpret mode, read when it traces): the kernels the port follows,
-with p kept in float32 in decode attention.  Tolerances:
+with p kept in float32 in decode attention.  Interpret mode is slow, so
+it runs on the GQA variant, once per cache type (float32, bfloat16);
+both variants are held to the reference's plain jnp path.  The int8
+cache's writes and reads are held to the reference in
+tests/test_torch_kv_cache.py.  Tolerances:
 
   * float32 KV cache: 1e-4 (atol and rtol) for logits; for cache
     entries 1e-4 relative to the largest |entry| (k and v reach ~20 at
@@ -41,8 +45,7 @@ from repro_torch.models.params import params_from_numpy  # noqa: E402
 
 GQA = dict(num_heads=8, num_kv_heads=1, head_dim=64)
 VARIANTS = {"smoke": {}, "gqa": GQA}
-KV_DTYPES = ["float32", "bfloat16", "int8"]
-TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 2e-2}
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 B, S, MAX_LEN = 2, 16, 32
 
 
@@ -84,23 +87,49 @@ def _jax_run(jcfg, jp, toks, kv_dtype, pallas):
     return pl, cache, dl, cache2
 
 
-@pytest.fixture(scope="module", params=list(VARIANTS))
+class _Model:
+    """One variant's configs, params and tokens; the reference's runs
+    are made when a test first asks for them."""
+
+    def __init__(self, variant):
+        self.cfg, self.jcfg = configs(variant)
+        self.jp = jax_api.init_model(self.jcfg, jax.random.PRNGKey(0))
+        self.params = params_from_numpy(
+            transformer.schema(self.cfg),
+            jax.tree_util.tree_map(np.asarray, self.jp), "cpu")
+        self.toks = np.random.default_rng(1).integers(
+            0, self.cfg.vocab_size, (B, S)).astype(np.int32)
+        self._ref = {}
+
+    def ref(self, kv_dtype, pallas):
+        key = (kv_dtype, pallas)
+        if key not in self._ref:
+            self._ref[key] = _jax_run(self.jcfg, self.jp, self.toks,
+                                      kv_dtype, pallas)
+        return self._ref[key]
+
+    def forward(self):
+        """The reference's forward logits, Pallas forced."""
+        if "forward" not in self._ref:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("REPRO_FORCE_PALLAS", "1")
+                self._ref["forward"] = jax_api.get_model(self.jcfg).forward(
+                    self.jcfg, self.jp, jnp.asarray(self.toks), JaxRun())[0]
+        return self._ref["forward"]
+
+
+_MODELS = {}
+
+
+def _model(variant):
+    if variant not in _MODELS:
+        _MODELS[variant] = _Model(variant)
+    return _MODELS[variant]
+
+
+@pytest.fixture(params=list(VARIANTS))
 def model(request):
-    cfg, jcfg = configs(request.param)
-    jp = jax_api.init_model(jcfg, jax.random.PRNGKey(0))
-    params = params_from_numpy(transformer.schema(cfg),
-                               jax.tree_util.tree_map(np.asarray, jp), "cpu")
-    toks = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (B, S)).astype(np.int32)
-    ref = {(kv, True): _jax_run(jcfg, jp, toks, kv, True)
-           for kv in KV_DTYPES}
-    ref.update({(kv, False): _jax_run(jcfg, jp, toks, kv, False)
-                for kv in ("float32", "bfloat16")})
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("REPRO_FORCE_PALLAS", "1")
-        ref["forward"] = jax_api.get_model(jcfg).forward(
-            jcfg, jp, jnp.asarray(toks), JaxRun())[0]
-    return request.param, cfg, params, toks, ref
+    return _model(request.param)
 
 
 def _port_run(cfg, params, toks, kv_dtype):
@@ -112,23 +141,19 @@ def _port_run(cfg, params, toks, kv_dtype):
     return logits, pl, cache, dl, cache2
 
 
-@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
-def test_forward_prefill_decode_match_reference_pallas(model, kv_dtype):
-    _, cfg, params, toks, ref = model
-    logits, pl, cache, dl, cache2 = _port_run(cfg, params, toks, kv_dtype)
-    jpl, jcache, jdl, jcache2 = ref[(kv_dtype, True)]
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"],
+                         ids=["gqa-float32", "gqa-bfloat16"])
+def test_forward_prefill_decode_match_reference_pallas(kv_dtype):
+    m = _model("gqa")
+    cfg = m.cfg
+    logits, pl, cache, dl, cache2 = _port_run(cfg, m.params, m.toks,
+                                              kv_dtype)
+    jpl, jcache, jdl, jcache2 = m.ref(kv_dtype, True)
     assert logits.shape == (B, S, cfg.vocab_size)
-    _close(logits, ref["forward"], 1e-4)
+    _close(logits, m.forward(), 1e-4)
     _close(pl, jpl, 1e-4)
     for name in ("k", "v"):
-        got, want = cache[name], jcache[name]
-        if kv_dtype == "int8":
-            _close(got["s"], want["s"], 1e-4, scaled=True)
-            # a quotient at a .5 boundary may round the other way
-            assert np.abs(got["q"].numpy().astype(int)
-                          - np.asarray(want["q"]).astype(int)).max() <= 1
-        else:
-            _close(got, want, TOL[kv_dtype], scaled=True)
+        _close(cache[name], jcache[name], TOL[kv_dtype], scaled=True)
     np.testing.assert_array_equal(cache2["pos"].numpy(), [S + 1] * B)
     np.testing.assert_array_equal(np.asarray(jcache2["pos"]), [S + 1] * B)
     _close(dl, jdl, TOL[kv_dtype])
@@ -136,15 +161,15 @@ def test_forward_prefill_decode_match_reference_pallas(model, kv_dtype):
 
 @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
 def test_decode_matches_reference_jnp_path(model, kv_dtype):
-    _, cfg, params, toks, ref = model
-    _, pl, _, dl, _ = _port_run(cfg, params, toks, kv_dtype)
-    jpl, _, jdl, _ = ref[(kv_dtype, False)]
+    _, pl, _, dl, _ = _port_run(model.cfg, model.params, model.toks,
+                                kv_dtype)
+    jpl, _, jdl, _ = model.ref(kv_dtype, False)
     _close(pl, jpl, 2e-2)
     _close(dl, jdl, 2e-2)
 
 
 def test_decode_step_leaves_its_input_cache_as_it_was(model):
-    _, cfg, params, toks, _ = model
+    cfg, params, toks = model.cfg, model.params, model.toks
     run = RunConfig()
     t = torch.tensor(toks, dtype=torch.int64)
     _, cache = api.make_prefill_step(cfg, run, MAX_LEN)(params, t)
@@ -157,12 +182,12 @@ def test_decode_step_leaves_its_input_cache_as_it_was(model):
 
 
 def test_prefill_logits_last_only(model):
-    _, cfg, params, toks, ref = model
     run = RunConfig(prefill_logits="last")
-    pl, _ = api.make_prefill_step(cfg, run, MAX_LEN)(
-        params, torch.tensor(toks, dtype=torch.int64))
-    assert pl.shape == (B, 1, cfg.vocab_size)
-    _close(pl, ref[("float32", True)][0][:, -1:], 1e-4)
+    pl, _ = api.make_prefill_step(model.cfg, run, MAX_LEN)(
+        model.params, torch.tensor(model.toks, dtype=torch.int64))
+    assert pl.shape == (B, 1, model.cfg.vocab_size)
+    # prefill runs no decode attention: the jnp path's logits hold 1e-4
+    _close(pl, model.ref("float32", False)[0][:, -1:], 1e-4)
 
 
 @pytest.mark.parametrize("knob,value", [
