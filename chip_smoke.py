@@ -9,8 +9,8 @@ when it does not hold:
   1. device   -- needs torch.cuda.is_available(); prints the card's name
                  and power limit; turns TF32 off for cuDNN and matmul.
   2. build    -- builds every CUDA kernel (groupnorm_silu, rmsnorm,
-                 flash_attention, decode_attention) with nvcc, one
-                 process per source, all at once; prints the seconds.
+                 flash_attention, decode_attention, ssd_scan) with nvcc,
+                 one process per source, all at once; prints the seconds.
   3. kernels  -- groupnorm_silu's wrapper against its plain PyTorch
                  version on the card, at every shape one full-width
                  U-Net forward gives it, B in {1, 8, 16}, float32 (tol
@@ -31,24 +31,32 @@ when it does not hold:
                  (plain version), same params with conv_out redrawn and
                  same latents; final images agree within 1e-3 (max abs
                  error).
-  7. llm-main -- full-width TinyLlama-1.1B (1.1B f32 params drawn on
-                 the card from a seed) through Provisioner(workload=
-                 DecodeWorkload(...)): calibrate g(X) at batch 1..16, a
-                 K=8 scenario with deadlines in multiples of g(8), then
-                 inv_se -> stacking -> validate -> simulate -> timed
-                 execute.  Launch counts must be exactly 22 flash per
-                 prefill, 22 decode per decode step and 45 rmsnorm per
-                 forward; every request gets its planned tokens.  Every
-                 kernel call is recorded by its shapes and types.
-  8. llm-kernels -- rmsnorm, flash_attention and decode_attention, each
-                 wrapper against its plain version at every call shape
-                 phase llm-main gave it (batch 1..16; prompt 32 in the
-                 calibration, 128 in provisioning; cache 512) and at the
-                 shapes of one request (one prefill and one decode step)
-                 with B in {1, 8}: float32, bfloat16 and f32-q/bf16-
-                 cache, windows 0 and 48 (tol 2e-5 / 2e-2); times at B=8
-                 in the path's types: kernel, plain, library
-                 (F.rms_norm, F.scaled_dot_product_attention), bound.
+
+Then phases 7-10 run for each model of the llm_decode path, at full
+width and depth with f32 weights drawn on the card from a seed:
+TinyLlama-1.1B (22 layers) and Zamba2-2.7B (54 Mamba2 layers in 9
+groups, one weight-shared attention block per group, 2.42B params):
+
+  7. llm-main -- the model through Provisioner(workload=DecodeWorkload(
+                 ...)): calibrate g(X) at batch 1..16, a K=8 scenario
+                 with deadlines in multiples of g(8), then inv_se ->
+                 stacking -> validate -> simulate -> timed execute.
+                 Launch counts must be exact (expected_launches): per
+                 prefill 22 flash (TinyLlama) or 9 flash and 54 ssd_scan
+                 (Zamba2), per decode step 22 or 9 decode, per forward
+                 45 or 127 rmsnorm; every request gets its planned
+                 tokens.  Every kernel call is recorded by its shapes
+                 and types.
+  8. llm-kernels -- each kernel of the path, its wrapper against its
+                 plain version at every call shape phase llm-main gave
+                 it (batch 1..16; prompt 32 in the calibration, 128 in
+                 provisioning; cache 512) and at the shapes of one
+                 request (one prefill and one decode step) with B in
+                 {1, 8}: float32, bfloat16 and f32-q/bf16-cache, windows
+                 0 and 48 (tol 2e-5 / 2e-2; ssd_scan 3e-5 / 2e-2); times
+                 at B=8 in the path's types: kernel, plain, library
+                 (F.rms_norm, F.scaled_dot_product_attention; none for
+                 ssd_scan), bound.
   9. llm-trace -- one decode step at batch 8: device busy and idle
                  share, kernels by device time, host time per wrapper.
  10. llm-parity -- K=2, prompt 16, 4 tokens each through DecodeWorkload
@@ -82,6 +90,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
 GN_OPS_PER_ELEMENT = 12            # mean 1, variance 3, normalize 4, SiLU 4
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}   # tests/test_kernels.py sweep
 PARITY_TOL = 1e-3
 
 
@@ -139,7 +148,7 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     names = ["groupnorm_silu", "rmsnorm", "flash_attention",
-             "decode_attention"]
+             "decode_attention", "ssd_scan"]
     t0 = time.perf_counter()
     took = build.build(names)
     log(f"[build] {names} in {time.perf_counter() - t0:.1f} s "
@@ -485,7 +494,9 @@ def _llm_ops():
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rmsnorm import ops as rms
-    return {"rmsnorm": rms, "flash_attention": fa, "decode_attention": dec}
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    return {"rmsnorm": rms, "flash_attention": fa, "decode_attention": dec,
+            "ssd_scan": ssd}
 
 
 def _plain_llm():
@@ -493,8 +504,27 @@ def _plain_llm():
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     return {"rmsnorm": rmsnorm_ref, "flash_attention": attention_ref,
-            "decode_attention": decode_attention_ref}
+            "decode_attention": decode_attention_ref,
+            "ssd_scan": ssd_scan_ref}
+
+
+def expected_launches(cfg, prefills: int, decodes: int):
+    """Kernel launches of ``prefills`` prefills and ``decodes`` decode
+    steps of ``cfg``: the dense transformer has 2 RMSNorms per layer and
+    the final one per forward, an attention layer per layer; zamba2 has
+    2 RMSNorms per Mamba2 layer, 2 per shared-block application and the
+    final one, one ssd_scan per Mamba2 layer at prefill and the shared
+    block's attention once per group."""
+    L, n = cfg.num_layers, prefills + decodes
+    if cfg.family == "hybrid":
+        G = L // cfg.shared_attn_every
+        return {"rmsnorm": (2 * L + 2 * G + 1) * n,
+                "flash_attention": G * prefills,
+                "decode_attention": G * decodes, "ssd_scan": L * prefills}
+    return {"rmsnorm": (2 * L + 1) * n, "flash_attention": L * prefills,
+            "decode_attention": L * decodes, "ssd_scan": 0}
 
 
 def _zero_llm_counts():
@@ -571,25 +601,73 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _check_close(name, got, want, tol_key, err):
+def _check_close(name, got, want, tol_key, err, tols=TOL):
     import torch
     got, want = got.float(), want.float()
     e = float((got - want).abs().max())
     err[tol_key] = max(err.get(tol_key, 0.0), e)
-    tol = TOL[tol_key]
+    tol = tols[tol_key]
     check(bool(torch.allclose(got, want, atol=tol, rtol=tol)),
           f"{name}: max abs err {e:.3g} over tolerance {tol}")
+
+
+def _ssd_inputs(sig, randn):
+    """Inputs of the SSD scan at ``sig`` (batch included), at the
+    magnitudes of the reference's sweep (tests/test_kernels.py), where
+    its tolerance of 3e-5 was set: a = -0.2 |N(0,1)|."""
+    (xs, _), (as_, _), (bs, _), _, (hs, _) = sig
+    return (randn(xs), -randn(as_).abs() * 0.2, randn(bs) * 0.3,
+            randn(bs) * 0.3, randn(hs) * 0.1)
+
+
+def _ssd_f64(x, a, b, c, h0):
+    """The SSD recurrence step by step in float64 (the reference's
+    sequential oracle, ssd_scan/ref.py): h_t = e^{a_t} h + x_t B_t^T,
+    y_t = C_t h_t.  Returns y and the final state, float64."""
+    import torch
+    x, a, b, c = (t.double() for t in (x, a, b, c))
+    h, ys = h0.double(), []
+    for t in range(x.shape[1]):
+        h = h * torch.exp(a[:, t])[..., None, None] \
+            + x[:, t, :, :, None] * b[:, t, None, None, :]
+        ys.append(torch.einsum("bn,bhpn->bhp", c[:, t], h))
+    return torch.stack(ys, dim=1), h
 
 
 def _check_llm_kernel(name, sig, randn, rng, err):
     """The wrapper of ``name`` against its plain version at one call
     shape ``sig`` (batch included), fresh random inputs: float32,
     bfloat16 and (decode) f32 q over a bf16 cache; the attention kernels
-    causal, at window 0 (the path's) and LLM_WINDOW."""
+    causal, at window 0 (the path's) and LLM_WINDOW; the SSD scan with
+    h0 in float32 (SSD_TOL)."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     run, plain = getattr(_llm_ops()[name], name), _plain_llm()[name]
-    if name == "rmsnorm":
+    if name == "ssd_scan":
+        x, a, b, c, h0 = _ssd_inputs(sig, randn)
+        for dt in (f32, bf16):
+            args = [t.to(dt) for t in (x, a, b, c)] + [h0]
+            key = "bfloat16" if dt == bf16 else "float32"
+            for got, want in zip(run(*args), plain(*args)):
+                _check_close(f"ssd_scan {tuple(x.shape)} {dt}", got, want,
+                             key, err, SSD_TOL)
+        # the path's decays, a = dt * A = -softplus(N(0,1)) at A = -1:
+        # -cum reaches ~100 in a chunk of 128, and an ulp of cum moves
+        # e^{cum_q - cum_k} by ~1e-5, in the kernel and the plain version
+        # alike.  Both are held to the float64 recurrence; the kernel
+        # may be off by at most twice the plain version (or 3e-5).
+        a = -torch.nn.functional.softplus(randn(a.shape))
+        exact = _ssd_f64(x, a, b, c, h0)
+        off = {}
+        for who, fn in (("kernel", run), ("plain", plain)):
+            off[who] = max(float((got.double() - want).abs().max())
+                           for got, want in zip(fn(x, a, b, c, h0), exact))
+            key = f"path decays, {who} vs float64"
+            err[key] = max(err.get(key, 0.0), off[who])
+        check(off["kernel"] <= max(2 * off["plain"], SSD_TOL["float32"]),
+              f"ssd_scan {tuple(x.shape)} at the path's decays: kernel "
+              f"{off['kernel']:.3g} from float64, plain {off['plain']:.3g}")
+    elif name == "rmsnorm":
         (xs, _), = sig
         x32 = randn(xs)
         for xd in (f32, bf16):
@@ -632,6 +710,27 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
     import torch
     import torch.nn.functional as F
     run, plain = getattr(_llm_ops()[name], name), _plain_llm()[name]
+    if name == "ssd_scan":
+        x, a, b, c, h0 = _ssd_inputs(
+            tuple(((B,) + sh, t) for sh, t in sig), randn)
+        S, H, P = sig[0][0]
+        N = sig[2][0][-1]
+        Q = min(128, S)                  # the chunk mamba2_forward asks
+        # per (b, h) and chunk: 2QPN for C h^T and 2QPN for the state
+        # update; per causal (q, k) pair a decay multiply and 2P for the
+        # product with x.  The scores C B^T are the same for every head,
+        # so the function needs their 2N per pair once per batch row.
+        pairs = B * (S // Q) * Q * (Q + 1) // 2
+        flops = (B * H * (S // Q) * 4 * Q * P * N + (2 * P + 1) * H * pairs
+                 + 2 * N * pairs)
+        nb = _nbytes(x, x, a, b, c, h0, h0)
+        bound, by = _bound(nb, flops)
+        return dict(kernel=name, shape=[B, *sig[0][0]], bc_shape=[B, S, N],
+                    types="float32", calls=calls, chunk=Q, bound_ms=bound,
+                    bound_by=by, bytes=nb, flops=flops,
+                    ms=device_time_ms(lambda: run(x, a, b, c, h0)),
+                    plain_ms=device_time_ms(lambda: plain(x, a, b, c, h0)),
+                    library_ms=None)
     if name == "rmsnorm":
         (xs, _), = sig
         x, w = randn((B,) + xs), randn(xs[-1:])
@@ -685,23 +784,39 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
                         qt, kt, vt, attn_mask=mask, enable_gqa=True)))
 
 
-def phase_llm_kernels(shapes, seen):
-    """Each new kernel against its plain version at every call shape the
-    main path gave it (``seen``: calibration at batch 1..16 and prompt
-    min(32, max_len - 2), provisioning at prompt LLM_PROMPT), and at the
-    one-request shapes (``shapes``) with B in {1, 8}; then times at B=8
-    per one-request shape: kernel, plain version, library yardstick,
-    bound."""
+LLM_SOURCES = {
+    "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:27",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:86",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:73",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:76"}
+NO_LIBRARY = {"ssd_scan": "no single PyTorch call computes the chunked SSD "
+                          "scan"}
+
+
+def _fmt_us(ms):
+    return "      n/a" if ms is None else f"{ms * 1e3:9.2f}"
+
+
+def phase_llm_kernels(cfg, shapes, seen):
+    """Each kernel of ``cfg``'s path against its plain version at every
+    call shape the main path gave it (``seen``: calibration at batch
+    1..16 and prompt min(32, max_len - 2), provisioning at prompt
+    LLM_PROMPT), and at the one-request shapes (``shapes``) with B in
+    {1, 8}; then times at B=8 per one-request shape: kernel, plain
+    version, library yardstick, bound.  Returns {kernel: summary} and
+    the timed rows."""
     import numpy as np
     import torch
     gen = torch.Generator(device="cuda").manual_seed(21)
     rng = np.random.default_rng(21)
+    tag = f"[llm-kernels {cfg.name}]"
 
     def randn(shape):
         return torch.randn(shape, generator=gen, device="cuda")
     todo = set(seen) | {(name, tuple(((B,) + s, t) for s, t in sig))
                         for name, sig in shapes for B in (1, 8)}
-    errs = {name: {} for name in _llm_ops()}
+    names = sorted({name for name, _ in shapes})
+    errs = {name: {} for name in names}
     done = collections.defaultdict(list)
     for name, sig in sorted(todo):
         _check_llm_kernel(name, sig, randn, rng, errs[name])
@@ -709,39 +824,36 @@ def phase_llm_kernels(shapes, seen):
     torch.cuda.synchronize()
     check(set(done) == set(errs), f"kernels checked: {sorted(done)}")
     for name, e in errs.items():
+        tols = SSD_TOL if name == "ssd_scan" else TOL
         batches = sorted({s[0] for s in done[name]})
         rows = sorted({s[1:] for s in done[name]})
-        log(f"[llm-kernels] {name}: {len(done[name])} call shapes (B in "
+        log(f"{tag} {name}: {len(done[name])} call shapes (B in "
             f"{batches}, per row {rows}) match the plain version: max abs "
-            f"err " + ", ".join(f"{k} {v:.3g} (tol {TOL[k]})"
+            f"err " + ", ".join(f"{k} {v:.3g} (tol {tols.get(k, 'none')})"
                                 for k, v in sorted(e.items())))
-    rows = [_time_llm_kernel(name, sig, calls, randn, rng)
+    rows = [dict(_time_llm_kernel(name, sig, calls, randn, rng),
+                 model=cfg.name)
             for (name, sig), calls in shapes.items()]
-    log("[llm-kernels] B=8, device time per call (CUDA graph, L2-warm); "
-        "library: F.rms_norm, F.scaled_dot_product_attention (decode: "
-        "bf16 q, boolean cur_len mask)")
+    log(f"{tag} B=8, device time per call (CUDA graph, L2-warm); library: "
+        "F.rms_norm, F.scaled_dot_product_attention (decode: bf16 q, "
+        "boolean cur_len mask), none for ssd_scan")
     for r in rows:
-        log(f"[llm-kernels] {r['kernel']:>16} {str(tuple(r['shape'])):>18} "
-            f"x{r['calls']:<2} kernel {r['ms'] * 1e3:9.2f} us  plain "
-            f"{r['plain_ms'] * 1e3:9.2f} us  library "
-            f"{r['library_ms'] * 1e3:9.2f} us  bound "
+        log(f"{tag} {r['kernel']:>16} {str(tuple(r['shape'])):>18} "
+            f"x{r['calls']:<2} kernel {_fmt_us(r['ms'])} us  plain "
+            f"{_fmt_us(r['plain_ms'])} us  library "
+            f"{_fmt_us(r['library_ms'])} us  bound "
             f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']})  "
             f"bound/kernel {r['bound_ms'] / r['ms']:.3f}")
-    sources = {
-        "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:27",
-        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:86",
-        "decode_attention": "src/repro/kernels/decode_attention/kernel.py:73"}
-    summaries = []
-    for name, replaces in sources.items():
+    summaries = {}
+    for name in names:
         mine = [r for r in rows if r["kernel"] == name]
 
         def total(key, mine=mine):
+            if any(r[key] is None for r in mine):
+                return None
             return sum(r[key] * r["calls"] for r in mine)
         e = errs[name]
-        summaries.append(dict(
-            name=name, route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=replaces, launches=0,
+        summaries[name] = dict(
             max_abs_err=e.get("float32", 0.0),
             max_abs_err_bf16=e.get("bfloat16", 0.0),
             ms=total("ms"), plain_ms=total("plain_ms"),
@@ -750,14 +862,49 @@ def phase_llm_kernels(shapes, seen):
             else "operations",
             library_ms=total("library_ms"),
             checked_shapes=[list(s) for s in done[name]],
-            timed_as="sum over its calls in one prefill (prompt "
-                     f"{LLM_PROMPT}) + one decode step (cache "
-                     f"{LLM_MAX_LEN}) at B=8, the path's types"))
+            timed_as=f"{cfg.name}: sum over its calls in one prefill "
+                     f"(prompt {LLM_PROMPT}) + one decode step (cache "
+                     f"{LLM_MAX_LEN}) at B=8, the path's types")
     return summaries, rows
 
 
+def merge_kernel_summaries(per_model):
+    """{model: {kernel: summary with launches}} -> one entry per kernel
+    for the result line: launches summed over the models' main paths,
+    the largest error, times summed over the models' timed units (each
+    model's entry kept under ``by_model``)."""
+    out = []
+    for name, replaces in LLM_SOURCES.items():
+        parts = {m: k[name] for m, k in per_model.items() if name in k}
+        check(bool(parts), f"{name}: no path ran it")
+
+        def add(key, parts=parts):
+            vals = [p[key] for p in parts.values()]
+            return None if None in vals else sum(vals)
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces,
+            launches=add("launches"),
+            max_abs_err=max(p["max_abs_err"] for p in parts.values()),
+            max_abs_err_bf16=max(p["max_abs_err_bf16"]
+                                 for p in parts.values()),
+            ms=add("ms"), plain_ms=add("plain_ms"),
+            bound_ms=add("bound_ms"),
+            bound_by="bytes" if all(p["bound_by"] == "bytes"
+                                    for p in parts.values())
+            else "operations",
+            library_ms=add("library_ms"),
+            **({"library_none": NO_LIBRARY[name]} if name in NO_LIBRARY
+               else {}),
+            timed_as="sum over " + "; ".join(p["timed_as"]
+                                             for p in parts.values()),
+            by_model=parts))
+    return out
+
+
 def phase_llm_main(cfg, params, card):
-    """Full-width TinyLlama through the port's Provisioner: calibrate
+    """Full-width ``cfg`` through the port's Provisioner: calibrate
     g(X), a K=8 scenario, inv_se -> stacking -> validate -> simulate ->
     timed execute.  Kernel counts are zeroed before and read after, and
     every wrapper call is recorded by its shapes and types (a Counter
@@ -768,12 +915,12 @@ def phase_llm_main(cfg, params, card):
     from repro_torch.api import DecodeWorkload, Provisioner
     from repro_torch.core.delay_model import DelayModel, fit
     from repro_torch.core.service import Scenario, ServiceRequest
-    L = cfg.num_layers
+    tag = f"[llm-main {cfg.name}]"
     n_params = sum(int(np.prod(p.shape)) for p in _leaves(params))
     wl = DecodeWorkload(cfg=cfg, params=params, max_len=LLM_MAX_LEN,
                         prompt_len=LLM_PROMPT, device="cuda")
     eng = wl._eng()
-    log(f"[llm-main] {cfg.name}: {n_params} params (seeded random, "
+    log(f"{tag} {n_params} params (seeded random, "
         f"float32 on the card), KV cache {wl.run.kv_cache_dtype}, prompt "
         f"{LLM_PROMPT}, max_len {LLM_MAX_LEN}")
     seen = collections.Counter()
@@ -789,16 +936,14 @@ def phase_llm_main(cfg, params, card):
           and cal_decodes == len(sizes) * (1 + reps),
           f"calibration made {cal_prefills} prefills and {cal_decodes} "
           f"decode steps")
-    check(cal == {"rmsnorm": (2 * L + 1) * (cal_prefills + cal_decodes),
-                  "flash_attention": L * cal_prefills,
-                  "decode_attention": L * cal_decodes},
+    check(cal == expected_launches(cfg, cal_prefills, cal_decodes),
           f"calibration launches {cal}")
     raw = fit([c[0] for c in curve], [c[1] for c in curve])
     # the reference's refit floor (DelayModel.refit), as for the U-Net
     g = DelayModel(a=max(raw.a, 1e-9), b=max(raw.b, 1e-9))
-    log(f"[llm-main] decode delay curve (batch, best-of-{reps} s per "
+    log(f"{tag} decode delay curve (batch, best-of-{reps} s per "
         f"step): " + ", ".join(f"{x}: {s * 1e3:.3f} ms" for x, s in curve))
-    log(f"[llm-main] fitted g(X) = {raw.a * 1e3:.4f} ms * X + "
+    log(f"{tag} fitted g(X) = {raw.a * 1e3:.4f} ms * X + "
         f"{raw.b * 1e3:.4f} ms on {card}; planning with a = "
         f"{g.a * 1e3:.4f} ms, b = {g.b * 1e3:.4f} ms")
     K = 8
@@ -821,9 +966,7 @@ def phase_llm_main(cfg, params, card):
     plan = rep.plan
     check(decodes == plan.num_batches,
           f"{decodes} decode steps for {plan.num_batches} batches")
-    check(launches == {"rmsnorm": (2 * L + 1) * (prefills + decodes),
-                       "flash_attention": L * prefills,
-                       "decode_attention": L * decodes},
+    check(launches == expected_launches(cfg, prefills, decodes),
           f"main path launches {launches} for {prefills} prefills and "
           f"{decodes} decode steps")
     steps = [plan.steps_completed[k] for k in range(K)]
@@ -836,17 +979,17 @@ def phase_llm_main(cfg, params, card):
     measured = sum(s for _, s in rep.timings)
     predicted = plan.makespan()
     tokens = sum(steps)
-    log(f"[llm-main] K={K}: {plan.num_batches} batches, sizes "
+    log(f"{tag} K={K}: {plan.num_batches} batches, sizes "
         f"{dict(sorted(collections.Counter(plan.batch_sizes()).items()))}, "
         f"tokens per request {steps}, {prefills} prefill call(s)")
-    log(f"[llm-main] mean TokenQuality {rep.mean_fid:.4f}, outage "
+    log(f"{tag} mean TokenQuality {rep.mean_fid:.4f}, outage "
         f"{rep.outage_rate:.1%}; decode measured {measured:.4f} s (sum of "
         f"timed batches), predicted {predicted:.4f} s (plan makespan under "
         f"the fit), measured/predicted {measured / predicted:.4f}; "
         f"{tokens / measured:.1f} tokens/s; whole run {wall:.3f} s")
-    log(f"[llm-main] launches: calibration {cal}, provisioning {launches} "
-        f"= per prefill (22 flash, 45 rmsnorm) and per decode step (22 "
-        f"decode, 45 rmsnorm); {len(seen)} distinct call shapes")
+    log(f"{tag} launches: calibration {cal}, provisioning {launches} "
+        f"= per prefill {expected_launches(cfg, 1, 0)} and per decode step "
+        f"{expected_launches(cfg, 0, 1)}; {len(seen)} distinct call shapes")
     return dict(n_params=n_params, curve=curve, fit_a=raw.a, fit_b=raw.b,
                 a=g.a, b=g.b, K=K, batches=plan.num_batches,
                 batch_sizes=plan.batch_sizes(), steps=steps,
@@ -869,6 +1012,8 @@ def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
     from torch.profiler import ProfilerActivity, profile
     ops = _llm_ops()
     eng = wl._eng()
+    cfg = eng.cfg
+    tag = f"[llm-trace {cfg.name}]"
     toks = np.random.default_rng(3).integers(
         0, eng.cfg.vocab_size, (batch, LLM_PROMPT)).astype(np.int32)
     _, cache = eng.prefill(toks)
@@ -896,19 +1041,20 @@ def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
         return sum(v for k, v in dev.items() if pattern in k)
     ours = {"rmsnorm": share("rmsnorm_kernel"),
             "decode_attention": share("decode_kernel")}
-    log(f"[llm-trace] one decode step at batch {batch}, cache "
+    log(f"{tag} one decode step at batch {batch}, cache "
         f"{LLM_MAX_LEN}, position {LLM_PROMPT}: wall {wall_us:.0f} us "
         f"(unprofiled), device busy {device_us:.0f} us = {busy:.1%} of "
         f"wall, idle {1 - busy:.1%}; {launches:.0f} kernels per step; "
         + ", ".join(f"{k} {v:.0f} us" for k, v in ours.items()))
     for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[llm-trace]   {v:9.1f} us/step  {k[:90]}")
-    x = torch.randn((batch, 1, 2048), device="cuda")
-    w = torch.ones(2048, device="cuda")
-    q = torch.randn((1, 16, 32, 64), device="cuda")
-    kv = torch.randn((1, 16, 4, 64), device="cuda")
-    qd = torch.randn((batch, 1, 32, 64), device="cuda")
-    cd = torch.randn((batch, LLM_MAX_LEN, 4, 64), device="cuda").to(
+        log(f"{tag}   {v:9.1f} us/step  {k[:90]}")
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    x = torch.randn((batch, 1, cfg.d_model), device="cuda")
+    w = torch.ones(cfg.d_model, device="cuda")
+    q = torch.randn((1, 16, H, D), device="cuda")
+    kv = torch.randn((1, 16, KV, D), device="cuda")
+    qd = torch.randn((batch, 1, H, D), device="cuda")
+    cd = torch.randn((batch, LLM_MAX_LEN, KV, D), device="cuda").to(
         torch.bfloat16)
     cur = torch.full((batch,), LLM_PROMPT, dtype=torch.int32, device="cuda")
     host = {}
@@ -928,7 +1074,7 @@ def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
             fn()
         host[name] = (time.perf_counter() - t0) * 1e6 / 200
         torch.cuda.synchronize()
-    log("[llm-trace] host us per call (200 calls, no sync): "
+    log(f"{tag} host us per call (200 calls, no sync): "
         + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
     return dict(batch=batch, wall_us=wall_us, device_us=device_us,
                 busy=busy, launches_per_step=launches, ours_us=ours,
@@ -964,13 +1110,14 @@ def parity_params(cfg):
     softmax is one-hot.  Rounding then decides which key wins, and the
     logits of two correct computations part by O(1) (``logit_witness``
     measures it).  At std 0.02 the scores are O(1) and the comparison
-    measures the kernels."""
+    measures the kernels.  The model's own schema; zamba2's conv weights
+    (pinned at 0.5 in the reference) are drawn at std 0.02 too."""
     import torch
-    from repro_torch.models import transformer
+    from repro_torch.models import api
     from repro_torch.models.params import P, init_params, map_schema
     sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
                      else P(p.shape, scale=LLM_PARITY_STD),
-                     transformer.schema(cfg))
+                     api.get_model(cfg).schema(cfg))
     return init_params(sch, torch.Generator(device="cuda").manual_seed(5),
                        "cuda")
 
@@ -1005,7 +1152,8 @@ def logit_witness(cfg, params, cpu_params, label):
                          ("card", "card_plain"), ("cpu_ulp", "cpu"))}
     argmax = {k: int(v.argmax()) for k, v in out.items()}
     scale = float(out["cpu"].abs().max())
-    log(f"[llm-witness] {label}: first decode step logits, |logit| <= "
+    log(f"[llm-witness {cfg.name}] {label}: first decode step logits, "
+        f"|logit| <= "
         f"{scale:.3g}; max abs gap "
         + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
         + f"; argmax {argmax}")
@@ -1021,6 +1169,7 @@ def phase_llm_parity(cfg):
     from repro_torch.api import DecodeWorkload
     from repro_torch.core.delay_model import DelayModel
     from repro_torch.core.plan import BatchPlan
+    tag = f"[llm-parity {cfg.name}]"
     prompt_len, n = 16, 4
     plan = BatchPlan(batches=[[(0, i), (1, i)] for i in range(n)],
                      start_times=[float(i) for i in range(n)],
@@ -1036,8 +1185,9 @@ def phase_llm_parity(cfg):
         if dev == "cuda":
             after = _llm_counts()
             check(after["decode_attention"] - before["decode_attention"]
-                  == cfg.num_layers * n, "parity run on the card did not "
-                  "launch decode_attention per layer and step")
+                  == expected_launches(cfg, 0, n)["decode_attention"],
+                  "parity run on the card did not launch decode_attention "
+                  "per attention layer and step")
         prompts = {k: wl._prompt(k, cfg.vocab_size) for k in (0, 1)}
     first = {dev: _greedy_logits(cfg, p, prompts[0], [0], dev)[0]
              for dev, p in (("cuda", params), ("cpu", cpu_params))}
@@ -1058,12 +1208,12 @@ def phase_llm_parity(cfg):
         top2 = torch.topk(logits, 2).values
         margin = float(top2[0] - top2[1])
         margins.append(dict(request=k, step=i, margin=margin))
-        log(f"[llm-parity] request {k} differs at token {i}: card "
+        log(f"{tag} request {k} differs at token {i}: card "
             f"{a[i]}, CPU {b[i]}; CPU top-2 logit margin {margin:.3g}")
         check(margin <= tol,
               f"request {k}: tokens differ at step {i} with a top-2 "
               f"margin {margin:.3g} over the logits tolerance {tol:.3g}")
-    log(f"[llm-parity] K=2, prompt {prompt_len}, {n} tokens each: card "
+    log(f"{tag} K=2, prompt {prompt_len}, {n} tokens each: card "
         f"{out['cuda']}, CPU {out['cpu']} "
         f"({'equal' if not margins else 'differ within the margin'}); "
         f"first decode step logits max abs err {err:.3g} at |logit| <= "
@@ -1083,37 +1233,39 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_llm(card):
-    """The llm_decode path on full-width TinyLlama-1.1B."""
+def phase_llm(card, cfg):
+    """The llm_decode path on full-width ``cfg``: its kernels' {name:
+    summary with launches} and the phase's details."""
     import torch
-    from repro_torch.configs.tinyllama_1_1b import CONFIG
     from repro_torch.models import api
     t0 = time.perf_counter()
-    params = api.init_model(CONFIG,
+    params = api.init_model(cfg,
                             torch.Generator(device="cuda").manual_seed(0),
                             "cuda")
     torch.cuda.synchronize()
-    log(f"[llm] {CONFIG.name} params drawn on the card in "
+    log(f"[llm {cfg.name}] params drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s")
-    shapes = llm_shapes(CONFIG, params)
-    L = CONFIG.num_layers
+    shapes = llm_shapes(cfg, params)
     per = collections.Counter()
     for (name, _), n in shapes.items():
         per[name] += n
-    check(dict(per) == {"rmsnorm": 2 * (2 * L + 1), "flash_attention": L,
-                        "decode_attention": L},
-          f"one prefill + one decode step made {dict(per)} kernel calls")
-    main_path, wl, seen = phase_llm_main(CONFIG, params, card)
-    summaries, rows = phase_llm_kernels(shapes, seen)
-    for s in summaries:
-        s["launches"] = main_path["launches"][s["name"]]
+    want = {k: v for k, v in expected_launches(cfg, 1, 1).items() if v}
+    check(dict(per) == want,
+          f"one prefill + one decode step made {dict(per)} kernel calls, "
+          f"expected {want}")
+    main_path, wl, seen = phase_llm_main(cfg, params, card)
+    summaries, rows = phase_llm_kernels(cfg, shapes, seen)
+    for name, s in summaries.items():
+        s["launches"] = main_path["launches"][name]
     trace = phase_llm_trace(wl)
     del wl
-    chaos = logit_witness(CONFIG, params, _tree_to(params, "cpu"),
+    chaos = logit_witness(cfg, params, _tree_to(params, "cpu"),
                           "reference init")
     del params
-    parity = phase_llm_parity(CONFIG)
+    torch.cuda.empty_cache()
+    parity = phase_llm_parity(cfg)
     parity["reference_init_witness"] = chaos
+    torch.cuda.empty_cache()
     return summaries, dict(kernel_rows=rows, main=main_path, trace=trace,
                            parity=parity)
 
@@ -1137,7 +1289,12 @@ def main() -> int:
     trace = phase_trace(wl)
     parity = phase_parity(CONFIG, wl.params)
     del wl
-    llm_kernels, llm = phase_llm(card)
+    from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2
+    per_model, llm = {}, {}
+    for cfg in (TINYLLAMA, ZAMBA2):
+        per_model[cfg.name], llm[cfg.name] = phase_llm(card, cfg)
+    llm_kernels = merge_kernel_summaries(per_model)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(

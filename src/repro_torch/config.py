@@ -7,7 +7,8 @@ is field-for-field the reference's (``dataclasses.asdict`` compares them
 in ``tests/test_torch_llm_config.py``).
 
 The registry holds the archs the port runs: ``tinyllama-1.1b``
-(``repro_torch/configs/tinyllama_1_1b.py``).  ``get_config`` of an arch
+(``repro_torch/configs/tinyllama_1_1b.py``) and ``zamba2-2.7b``
+(``repro_torch/configs/zamba2_2_7b.py``).  ``get_config`` of an arch
 the reference has but the port has not reached yet raises with its name.
 The transformer raises ``NotImplementedError`` for the ``RunConfig``
 knobs it does not port (``repro_torch.models.transformer.check_run``).
@@ -215,6 +216,7 @@ def list_archs() -> list:
 def _ensure_loaded() -> None:
     if not _REGISTRY:
         from repro_torch.configs import tinyllama_1_1b  # noqa: F401
+        from repro_torch.configs import zamba2_2_7b  # noqa: F401
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

@@ -14,7 +14,8 @@ and no fallback: a CUDA tensor never reaches the plain version.
 
 Kernels ported: groupnorm_silu (diffusion U-Net hot spot), rmsnorm,
 flash_attention (prefill) and decode_attention (flash-decode over the
-KV cache) on the transformer's serving path.
+KV cache) on the transformer's serving path, and ssd_scan (the Mamba2
+chunk scan) on zamba2's.  That is every TPU kernel of the reference.
 """
 
 from __future__ import annotations

@@ -25,10 +25,14 @@
 // of k and v goes to shared memory as f32 (k rows padded by one float).
 // Warp w owns query heads w, w+8, ... of the group (G <= 32): its lanes
 // hold the scores of positions lane and lane+32, reduce the max and sum
-// with shuffles, and accumulate D/32 output values each, broadcasting p
-// by shuffle in the PV loop, so all G heads share one read of each
-// cache row (GQA's point) and nothing but the tiles needs a barrier.
-// At B=8, KV=4 the grid is 32 blocks on 132 SMs.
+// with shuffles, and accumulate ceil(D/32) output values each, at
+// columns lane + 32j masked at D (at D = 80 lanes 0-15 hold 3 and lanes
+// 16-31 hold 2), broadcasting p by shuffle in the PV loop, so all G
+// heads share one read of each cache row (GQA's point) and nothing but
+// the tiles needs a barrier.
+// At B=8, KV=4 the grid is 32 blocks on 132 SMs.  Zamba2-2.7b's shared
+// attention (9 calls per decode step, H = KV = 32, G = 1, D = 80) gives
+// 256 blocks, but with G = 1 only warp 0 of the 8 has a query head.
 //
 // What a later design would change: split-K over the sequence (several
 // blocks per (b, kv head), each on a slice of the cache, and a small
@@ -102,13 +106,14 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int e = tid; e < G * D; e += kThreads) Qs[e] = to_f32(qb[e]);
 
-  float m[kMaxHPW], l[kMaxHPW], acc[kMaxHPW][D / 32];
+  constexpr int C = (D + 31) / 32;  // a lane's columns: lane + 32 j, j < C
+  float m[kMaxHPW], l[kMaxHPW], acc[kMaxHPW][C];
 #pragma unroll
   for (int hh = 0; hh < kMaxHPW; ++hh) {
     m[hh] = kNegInf;
     l[hh] = 0.f;
 #pragma unroll
-    for (int j = 0; j < D / 32; ++j) acc[hh][j] = 0.f;
+    for (int j = 0; j < C; ++j) acc[hh][j] = 0.f;
   }
 
   const int cur = cur_len[b];
@@ -147,14 +152,15 @@ __global__ void __launch_bounds__(kThreads)
       const float e0 = expf(s_0 - m_new), e1 = expf(s_1 - m_new);
       l[hh] = l[hh] * alpha + warp_sum(e0 + e1);
 #pragma unroll
-      for (int j = 0; j < D / 32; ++j) acc[hh][j] *= alpha;
+      for (int j = 0; j < C; ++j) acc[hh][j] *= alpha;
       m[hh] = m_new;
 #pragma unroll 4
       for (int c = 0; c < kBS; ++c) {
         const float p = __shfl_sync(0xffffffffu, c < 32 ? e0 : e1, c & 31);
 #pragma unroll
-        for (int j = 0; j < D / 32; ++j)
-          acc[hh][j] = fmaf(p, Vs[c * D + lane + 32 * j], acc[hh][j]);
+        for (int j = 0; j < C; ++j)
+          if (lane + 32 * j < D)
+            acc[hh][j] = fmaf(p, Vs[c * D + lane + 32 * j], acc[hh][j]);
       }
     }
   }
@@ -166,8 +172,9 @@ __global__ void __launch_bounds__(kThreads)
     if (g >= G) break;
     const float inv = 1.f / fmaxf(l[hh], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 32; ++j)
-      ob[g * D + lane + 32 * j] = from_f32<TQ>(acc[hh][j] * inv);
+    for (int j = 0; j < C; ++j)
+      if (lane + 32 * j < D)
+        ob[g * D + lane + 32 * j] = from_f32<TQ>(acc[hh][j] * inv);
   }
 }
 
@@ -200,6 +207,9 @@ int launch_dim(const void* q, const void* kc, const void* vc, const int* cur,
                                       window, scale, stream);
     case 64:
       return launch_typed<TQ, TC, 64>(q, kc, vc, cur, o, B, S, H, KV,
+                                      window, scale, stream);
+    case 80:
+      return launch_typed<TQ, TC, 80>(q, kc, vc, cur, o, B, S, H, KV,
                                       window, scale, stream);
     case 128:
       return launch_typed<TQ, TC, 128>(q, kc, vc, cur, o, B, S, H, KV,

@@ -17,7 +17,8 @@
 // PV; causal leaves S*(S+1)/2 pairs per head.  At B=8, S=128, H=32
 // that is 541 MFLOP (8.1 us at 67 TFLOP/s f32 on CUDA cores) against
 // 18.9 MB for q, o, k and v (5.6 us at 3.35 TB/s): operations bound
-// the call, slightly.
+// the call, slightly.  Zamba2-2.7b's shared attention block calls it
+// once per group (9 per prefill) at q, k, v (B,S,32,80).
 //
 // Design (simple and right first).  The Pallas grid is (B, H, Sq/bq,
 // Skv/bk) with the kv axis run in order on one core and m, l, acc kept
@@ -29,9 +30,9 @@
 // by one float against bank conflicts).  Threads form a 16x16 grid; a
 // thread owns query rows ty+16i (i < 4) and key columns tx+16j of the
 // 64x64 score tile, and output columns tx+16j of the 64xD accumulator
-// in registers, so the running max and sum of a row live in the 16
-// threads of one half-warp and reduce with shuffles.  P goes through
-// shared memory to the PV product.  All arithmetic is f32 FMA on the
+// in registers (D/16 of them: D = 32, 64, 80 or 128), so the running
+// max and sum of a row live in the 16 threads of one half-warp and
+// reduce with shuffles.  P goes through shared memory to the PV product.  All arithmetic is f32 FMA on the
 // CUDA cores: the default path is f32, and TF32 tensor cores would
 // break parity with the reference.
 //
@@ -247,6 +248,9 @@ int launch_dim(const void* q, const void* k, const void* v, void* o, int B,
                                  window, q_offset, scale, stream);
     case 64:
       return launch_typed<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal,
+                                 window, q_offset, scale, stream);
+    case 80:
+      return launch_typed<T, 80>(q, k, v, o, B, Sq, Skv, H, KV, causal,
                                  window, q_offset, scale, stream);
     case 128:
       return launch_typed<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal,

@@ -1,0 +1,330 @@
+// Chunked SSD (Mamba2) scan, B/C shared across heads, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel src/repro/kernels/ssd_scan/kernel.py
+// (ssd_scan_pallas, body _kernel): x (B,S,H,P), log-decay a (B,S,H),
+// bmat and cmat (B,S,N) shared by the H heads, incoming state h0
+// (B,H,P,N) f32.  Per (b, h), over chunks of Q steps in order, with
+// cum = inclusive cumsum of a inside the chunk and total = cum[Q-1]:
+//
+//   y = e^{cum} (C h^T) + ((C B^T) o e^{cum_q - cum_k} [k <= q]) x
+//   h <- e^{total} h + (B e^{total - cum})^T x
+//
+// y comes back in x's type, h_final in f32; x, a and B/C may each be
+// f32 or bf16, all arithmetic is f32.  The decay is the exponential of
+// a difference, taken only where k <= q (0 above the diagonal), never
+// e^{cum_q} e^{-cum_k}, which overflows f32 once -cum passes ~88.  On
+// the zamba2-2.7b serving path it runs once per Mamba2 layer per
+// prefill (54 calls), x (B,S,80,64), B/C (B,S,64), Q = min(128, S).
+//
+// Bound: operations.  Per (b, h) and chunk: 2QPN for C h^T, 2QPN for
+// the state update, and 2P + 1 for each causal (q, k) pair (the decay
+// multiply and the product with x).  The scores C B^T do not depend on
+// the head: 2N per causal pair, once per batch row and chunk.  At B = 8,
+// S = Q = 128, H = 80, P = N = 64: 3.16 MFLOP per (b, h) plus 1.06 MFLOP
+// per batch row, 2.03 GFLOP in all, 30.3 us at 67 TFLOP/s f32 on CUDA
+// cores; the 63.8 MB of x, y, a, B, C, h0 and h_final take 19 us at
+// 3.35 TB/s.
+//
+// Design (simple and right first).  The Pallas grid (B, H, S/Q) runs
+// the chunk axis in order on one core and carries h in VMEM scratch.
+// Blocks on Hopper run in no order, so here one block of 256 threads
+// owns one (b, h) and loops over its chunks itself, with h in shared
+// memory the whole time: 640 blocks at B = 8.  A chunk's x, B and C go
+// to shared memory as f32 (B, C and h rows padded by one float against
+// bank conflicts); warp 0 takes the cumsum with shuffles.  Every
+// product is a 64x64 output tile on a 16x16 thread grid, 4x4 values a
+// thread in registers: first, per 64-row query tile, the masked and
+// decayed scores against the keys up to the tile's end (64 x Q f32,
+// the Q x Q tile split in two halves at Q = 128), then that tile's y
+// from the scores, x and the old h; last the state update, each thread
+// rewriting only the h entries it owns.  150 KB of shared memory at
+// Q = 128, P = N = 64, so one block per SM.  f32 FMA on the CUDA cores:
+// TF32 tensor cores would break parity with the reference.
+//
+// What a later design would change: the scores C B^T computed once per
+// batch row and chunk and reused by its H heads (this kernel recomputes
+// them in each of the H blocks, H times the 2N per pair the function
+// needs); mma.sync / wgmma (bf16 or TF32 where the caller allows it) for
+// the four products, the score tile halved again so two blocks share an
+// SM, and the next chunk's x, B and C brought in by cp.async/TMA while
+// this one computes.
+//
+// C interface (route: nvcc -shared, loaded with ctypes): device pointers
+// and the stream arrive as void*, the kernel is launched on that stream,
+// and the function returns cudaGetLastError() so the caller can raise.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kT = 64;  // output tile edge: 16x16 threads x 4x4 values
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Bs[Q][N+1], Cs[Q][N+1], Xs[Q][P], Hs[P][N+1], Ps[kT][Q+1], cum[Q], w[Q]
+size_t smem_floats(int Q, int P, int N) {
+  return 2 * (size_t)Q * (N + 1) + (size_t)Q * P + (size_t)P * (N + 1) +
+         (size_t)kT * (Q + 1) + 2 * (size_t)Q;
+}
+
+template <typename TX, typename TA, typename TB>
+__global__ void __launch_bounds__(kThreads)
+    ssd_kernel(const TX* __restrict__ x, const TA* __restrict__ a,
+               const TB* __restrict__ bm, const TB* __restrict__ cm,
+               const float* __restrict__ h0, TX* __restrict__ y,
+               float* __restrict__ hout, int S, int H, int P, int N,
+               int Q) {
+  extern __shared__ float smem[];
+  const int N1 = N + 1, Q1 = Q + 1;
+  float* Bs = smem;                // [Q][N1]
+  float* Cs = Bs + Q * N1;         // [Q][N1]
+  float* Xs = Cs + Q * N1;         // [Q][P]
+  float* Hs = Xs + Q * P;          // [P][N1]
+  float* Ps = Hs + P * N1;         // [kT][Q1]: one query tile's scores
+  float* cum = Ps + kT * Q1;       // [Q]
+  float* wq = cum + Q;             // [Q]: e^{total - cum}
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t HP = (size_t)H * P;
+  const size_t state = ((size_t)b * H + h) * P * N;
+
+  for (int e = tid; e < P * N; e += kThreads)
+    Hs[(e / N) * N1 + e % N] = h0[state + e];
+
+  for (int c0 = 0; c0 < S; c0 += Q) {
+    __syncthreads();  // the previous chunk is consumed, Hs written
+    const TX* xb = x + ((size_t)b * S + c0) * HP + (size_t)h * P;
+    for (int e = tid; e < Q * P; e += kThreads)
+      Xs[e] = to_f32(xb[(size_t)(e / P) * HP + e % P]);
+    const size_t bc = ((size_t)b * S + c0) * N;
+    for (int e = tid; e < Q * N; e += kThreads) {
+      const int r = (e / N) * N1 + e % N;
+      Bs[r] = to_f32(bm[bc + e]);
+      Cs[r] = to_f32(cm[bc + e]);
+    }
+    if (tid < 32) {  // inclusive cumsum of a over the chunk, warp 0
+      float carry = 0.f;
+      for (int q0 = 0; q0 < Q; q0 += 32) {
+        const int q = q0 + tid;
+        float v = q < Q ? to_f32(a[((size_t)b * S + c0 + q) * H + h]) : 0.f;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const float t = __shfl_up_sync(0xffffffffu, v, o);
+          if (tid >= o) v += t;
+        }
+        v += carry;
+        if (q < Q) cum[q] = v;
+        carry = __shfl_sync(0xffffffffu, v, 31);
+      }
+    }
+    __syncthreads();
+    const float total = cum[Q - 1];
+    for (int q = tid; q < Q; q += kThreads) wq[q] = expf(total - cum[q]);
+
+    // y, one 64-row query tile at a time
+    for (int q0 = 0; q0 < Q; q0 += kT) {
+      const int kend = min(Q, q0 + kT);  // keys any row of the tile sees
+      for (int k0 = 0; k0 < kend; k0 += kT) {
+        float s[4][4] = {};
+#pragma unroll 4
+        for (int n = 0; n < N; ++n) {
+          float cv[4], bv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            cv[i] = Cs[min(q0 + ty + 16 * i, Q - 1) * N1 + n];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            bv[j] = Bs[min(k0 + tx + 16 * j, Q - 1) * N1 + n];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(cv[i], bv[j], s[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = q0 + ty + 16 * i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int k = k0 + tx + 16 * j;
+            if (k >= Q) continue;
+            Ps[(ty + 16 * i) * Q1 + k] =
+                r < Q && k <= r ? s[i][j] * expf(cum[r] - cum[k]) : 0.f;
+          }
+        }
+      }
+      __syncthreads();  // the tile's scores (and wq) are written
+
+      for (int p0 = 0; p0 < P; p0 += kT) {
+        float off[4][4] = {}, acc[4][4] = {};
+#pragma unroll 4
+        for (int n = 0; n < N; ++n) {  // C h^T
+          float cv[4], hv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            cv[i] = Cs[min(q0 + ty + 16 * i, Q - 1) * N1 + n];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            hv[j] = Hs[min(p0 + tx + 16 * j, P - 1) * N1 + n];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              off[i][j] = fmaf(cv[i], hv[j], off[i][j]);
+        }
+#pragma unroll 4
+        for (int k = 0; k < kend; ++k) {  // (scores o decay) x
+          float pv[4], xv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * Q1 + k];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            xv[j] = Xs[k * P + min(p0 + tx + 16 * j, P - 1)];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = fmaf(pv[i], xv[j], acc[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = q0 + ty + 16 * i;
+          if (r >= Q) continue;
+          const float decay = expf(cum[r]);
+          TX* yr = y + ((size_t)b * S + c0 + r) * HP + (size_t)h * P;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int p = p0 + tx + 16 * j;
+            if (p < P) yr[p] = from_f32<TX>(off[i][j] * decay + acc[i][j]);
+          }
+        }
+      }
+      __syncthreads();  // Ps and the old h are consumed
+    }
+
+    // state update; each thread rewrites only the h entries it owns
+    const float et = expf(total);
+    for (int p0 = 0; p0 < P; p0 += kT) {
+      for (int n0 = 0; n0 < N; n0 += kT) {
+        float acc[4][4] = {};
+#pragma unroll 4
+        for (int q = 0; q < Q; ++q) {
+          const float w = wq[q];
+          float xv[4], bv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            xv[i] = Xs[q * P + min(p0 + ty + 16 * i, P - 1)] * w;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            bv[j] = Bs[q * N1 + min(n0 + tx + 16 * j, N - 1)];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = fmaf(xv[i], bv[j], acc[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = p0 + ty + 16 * i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = n0 + tx + 16 * j;
+            if (p < P && n < N)
+              Hs[p * N1 + n] = fmaf(et, Hs[p * N1 + n], acc[i][j]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < P * N; e += kThreads)
+    hout[state + e] = Hs[(e / N) * N1 + e % N];
+}
+
+template <typename TX, typename TA, typename TB>
+int launch_typed(const void* x, const void* a, const void* bm,
+                 const void* cm, const float* h0, void* y, float* hout,
+                 int B, int S, int H, int P, int N, int Q,
+                 cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats(Q, P, N);
+  static size_t configured = 48 * 1024;
+  if (smem > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ssd_kernel<TX, TA, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = smem;
+  }
+  const dim3 grid(H, B);
+  ssd_kernel<TX, TA, TB><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TA*>(a),
+      static_cast<const TB*>(bm), static_cast<const TB*>(cm), h0,
+      static_cast<TX*>(y), hout, S, H, P, N, Q);
+  return (int)cudaGetLastError();
+}
+
+template <typename TX, typename TA>
+int launch_bc(const void* x, const void* a, const void* bm, const void* cm,
+              const float* h0, void* y, float* hout, int B, int S, int H,
+              int P, int N, int Q, int bc_dtype, cudaStream_t stream) {
+  if (bc_dtype == 0)
+    return launch_typed<TX, TA, float>(x, a, bm, cm, h0, y, hout, B, S, H,
+                                       P, N, Q, stream);
+  if (bc_dtype == 1)
+    return launch_typed<TX, TA, __nv_bfloat16>(x, a, bm, cm, h0, y, hout, B,
+                                               S, H, P, N, Q, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TX>
+int launch_a(const void* x, const void* a, const void* bm, const void* cm,
+             const float* h0, void* y, float* hout, int B, int S, int H,
+             int P, int N, int Q, int a_dtype, int bc_dtype,
+             cudaStream_t stream) {
+  if (a_dtype == 0)
+    return launch_bc<TX, float>(x, a, bm, cm, h0, y, hout, B, S, H, P, N, Q,
+                                bc_dtype, stream);
+  if (a_dtype == 1)
+    return launch_bc<TX, __nv_bfloat16>(x, a, bm, cm, h0, y, hout, B, S, H,
+                                        P, N, Q, bc_dtype, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x, y: (B,S,H,P); a: (B,S,H); bm, cm: (B,S,N); h0, hout: (B,H,P,N)
+// float32; all contiguous.  1 <= Q, S % Q == 0.  dtype codes: 0 =
+// float32, 1 = bfloat16, for x (and y), a, and bm/cm separately.
+extern "C" int ssd_scan_launch(const void* x, const void* a, const void* bm,
+                               const void* cm, const void* h0, void* y,
+                               void* hout, int B, int S, int H, int P, int N,
+                               int Q, int x_dtype, int a_dtype, int bc_dtype,
+                               void* stream) {
+  if (Q < 1 || S % Q != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* h0f = static_cast<const float*>(h0);
+  float* houtf = static_cast<float*>(hout);
+  if (x_dtype == 0)
+    return launch_a<float>(x, a, bm, cm, h0f, y, houtf, B, S, H, P, N, Q,
+                           a_dtype, bc_dtype, s);
+  if (x_dtype == 1)
+    return launch_a<__nv_bfloat16>(x, a, bm, cm, h0f, y, houtf, B, S, H, P,
+                                   N, Q, a_dtype, bc_dtype, s);
+  return (int)cudaErrorInvalidValue;
+}

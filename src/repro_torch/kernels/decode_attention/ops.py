@@ -21,7 +21,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)        # the kernel's compiled head sizes
+HEAD_DIMS = (32, 64, 80, 128)        # the kernel's compiled head sizes
 MAX_GROUP = 32                   # query heads per KV head the kernel holds
 _MAX_GRID = 65535
 

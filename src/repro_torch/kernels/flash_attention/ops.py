@@ -20,7 +20,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)        # the kernel's compiled head sizes
+HEAD_DIMS = (32, 64, 80, 128)        # the kernel's compiled head sizes
 _MAX_GRID_YZ = 65535
 
 

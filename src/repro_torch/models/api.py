@@ -1,7 +1,8 @@
 """Model API: model lookup, step factories and initialisation.
 
-The port of ``repro.models.api`` for the families the port runs (the
-dense transformer).  Each model module exposes ``schema``, ``forward``,
+The port of ``repro.models.api`` for the families the port runs: the
+dense transformer and the hybrid Mamba2 + shared-attention model
+(zamba2).  Each model module exposes ``schema``, ``forward``,
 ``prefill``, ``decode_step`` and ``init_cache``.
 """
 
@@ -10,15 +11,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig, RunConfig
-from repro_torch.models import transformer
+from repro_torch.models import transformer, zamba2
 from repro_torch.models.params import init_params
 
 
 def get_model(cfg: ModelConfig):
     if cfg.family == "dense":
         return transformer
+    if cfg.family == "hybrid":
+        return zamba2
     raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
-                              f"ported (the port runs 'dense')")
+                              f"ported (the port runs 'dense' and "
+                              f"'hybrid')")
 
 
 def make_prefill_step(cfg: ModelConfig, run: RunConfig, max_len: int):

@@ -84,8 +84,8 @@ def layer_params(stacked, i: int):
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _block_seq(cfg, lp, x, positions, rope_tab, window: int = 0,
-               causal: bool = True):
+def block_seq(cfg, lp, x, positions, rope_tab, window: int = 0,
+              causal: bool = True):
     """One layer over a full sequence; returns (x, (k, v))."""
     q, k, v = qkv_project(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x),
                           positions=positions, rope_tab=rope_tab)
@@ -95,7 +95,7 @@ def _block_seq(cfg, lp, x, positions, rope_tab, window: int = 0,
     return x + apply_mlp(cfg, lp["mlp"], h), (k, v)
 
 
-def _block_decode(cfg, lp, x, pos, kc, vc, run: RunConfig, rope_tab, index):
+def block_decode(cfg, lp, x, pos, kc, vc, run: RunConfig, rope_tab, index):
     """Single-token decode for one layer.  x: (B,1,d); pos: (B,) write
     index; kc/vc: this layer's cache buffers, written in place at
     ``index`` (``kv_cache.write_index``); rope_tab: the rotary tables
@@ -137,8 +137,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
     tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, (k, v) = _block_seq(cfg, layer_params(params["layers"], i), x,
-                               positions, tab, window=window)
+        x, (k, v) = block_seq(cfg, layer_params(params["layers"], i), x,
+                              positions, tab, window=window)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -154,6 +154,18 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
 # Decode (single token, KV cache)
 # ---------------------------------------------------------------------------
 
+def stacked_kv(cfg: ModelConfig, n: int, batch: int, max_len: int,
+               run: RunConfig, device="cpu"):
+    """One cache buffer (k or v) of zeros for n attention layers: (n, B,
+    max_len, KV, D) in ``run.kv_cache_dtype`` (int8: a dict of q and
+    scales, each stacked)."""
+    buf = kv_cache.alloc(batch, max_len, cfg.num_kv_heads,
+                         cfg.resolved_head_dim, run.kv_cache_dtype, device)
+    if isinstance(buf, dict):
+        return {k: v.expand((n,) + v.shape).clone() for k, v in buf.items()}
+    return buf.expand((n,) + buf.shape).clone()
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
                device="cpu"):
     """{"pos": (B,) int32, "k"/"v": (L, B, max_len, KV, D)} of zeros
@@ -161,21 +173,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
     only."""
     check_run(cfg, run)
     L = cfg.num_layers
-
-    def kv_buf():
-        buf = kv_cache.alloc(batch, max_len, cfg.num_kv_heads,
-                             cfg.resolved_head_dim, run.kv_cache_dtype,
-                             device)
-        if isinstance(buf, dict):
-            return {k: v.expand((L,) + v.shape).clone()
-                    for k, v in buf.items()}
-        return buf.expand((L,) + buf.shape).clone()
-
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "k": kv_buf(), "v": kv_buf()}
+            "k": stacked_kv(cfg, L, batch, max_len, run, device),
+            "v": stacked_kv(cfg, L, batch, max_len, run, device)}
 
 
-def _write_stacked(buf, new: torch.Tensor, pos: torch.Tensor):
+def write_stacked(buf, new: torch.Tensor, pos: torch.Tensor):
     """kv_cache.write_ over a leading layer axis, in place: buf
     (L, B, S, ...) and new (L, B, S_new, ...) fold L into the batch."""
     L, B = new.shape[0], new.shape[1]
@@ -201,8 +204,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
         last_only=run.prefill_logits == "last")
     cache = init_cache(cfg, B, max_len, run, tokens.device)
     pos0 = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
-    _write_stacked(cache["k"], k_new, pos0)
-    _write_stacked(cache["v"], v_new, pos0)
+    write_stacked(cache["k"], k_new, pos0)
+    write_stacked(cache["v"], v_new, pos0)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
     return logits, cache
@@ -221,7 +224,7 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[2]
     index = kv_cache.write_index(pos, 1, S)
     for i in range(cfg.num_layers):
-        x = _block_decode(cfg, layer_params(params["layers"], i), x, pos,
+        x = block_decode(cfg, layer_params(params["layers"], i), x, pos,
                           layer_params(kc_all, i), layer_params(vc_all, i),
                           run, tab, index)
     x = apply_norm(cfg, params["final_norm"], x)

@@ -16,7 +16,9 @@ sum the 256- and 512-term products of each matmul in other orders, and
 this narrow variant's k is large (wk's fan_in rule gives it scale 1 at
 KV = 1), which sharpens the softmax; measured 1.8e-4 on the H100.  With
 the default bfloat16 cache it is held at 2e-2 (a cached k or v may round
-to the neighbouring bf16 value).
+to the neighbouring bf16 value).  The SSD scan is held at the
+reference's own tolerance for it, 3e-5 (2e-2 in bfloat16), and the
+narrow zamba2, card against CPU with a bfloat16 cache, at 2e-2.
 """
 
 import dataclasses
@@ -38,8 +40,10 @@ from repro_torch.kernels.groupnorm_silu import ops  # noqa: E402
 from repro_torch.kernels.groupnorm_silu.ref import groupnorm_silu_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
-from repro_torch.models import api  # noqa: E402
-from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.models import api, zamba2  # noqa: E402
+from repro_torch.models.params import P, init_params, map_schema  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -141,7 +145,9 @@ def test_rmsnorm_wrapper_rejects_bad_inputs(cuda):
 FA_SHAPES = [(1, 64, 64, 2, 2, 32), (2, 64, 64, 4, 2, 64),
              (1, 32, 128, 4, 1, 64), (1, 128, 128, 2, 2, 128),
              (2, 100, 100, 8, 1, 64), (1, 7, 7, 4, 4, 64),
-             (8, 128, 128, 32, 4, 64)]          # full-width TinyLlama prefill
+             (8, 128, 128, 32, 4, 64),          # full-width TinyLlama prefill
+             (1, 100, 100, 4, 4, 80),
+             (8, 128, 128, 32, 32, 80)]         # full-width zamba2 prefill
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,D", FA_SHAPES)
@@ -166,7 +172,9 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D,
 
 DEC_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 8, 8, 32), (3, 512, 4, 1, 128),
               (2, 100, 8, 1, 64), (4, 1000, 32, 1, 64),
-              (8, 512, 32, 4, 64)]              # full-width TinyLlama decode
+              (8, 512, 32, 4, 64),              # full-width TinyLlama decode
+              (2, 100, 4, 4, 80),
+              (8, 512, 32, 32, 80)]             # full-width zamba2 decode
 
 
 @pytest.mark.parametrize("B,S,H,KV,D", DEC_SHAPES)
@@ -201,6 +209,98 @@ def test_decode_attention_zero_length_row_gives_zero(cuda):
     assert float(got[0].abs().max()) == 0.0
     want = decode_attention_ref(q, kc, kc, cur)
     torch.testing.assert_close(got[1], want[1], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_decode_attention_writes_every_column_at_head_dim_80(cuda, q_dtype):
+    """At D = 80 a lane holds columns lane, lane+32 and (lanes 0-15)
+    lane+64.  The output's memory is filled with NaN before the call (the
+    caching allocator hands the freed block back), so a column left
+    unwritten shows."""
+    dt = DTYPES[q_dtype][0]
+    q = _randn((4, 1, 8, 80), 1, cuda, dt)
+    kc = _randn((4, 64, 8, 80), 2, cuda, dt)
+    vc = _randn((4, 64, 8, 80), 3, cuda, dt)
+    cur = torch.tensor([1, 17, 64, 40], dtype=torch.int32, device=cuda)
+    torch.full_like(q, float("nan"))       # freed at once, then reused
+    got = dec_ops.decode_attention(q, kc, vc, cur)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    assert float(got[..., 64:].float().abs().max()) > 0
+    _close(got, decode_attention_ref(q, kc, vc, cur), q_dtype)
+
+
+# -- ssd scan ----------------------------------------------------------------
+
+SSD_SHAPES = [(2, 64, 3, 16, 8, 16), (1, 128, 2, 32, 16, 32),
+              (2, 32, 1, 8, 8, 32), (1, 48, 3, 24, 12, 16),
+              (2, 256, 4, 64, 64, 128), (1, 40, 5, 64, 64, 40),
+              (16, 32, 80, 64, 64, 128),        # zamba2 calibration prefill
+              (8, 128, 80, 64, 64, 128)]        # full-width zamba2 prefill
+SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+
+
+def _ssd_inputs(B, S, H, P, N, device, dtype, decay=0.2, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    return (rn(B, S, H, P).to(dtype), (-rn(B, S, H).abs() * decay).to(dtype),
+            (rn(B, S, N) * 0.3).to(dtype), (rn(B, S, N) * 0.3).to(dtype),
+            rn(B, H, P, N) * 0.1)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
+    args = _ssd_inputs(B, S, H, P, N, cuda, DTYPES[dtype][0])
+    before = ssd_ops.launches
+    y, h = ssd_ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    assert y.dtype == args[0].dtype and h.dtype == torch.float32
+    wy, wh = ssd_scan_ref(*args, chunk=chunk)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, wh, atol=tol, rtol=tol)
+
+
+def _ssd_f64(x, a, b, c, h0):
+    """The recurrence step by step in float64: the exact answer."""
+    x, a, b, c, h = (t.double() for t in (x, a, b, c, h0))
+    ys = []
+    for t in range(x.shape[1]):
+        h = h * torch.exp(a[:, t])[..., None, None] \
+            + x[:, t, :, :, None] * b[:, t, None, None, :]
+        ys.append(torch.einsum("bn,bhpn->bhp", c[:, t], h))
+    return torch.stack(ys, dim=1), h
+
+
+def test_ssd_scan_kernel_with_strong_decay_stays_finite(cuda):
+    """-cum passes 200 inside a chunk of 128 (e^{-cum} would be inf in
+    float32); the kernel takes e^{cum_q - cum_k} and stays finite.  At
+    such |cum| an ulp of cum moves a decay by ~3e-5 relative, in the
+    plain version as in the kernel, so both are held to the float64
+    recurrence: the kernel within twice the plain version's error."""
+    args = _ssd_inputs(2, 128, 4, 64, 64, cuda, torch.float32, decay=3.0)
+    assert float(args[1].sum(dim=1).min()) < -200
+    got, plain = ssd_ops.ssd_scan(*args), ssd_scan_ref(*args)
+    exact = _ssd_f64(*args)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    for g, p, e in zip(got, plain, exact):
+        err_plain = float((p.double() - e).abs().max())
+        assert float((g.double() - e).abs().max()) <= max(2 * err_plain,
+                                                          3e-5)
+
+
+def test_ssd_scan_mixed_input_types(cuda):
+    """The bf16-params path: x and a float32, B/C bfloat16."""
+    x, a, b, c, h0 = _ssd_inputs(2, 64, 3, 64, 64, cuda, torch.float32)
+    b, c = b.bfloat16(), c.bfloat16()
+    y, h = ssd_ops.ssd_scan(x, a, b, c, h0, chunk=32)
+    wy, wh = ssd_scan_ref(x, a, b, c, h0, chunk=32)
+    torch.testing.assert_close(y, wy, atol=3e-5, rtol=3e-5)
+    torch.testing.assert_close(h, wh, atol=3e-5, rtol=3e-5)
 
 
 # -- the transformer: card against CPU --------------------------------------
@@ -239,3 +339,39 @@ def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# -- zamba2: card against CPU -------------------------------------------------
+
+D80 = dataclasses.replace(smoke_variant(get_config("zamba2-2.7b")),
+                          d_model=320, num_layers=4)
+
+
+def test_zamba2_on_card_matches_cpu(cuda):
+    """Prefill and one decode step of the narrow zamba2 (D = 80, two
+    groups, bfloat16 cache): the kernels on the card, the plain versions
+    on the CPU; launches per prefill 4 ssd_scan and 2 flash, per decode
+    step 2 decode, per forward 2*4 + 2*2 + 1 = 13 rmsnorm.  Weights are
+    drawn with std 0.05: at the reference's init q and k have std ~9 and
+    each softmax is one-hot, so rounding would pick the winning key."""
+    run = RunConfig()
+    sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
+                     else P(p.shape, scale=0.05), zamba2.schema(D80))
+    params = init_params(sch, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, D80.vocab_size, (3, 32)), dtype=torch.int64)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = _tree_to(params, dev)
+        n = (ssd_ops.launches, fa_ops.launches, dec_ops.launches,
+             rms_ops.launches)
+        logits, cache = api.make_prefill_step(D80, run, 64)(p, toks.to(dev))
+        step, cache = api.make_decode_step(D80, run)(
+            p, toks[:, -1:].to(dev), cache)
+        outs[str(dev)] = (logits.cpu(), step.cpu(), cache["ssm"]["ssm"].cpu())
+        if dev == cuda:
+            assert (ssd_ops.launches - n[0], fa_ops.launches - n[1],
+                    dec_ops.launches - n[2], rms_ops.launches - n[3]) \
+                == (4, 2, 2, 26)
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)

@@ -1,7 +1,7 @@
 """The port's flash-decode attention against the reference's Pallas
 kernel (interpret mode) and its jnp oracle, on the same numpy inputs,
 at the sweep of tests/test_kernels.py (MHA, GQA, MQA; windows 0 and 64;
-float32 and bfloat16), windows 16 and 48 (starts inside a block), the
+float32 and bfloat16) plus zamba2's head size (D = 80, G = 1), windows 16 and 48 (starts inside a block), the
 mixed float32-q / bfloat16-cache case the serving path runs, and
 ``layers.decode_attention`` against the reference's model path.
 
@@ -59,7 +59,8 @@ def _run(shape, window, q_dtype, c_dtype, bs, seed=3):
 
 
 SWEEP = [((2, 256, 4, 2, 64), 64), ((1, 128, 8, 8, 32), 32),
-         ((3, 512, 4, 1, 128), 128)]
+         ((3, 512, 4, 1, 128), 128),
+         ((2, 128, 4, 4, 80), 32)]          # zamba2's head size, G=1
 
 
 @pytest.mark.parametrize("shape,bs", SWEEP)

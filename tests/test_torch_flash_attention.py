@@ -1,7 +1,8 @@
 """The port's flash attention against the reference's Pallas kernel
 (interpret mode) and its jnp oracle, on the same numpy inputs, at the
 sweeps of tests/test_kernels.py (MHA, GQA, MQA with a longer kv, D up
-to 128; causal and not; windows 16, 48 and 64), plus
+to 128; causal and not; windows 16, 48 and 64), zamba2's head size
+D = 80, plus
 ``layers.chunked_attention`` against the reference's.
 
 Tolerances are the reference's kernel-test ones (tests/test_kernels.py):
@@ -52,6 +53,7 @@ def _both(arrays, dtype):
     (1, 32, 128, 4, 1, 64),      # MQA, longer kv (ends aligned)
     (1, 128, 128, 2, 2, 128),
     (1, 64, 64, 8, 1, 64),       # TinyLlama's head geometry (G=8, D=64)
+    (1, 64, 64, 4, 4, 80),       # zamba2's shared attention (G=1, D=80)
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", list(DTYPES))

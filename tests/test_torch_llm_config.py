@@ -1,7 +1,8 @@
 """The port's copies of the transformer configs against the reference's:
-``ModelConfig``, ``RunConfig``, TinyLlama's ``CONFIG``, ``smoke_variant``
-and ``TokenQuality`` are field-for-field equal (``dataclasses.asdict``
-``==``), and the registry raises for an arch the port does not run."""
+``ModelConfig``, ``RunConfig``, TinyLlama's and Zamba2's ``CONFIG``,
+``smoke_variant`` and ``TokenQuality`` are field-for-field equal
+(``dataclasses.asdict`` ``==``), and the registry raises for an arch the
+port does not run."""
 
 import dataclasses
 
@@ -12,9 +13,11 @@ torch = pytest.importorskip("torch")
 
 from repro import config as jcfg  # noqa: E402
 from repro.configs.tinyllama_1_1b import CONFIG as JAX_TINYLLAMA  # noqa: E402
+from repro.configs.zamba2_2_7b import CONFIG as JAX_ZAMBA2  # noqa: E402
 from repro.serving.engine import TokenQuality as JaxTokenQuality  # noqa: E402
 from repro_torch import config  # noqa: E402
 from repro_torch.configs.tinyllama_1_1b import CONFIG  # noqa: E402
+from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving.engine import TokenQuality  # noqa: E402
 
@@ -46,6 +49,13 @@ def test_tinyllama_config_matches():
     assert (CONFIG.q_per_kv, CONFIG.resolved_head_dim) == (8, 64)
 
 
+def test_zamba2_config_matches():
+    assert dataclasses.asdict(ZAMBA2) == dataclasses.asdict(JAX_ZAMBA2)
+    assert config.get_config("zamba2-2.7b") is ZAMBA2
+    assert ZAMBA2.param_count() == JAX_ZAMBA2.param_count()
+    assert (ZAMBA2.resolved_head_dim, ZAMBA2.q_per_kv) == (80, 1)
+
+
 @pytest.mark.parametrize("arch", jcfg.list_archs())
 def test_smoke_variant_matches(arch):
     """The copied smoke_variant reduces every reference arch alike (the
@@ -64,9 +74,9 @@ def test_default_run_config_matches():
 
 
 def test_registry_lists_ported_and_raises_for_others():
-    assert config.list_archs() == ["tinyllama-1.1b"]
-    with pytest.raises(KeyError, match="zamba2-2.7b"):
-        config.get_config("zamba2-2.7b")
+    assert config.list_archs() == ["tinyllama-1.1b", "zamba2-2.7b"]
+    with pytest.raises(KeyError, match="whisper-tiny"):
+        config.get_config("whisper-tiny")
 
 
 def test_token_quality_matches():

@@ -206,7 +206,7 @@ def test_unported_run_knobs_raise(knob, value):
 def test_other_families_raise():
     cfg, _ = configs("smoke")
     with pytest.raises(NotImplementedError):
-        api.get_model(dataclasses.replace(cfg, family="hybrid"))
+        api.get_model(dataclasses.replace(cfg, family="audio"))
     moe = dataclasses.replace(cfg, family="dense", num_experts=4)
     with pytest.raises(NotImplementedError):
         transformer.check_run(moe, RunConfig())
