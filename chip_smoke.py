@@ -652,10 +652,11 @@ def _check_llm_kernel(name, sig, randn, rng, err):
                 _check_close(f"ssd_scan {tuple(x.shape)} {dt}", got, want,
                              key, err, SSD_TOL)
         # the path's decays, a = dt * A = -softplus(N(0,1)) at A = -1:
-        # -cum reaches ~100 in a chunk of 128, and an ulp of cum moves
-        # e^{cum_q - cum_k} by ~1e-5, in the kernel and the plain version
-        # alike.  Both are held to the float64 recurrence; the kernel
-        # may be off by at most twice the plain version (or 3e-5).
+        # -cum reaches ~100 in a chunk of 128, and an ulp of a float32
+        # cum moves e^{cum_q - cum_k} by ~1e-5 (the plain version's cum
+        # is float32, the kernel's float64).  Both are held to the
+        # float64 recurrence; the kernel may be off by at most twice the
+        # plain version (or 3e-5).
         a = -torch.nn.functional.softplus(randn(a.shape))
         exact = _ssd_f64(x, a, b, c, h0)
         off = {}
@@ -773,7 +774,9 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kb, vb))
     mask = (torch.arange(S, device="cuda")[None]
             < cur[:, None])[:, None, None, :]
+    splits = _llm_ops()[name].num_splits(B, KV, S)
     return dict(kernel=name, shape=[B, *qs], cache_shape=[B, *cs],
+                splits=splits, grid=[splits, KV, B],
                 types="float32 q, bfloat16 cache", calls=calls,
                 cur_len=cur.tolist(), bound_ms=bound, bound_by=by,
                 bytes=nb, flops=4 * D * H * valid,
@@ -843,7 +846,9 @@ def phase_llm_kernels(cfg, shapes, seen):
             f"{_fmt_us(r['plain_ms'])} us  library "
             f"{_fmt_us(r['library_ms'])} us  bound "
             f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']})  "
-            f"bound/kernel {r['bound_ms'] / r['ms']:.3f}")
+            f"bound/kernel {r['bound_ms'] / r['ms']:.3f}"
+            + (f"  splits {r['splits']}, grid {tuple(r['grid'])}"
+               if "splits" in r else ""))
     summaries = {}
     for name in names:
         mine = [r for r in rows if r["kernel"] == name]
@@ -1040,7 +1045,8 @@ def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
     def share(pattern):
         return sum(v for k, v in dev.items() if pattern in k)
     ours = {"rmsnorm": share("rmsnorm_kernel"),
-            "decode_attention": share("decode_kernel")}
+            "decode_attention": share("decode_split_kernel")
+            + share("decode_combine_kernel")}
     log(f"{tag} one decode step at batch {batch}, cache "
         f"{LLM_MAX_LEN}, position {LLM_PROMPT}: wall {wall_us:.0f} us "
         f"(unprofiled), device busy {device_us:.0f} us = {busy:.1%} of "

@@ -5,55 +5,96 @@
 // (decode_attention_pallas, body _kernel): q (B,1,H,D) against caches
 // (B,S,KV,D) with cur_len (B,) valid entries per row; positions
 // >= cur_len, and with a window those < cur_len - window, are masked
-// with the reference's finite -1e30; cache blocks with no valid position
-// are skipped; online softmax with f32 m, l, acc and p kept in f32 for
-// the PV product; output acc / max(l, 1e-30) in q's type.  q and the
-// cache may differ in type: the serving path's default is f32 q over a
-// bf16 cache.  22 calls per TinyLlama decode step, q (B,1,32,64),
-// caches (B,max_len,4,64).
+// with the reference's finite -1e30; cache tiles with no valid position
+// are skipped and read nothing; online softmax with f32 m, l, acc and p
+// kept in f32 for the PV product; output acc / max(l, 1e-30) in q's
+// type.  q and the cache may differ in type: the serving path's default
+// is f32 q over a bf16 cache.  22 calls per TinyLlama decode step, q
+// (B,1,32,64) over caches (B,512,4,64), G = H/KV = 8; 9 per Zamba2
+// step, q (B,1,32,80) over (B,512,32,80), G = 1.
 //
-// Bound: memory traffic.  Each valid cache row (k and v, D values each)
-// is read once for the G = H/KV query heads of its group: 4*G*D
-// operations against 2*D*2 bytes (bf16), ~8 operations per byte at G=8,
-// under the card's ~20 f32 operations per byte.  The least traffic is
-// the valid part of the cache plus q and o.
+// What bounds it.  Each valid cache row (k and v, D values each) is
+// read once for the G query heads of its group: 4*G*D operations
+// against 4*D bytes (bf16), ~8 operations per byte at G = 8 and ~1 at
+// G = 1, under the card's ~20 f32 operations per byte: memory-bound.
+// At the path's sizes the valid cache is 1-2 MB, L2-resident when warm,
+// so what is left is latency: how long the longest chain of dependent
+// loads and barriers is, and how many of them run at once.  The Pallas
+// grid (B, KV, S/bs) runs the sequence axis in order with m, l, acc in
+// VMEM; one block per (b, kv head) walking its cache in order (the
+// first port of this kernel) gave 32 blocks on 132 SMs at TinyLlama's
+// B = 8, 4 at B = 1, and at G = 1 one busy warp in eight.
 //
-// Design (simple and right first).  The Pallas grid (B, KV, S/bs) runs
-// the sequence axis in order with m, l, acc in VMEM.  Here one block of
-// 256 threads owns one (b, kv head) and walks the valid cache in tiles
-// of 64 positions, read in place from the (B,S,KV,D) layout: each tile
-// of k and v goes to shared memory as f32 (k rows padded by one float).
-// Warp w owns query heads w, w+8, ... of the group (G <= 32): its lanes
-// hold the scores of positions lane and lane+32, reduce the max and sum
-// with shuffles, and accumulate ceil(D/32) output values each, at
-// columns lane + 32j masked at D (at D = 80 lanes 0-15 hold 3 and lanes
-// 16-31 hold 2), broadcasting p by shuffle in the PV loop, so all G
-// heads share one read of each cache row (GQA's point) and nothing but
-// the tiles needs a barrier.
-// At B=8, KV=4 the grid is 32 blocks on 132 SMs.  Zamba2-2.7b's shared
-// attention (9 calls per decode step, H = KV = 32, G = 1, D = 80) gives
-// 256 blocks, but with G = 1 only warp 0 of the 8 has a query head.
-//
-// What a later design would change: split-K over the sequence (several
-// blocks per (b, kv head), each on a slice of the cache, and a small
-// combine pass of their (m, l, acc)) so small batches fill the card;
-// 16-byte loads and a cp.async/TMA ring of cache tiles.
+// Design.
+// - Split-K over the valid range, decided on the device.  The grid is
+//   (splits, KV, B).  Each block reads cur_len[b] itself, computes the
+//   valid range [lo, hi), and takes an equal share of the 64-row tiles
+//   that overlap it (shares differ by at most one tile), so every tile
+//   a block touches holds a valid position.  `splits` depends on
+//   shapes only (the wrapper's num_splits: a few blocks per SM, at most
+//   ceil(S/64)); the host never reads cur_len, so the serving path
+//   stays free of syncs and can be captured in a CUDA graph.
+// - Every warp busy at every G.  The 8 warps are HS head slices times
+//   8/HS position slices, HS = 1, 2, 4 for G <= 8, 16, 32: a warp holds
+//   at most 8 heads and PW = 8*HS positions of each tile.  For the
+//   scores R = 32/PW lanes share a position, each summing a part of the
+//   D products, joined by shuffles; for the PV product lane l holds
+//   output columns l + 32 j (ceil(D/32) of them), p broadcast by
+//   shuffle.  Each warp runs its own online softmax over its positions;
+//   at the end the block merges its warps' (m, l, acc) in shared memory.
+//   The heads a warp may hold (HM: G rounded up to a power of two, at
+//   most 8) are a template parameter, so a lane keeps HM * ceil(D/32)
+//   accumulators and no more: at G = 1 the kernel needs few registers
+//   and more blocks fit on an SM.  q's type is a flag, not a template
+//   parameter, to keep the number of instantiations (and the build) down.
+// - 16-byte cp.async loads, neighbouring lanes on neighbouring 16-byte
+//   chunks of a row, into a two-stage ring of tiles in the cache's own
+//   type (tile i+1 in flight while tile i is used); rows outside
+//   [lo, hi) are zero-filled, not read.  Values are converted to f32
+//   when read.  k rows are stored at an odd stride of 16-byte chunks,
+//   so the 8 lanes of each quarter-warp read 8 rows on 8 distinct bank
+//   groups: the score loop has no bank conflicts.
+// - Partials and a combine pass.  Each split writes, per head, its
+//   unnormalised acc (D) and its m and l (f32) to a scratch buffer that
+//   the wrapper allocates; a second kernel, launched right after on the
+//   same stream, merges the splits per (b, head) and writes
+//   acc / max(l, 1e-30) in q's type.
+// - The finite -1e30 mask: a masked position gets p = 0 explicitly,
+//   never exp(-1e30 - m), so a warp or split whose positions are all
+//   masked contributes l = 0, acc = 0 (a split with no valid tile reads
+//   no cache at all), and a row with cur_len = 0 gives 0.
 //
 // C interface (route: nvcc -shared, loaded with ctypes): device pointers
-// and the stream arrive as void*, the kernel is launched on that stream,
-// and the function returns cudaGetLastError() so the caller can raise.
+// and the stream arrive as void*, both kernels are launched on that
+// stream, and the function returns cudaGetLastError() so the caller can
+// raise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kBS = 64;        // cache positions per tile
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxHPW = 4;     // query heads per warp: G <= 32
+constexpr int kMaxGroup = 32;  // G <= 4 head slices of 8
 constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+// The shared-memory layout of one stage of the ring for cache type TC:
+// kBS k rows at an odd stride of 16-byte chunks, then kBS v rows.
+template <typename TC, int D>
+struct Tile {
+  static constexpr int kVec = 16 / sizeof(TC);   // elements per chunk
+  static constexpr int kChunks = D / kVec;       // chunks per row
+  static constexpr int kKStride = kChunks | 1;   // k row stride, chunks
+  static constexpr int kStage = kBS * (kKStride + kChunks) * kVec;
+  static constexpr size_t kRingBytes = 2 * kStage * sizeof(TC);
+  static_assert(D % kVec == 0, "a row must be whole 16-byte chunks");
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -69,151 +110,425 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// One 16-byte chunk of shared memory to f32.
+__device__ __forceinline__ void chunk_f32(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void chunk_f32(const __nv_bfloat16* p,
+                                          float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-size_t smem_bytes(int G, int D) {
-  return sizeof(float) * ((size_t)G * D + kBS * (D + 1) + kBS * D);
+// Scratch row of (b, head, split): acc[0..D), then m, then l.
+template <int D>
+__device__ __forceinline__ float* part_row(float* part, int bh, int split,
+                                           int splits) {
+  return part + ((size_t)bh * splits + split) * (D + 2);
 }
 
-template <typename TQ, typename TC, int D>
-__global__ void __launch_bounds__(kThreads)
-    decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
-                  const TC* __restrict__ vc, const int* __restrict__ cur_len,
-                  TQ* __restrict__ o, int S, int H, int KV, int window,
-                  float scale) {
-  extern __shared__ float smem[];
-  const int G = H / KV;
-  float* Qs = smem;                  // [G][D]
-  float* Ks = Qs + G * D;            // [kBS][D + 1]
-  float* Vs = Ks + kBS * (D + 1);    // [kBS][D]
+// HS head slices of the block's warps, each of at most HM heads (HM a
+// power of two, so a warp holds registers for the heads it can have and
+// no more); q is f32 (q_bf16 = 0) or bf16, read once into shared memory.
+// Registers are budgeted for 4 blocks an SM with one head a warp, or two
+// over a bf16 cache (G = 1 is Zamba2's: its 512 blocks at B = 8 then
+// run in one wave), and for 2 blocks with more heads over a bf16 cache;
+// beyond one head an f32 cache's wider chunks get the compiler's full
+// budget, so no instantiation spills.
+template <typename TC, int D, int HS, int HM>
+__global__ void __launch_bounds__(
+    kThreads, (HM == 1 || (HM == 2 && sizeof(TC) == 2)) ? 4
+              : sizeof(TC) == 2                         ? 2
+                                                        : 1)
+    decode_split_kernel(const void* __restrict__ q, int q_bf16,
+                        const TC* __restrict__ kc, const TC* __restrict__ vc,
+                        const int* __restrict__ cur_len,
+                        float* __restrict__ part, int S, int H, int KV,
+                        int window, float scale, int splits) {
+  using T = Tile<TC, D>;
+  constexpr int VEC = T::kVec, NC = T::kChunks, KST = T::kKStride;
+  constexpr int PS = kWarps / HS;  // position slices
+  constexpr int PW = kBS / PS;     // positions a warp holds in a tile
+  constexpr int R = 32 / PW;       // lanes per position in the scores
+  constexpr int C = (D + 31) / 32; // a lane's columns: lane + 32 j
+  extern __shared__ __align__(16) unsigned char smem[];
 
+  const int G = H / KV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const TQ* qb = q + ((size_t)b * H + (size_t)kvh * G) * D;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int bh0 = b * H + kvh * G;  // (b, first head of the group)
+
+  // q's G*D values, 4 a thread per step, loaded before the block waits
+  // on cur_len so the two loads overlap
+  constexpr int kQSteps = (HS * HM * D / 4 + kThreads - 1) / kThreads;
+  float4 qr[kQSteps];
+#pragma unroll
+  for (int k = 0; k < kQSteps; ++k) {
+    const int e4 = tid + k * kThreads;
+    if (e4 < G * D / 4) {
+      const size_t off = (size_t)bh0 * D + 4 * e4;
+      if (q_bf16) {
+        const uint2 u = *reinterpret_cast<const uint2*>(
+            static_cast<const __nv_bfloat16*>(q) + off);
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 c = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        qr[k] = make_float4(a.x, a.y, c.x, c.y);
+      } else {
+        qr[k] = *reinterpret_cast<const float4*>(
+            static_cast<const float*>(q) + off);
+      }
+    }
+  }
+
+  const int cur = cur_len[b];
+  const int hi = min(cur, S);                        // valid: [lo, hi)
+  const int lo = window ? max(0, cur - window) : 0;
+  const int t_lo = lo / kBS;
+  const int n = hi > lo ? (hi + kBS - 1) / kBS - t_lo : 0;  // valid tiles
+  const int share = n / splits, extra = n % splits;  // the first `extra`
+  const int t0 = t_lo + split * share + min(split, extra);  // splits take
+  const int t1 = t0 + share + (split < extra);              // one more
+  if (t0 >= t1) {  // no valid position: contribute nothing, read nothing
+    for (int e = tid; e < G * (D + 2); e += kThreads) {
+      const int g = e / (D + 2), c = e % (D + 2);
+      part_row<D>(part, bh0 + g, split, splits)[c] = c == D ? kNegInf : 0.f;
+    }
+    return;
+  }
+
+  float* Qs = reinterpret_cast<float*>(smem);                      // [G][D]
+  TC* ring = reinterpret_cast<TC*>(smem + sizeof(float) * G * D);  // 2 stages
   const size_t row = (size_t)KV * D;
   const TC* kb = kc + (size_t)b * S * row + (size_t)kvh * D;
   const TC* vb = vc + (size_t)b * S * row + (size_t)kvh * D;
 
-  for (int e = tid; e < G * D; e += kThreads) Qs[e] = to_f32(qb[e]);
+  auto load = [&](int stage, int t) {
+    TC* Ks = ring + stage * T::kStage;
+    TC* Vs = Ks + kBS * KST * VEC;
+    for (int i = tid; i < kBS * NC; i += kThreads) {
+      const int r = i / NC, c = i % NC, pos = t * kBS + r;
+      const bool in = pos >= lo && pos < hi;
+      const size_t off = (size_t)(in ? pos : lo) * row + c * VEC;
+      cp_async16(Ks + (r * KST + c) * VEC, kb + off, in);
+      cp_async16(Vs + (r * NC + c) * VEC, vb + off, in);
+    }
+    cp_async_commit();
+  };
+  load(0, t0);
 
-  constexpr int C = (D + 31) / 32;  // a lane's columns: lane + 32 j, j < C
-  float m[kMaxHPW], l[kMaxHPW], acc[kMaxHPW][C];
 #pragma unroll
-  for (int hh = 0; hh < kMaxHPW; ++hh) {
-    m[hh] = kNegInf;
-    l[hh] = 0.f;
-#pragma unroll
-    for (int j = 0; j < C; ++j) acc[hh][j] = 0.f;
+  for (int k = 0; k < kQSteps; ++k) {
+    const int e4 = tid + k * kThreads;
+    if (e4 < G * D / 4) reinterpret_cast<float4*>(Qs)[e4] = qr[k];
   }
 
-  const int cur = cur_len[b];
-  const int hi = min(cur, S);                       // valid: [lo, hi)
-  const int lo = window ? max(0, cur - window) : 0;
+  const int HPW = (G + HS - 1) / HS;   // heads of a full slice
+  const int hs = warp / PS, ps = warp % PS;
+  const int g0 = hs * HPW;
+  const int nh = max(0, min(HPW, G - g0));  // this warp's heads
+  const int pi = lane % PW, r = lane / PW;
 
-  for (int s0 = (lo / kBS) * kBS; s0 < hi; s0 += kBS) {
-    __syncthreads();  // Qs written / the previous tile consumed
-    for (int e = tid; e < kBS * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const bool in = s0 + r < S;
-      const size_t off = (size_t)(s0 + r) * row + c;
-      Ks[r * (D + 1) + c] = in ? to_f32(kb[off]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[off]) : 0.f;
+  float m[HM], l[HM], acc[HM][C];
+#pragma unroll
+  for (int h = 0; h < HM; ++h) {
+    m[h] = kNegInf;
+    l[h] = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[h][j] = 0.f;
+  }
+
+  for (int t = t0; t < t1; ++t) {
+    const int st = (t - t0) & 1;
+    if (t + 1 < t1) {
+      load(st ^ 1, t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
+    __syncthreads();  // tile t (and Qs) visible to every warp
 
-    const int p0 = s0 + lane, p1 = s0 + lane + 32;
-    const bool ok0 = p0 >= lo && p0 < hi, ok1 = p1 >= lo && p1 < hi;
+    const TC* Ks = ring + st * T::kStage;
+    const TC* Vs = Ks + kBS * KST * VEC;
+    const int p_w = ps * PW;                 // the warp's first row
+    const int pos = t * kBS + p_w + pi;
+    const bool valid = pos >= lo && pos < hi;
+
+    // scores: lanes r of position pi each sum chunks r, r+R, ...  The
+    // shuffles below run for all HM heads, outside any branch the
+    // compiler cannot prove uniform (a shuffle there costs a collective
+    // loop); only the arithmetic of heads past nh is skipped.
+    float s[HM];
 #pragma unroll
-    for (int hh = 0; hh < kMaxHPW; ++hh) {
-      const int g = warp + hh * kWarps;
-      if (g >= G) break;  // uniform across the warp
-      const float* qg = Qs + g * D;
-      float s_0 = 0.f, s_1 = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        const float qv = qg[d];
-        s_0 = fmaf(qv, Ks[lane * (D + 1) + d], s_0);
-        s_1 = fmaf(qv, Ks[(lane + 32) * (D + 1) + d], s_1);
+    for (int h = 0; h < HM; ++h) s[h] = 0.f;
+    const TC* krow = Ks + (p_w + pi) * KST * VEC;
+#pragma unroll
+    for (int c0 = 0; c0 < NC; c0 += R) {
+      const int c = c0 + r;
+      if (c >= NC) break;
+      float kf[VEC];
+      chunk_f32(krow + c * VEC, kf);
+#pragma unroll
+      for (int h = 0; h < HM; ++h) {
+        if (h < nh) {
+          const float* qg = Qs + (g0 + h) * D + c * VEC;
+#pragma unroll
+          for (int v4 = 0; v4 < VEC; v4 += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qg + v4);
+            s[h] = fmaf(qv.x, kf[v4], s[h]);
+            s[h] = fmaf(qv.y, kf[v4 + 1], s[h]);
+            s[h] = fmaf(qv.z, kf[v4 + 2], s[h]);
+            s[h] = fmaf(qv.w, kf[v4 + 3], s[h]);
+          }
+        }
       }
-      s_0 = ok0 ? s_0 * scale : kNegInf;
-      s_1 = ok1 ? s_1 * scale : kNegInf;
-      const float m_new = fmaxf(m[hh], warp_max(fmaxf(s_0, s_1)));
-      const float alpha = expf(m[hh] - m_new);
-      const float e0 = expf(s_0 - m_new), e1 = expf(s_1 - m_new);
-      l[hh] = l[hh] * alpha + warp_sum(e0 + e1);
+    }
+
+    // online softmax over the warp's PW positions, per head
+    float p[HM];
 #pragma unroll
-      for (int j = 0; j < C; ++j) acc[hh][j] *= alpha;
-      m[hh] = m_new;
+    for (int h = 0; h < HM; ++h) {
+#pragma unroll
+      for (int o = PW; o < 32; o <<= 1)
+        s[h] += __shfl_xor_sync(kFull, s[h], o);
+      const float sc = valid ? s[h] * scale : kNegInf;
+      float mx = sc;
+#pragma unroll
+      for (int o = 1; o < PW; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_new = fmaxf(m[h], mx);
+      const float alpha = expf(m[h] - m_new);
+      p[h] = valid ? expf(sc - m_new) : 0.f;
+      float sum = p[h];
+#pragma unroll
+      for (int o = 1; o < PW; o <<= 1)
+        sum += __shfl_xor_sync(kFull, sum, o);
+      l[h] = l[h] * alpha + sum;
+      m[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[h][j] *= alpha;
+    }
+
+    // PV: lane l holds columns l + 32 j; p of position i from lane i
+    const TC* Vw = Vs + p_w * D;
 #pragma unroll 4
-      for (int c = 0; c < kBS; ++c) {
-        const float p = __shfl_sync(0xffffffffu, c < 32 ? e0 : e1, c & 31);
+    for (int i = 0; i < PW; ++i) {
+      float vv[C];
 #pragma unroll
-        for (int j = 0; j < C; ++j)
-          if (lane + 32 * j < D)
-            acc[hh][j] = fmaf(p, Vs[c * D + lane + 32 * j], acc[hh][j]);
+      for (int j = 0; j < C; ++j) {
+        const int col = lane + 32 * j;
+        vv[j] = col < D ? to_f32(Vw[i * D + col]) : 0.f;
+      }
+#pragma unroll
+      for (int h = 0; h < HM; ++h) {
+        const float ph = __shfl_sync(kFull, p[h], i);
+#pragma unroll
+        for (int j = 0; j < C; ++j) acc[h][j] = fmaf(ph, vv[j], acc[h][j]);
       }
     }
+    __syncthreads();  // stage st consumed before it is loaded again
   }
 
-  TQ* ob = o + ((size_t)b * H + (size_t)kvh * G) * D;
+  // merge the PS position-slice warps of each head slice; the ring is
+  // free now and holds each warp's m, l and acc
+  float* Mw = reinterpret_cast<float*>(ring);  // [kWarps][HM]
+  float* Lw = Mw + kWarps * HM;
+  float* Aw = Lw + kWarps * HM;                // [kWarps][HM][D]
 #pragma unroll
-  for (int hh = 0; hh < kMaxHPW; ++hh) {
-    const int g = warp + hh * kWarps;
-    if (g >= G) break;
-    const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+  for (int h = 0; h < HM; ++h) {
+    if (h < nh) {
+      const int wh = warp * HM + h;
+      if (lane == 0) {
+        Mw[wh] = m[h];
+        Lw[wh] = l[h];
+      }
 #pragma unroll
-    for (int j = 0; j < C; ++j)
-      if (lane + 32 * j < D)
-        ob[g * D + lane + 32 * j] = from_f32<TQ>(acc[hh][j] * inv);
+      for (int j = 0; j < C; ++j)
+        if (lane + 32 * j < D) Aw[wh * D + lane + 32 * j] = acc[h][j];
+    }
   }
+  __syncthreads();
+  if (tid < G) {  // per head: the block's m and l, each warp's weight
+    const int w0 = (tid / HPW) * PS, h = tid % HPW;
+    float M = kNegInf, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < PS; ++w) M = fmaxf(M, Mw[(w0 + w) * HM + h]);
+#pragma unroll
+    for (int w = 0; w < PS; ++w) {
+      const int wh = (w0 + w) * HM + h;
+      const float a = expf(Mw[wh] - M);
+      L = fmaf(Lw[wh], a, L);
+      Mw[wh] = a;  // read back only by this thread until the barrier
+    }
+    float* out = part_row<D>(part, bh0 + tid, split, splits);
+    out[D] = M;
+    out[D + 1] = L;
+  }
+  __syncthreads();
+  for (int e = tid; e < G * D; e += kThreads) {
+    const int g = e / D, d = e % D;
+    const int w0 = (g / HPW) * PS, h = g % HPW;
+    float A = 0.f;
+#pragma unroll
+    for (int w = 0; w < PS; ++w) {
+      const int wh = (w0 + w) * HM + h;
+      A = fmaf(Aw[wh * D + d], Mw[wh], A);
+    }
+    part_row<D>(part, bh0 + g, split, splits)[d] = A;
+  }
+}
+
+// One warp per (b, head): merge the splits' (m, l, acc) and normalise.
+// Splits are taken 32 at a time (lane s holds split s's m and l) with a
+// running max, and the acc loads are unrolled so several are in flight.
+template <typename TQ, int D>
+__global__ void __launch_bounds__(kThreads)
+    decode_combine_kernel(const float* __restrict__ part, TQ* __restrict__ o,
+                          int rows, int splits) {
+  constexpr int C = (D + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (bh >= rows) return;  // uniform across the warp
+  const float* P = part + (size_t)bh * splits * (D + 2);
+  float M = kNegInf, L = 0.f, acc[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) acc[j] = 0.f;
+  for (int s0 = 0; s0 < splits; s0 += 32) {
+    float ms = kNegInf, ls = 0.f;
+    if (s0 + lane < splits) {
+      ms = P[(s0 + lane) * (D + 2) + D];
+      ls = P[(s0 + lane) * (D + 2) + D + 1];
+    }
+    const float m_new = fmaxf(M, warp_max(ms));
+    const float alpha = expf(M - m_new);
+    const float w = expf(ms - m_new);  // 0 for an empty split, unless
+                                       // every split so far is empty
+    L = L * alpha + warp_sum(ls * w);
+    M = m_new;
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[j] *= alpha;
+    const int cnt = min(32, splits - s0);
+#pragma unroll 8
+    for (int i = 0; i < cnt; ++i) {
+      const float wi = __shfl_sync(kFull, w, i);
+      const float* ps = P + (s0 + i) * (D + 2);
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        if (lane + 32 * j < D) acc[j] = fmaf(wi, ps[lane + 32 * j], acc[j]);
+    }
+  }
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  TQ* ob = o + (size_t)bh * D;
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    if (lane + 32 * j < D) ob[lane + 32 * j] = from_f32<TQ>(acc[j] * inv);
+}
+
+template <typename TC, int D, int HS, int HM>
+int launch_split(const void* q, int q_bf16, const void* kc, const void* vc,
+                 const int* cur, float* part, int B, int S, int H, int KV,
+                 int window, float scale, int splits, cudaStream_t stream) {
+  const size_t merge = sizeof(float) * kWarps * HM * (D + 2);
+  const size_t ring = Tile<TC, D>::kRingBytes;
+  const size_t smem =
+      sizeof(float) * (H / KV) * D + (ring > merge ? ring : merge);
+  auto* kernel = decode_split_kernel<TC, D, HS, HM>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(splits, KV, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      q, q_bf16, static_cast<const TC*>(kc), static_cast<const TC*>(vc), cur,
+      part, S, H, KV, window, scale, splits);
+  return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TC, int D>
 int launch_typed(const void* q, const void* kc, const void* vc,
-                 const int* cur, void* o, int B, int S, int H, int KV,
-                 int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(H / KV, D);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<TQ, TC, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(KV, B);
-  decode_kernel<TQ, TC, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TC*>(kc),
-      static_cast<const TC*>(vc), cur, static_cast<TQ*>(o), S, H, KV, window,
-      scale);
+                 const int* cur, float* part, void* o, int B, int S, int H,
+                 int KV, int window, float scale, int splits,
+                 cudaStream_t stream) {
+  // head slices and heads per warp: G <= 8 in one slice of G rounded up
+  // to a power of two, G <= 16 in two slices and G <= 32 in four of 8
+  const int G = H / KV, qb = std::is_same<TQ, __nv_bfloat16>::value;
+  int rc;
+#define SPLIT(HS, HM)                                                     \
+  launch_split<TC, D, HS, HM>(q, qb, kc, vc, cur, part, B, S, H, KV, window, \
+                              scale, splits, stream)
+  if (G == 1)
+    rc = SPLIT(1, 1);
+  else if (G == 2)
+    rc = SPLIT(1, 2);
+  else if (G <= 4)
+    rc = SPLIT(1, 4);
+  else if (G <= 8)
+    rc = SPLIT(1, 8);
+  else if (G <= 16)
+    rc = SPLIT(2, 8);
+  else
+    rc = SPLIT(4, 8);
+#undef SPLIT
+  if (rc != 0) return rc;
+  const int rows = B * H;
+  decode_combine_kernel<TQ, D><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
+                                 stream>>>(part, static_cast<TQ*>(o), rows,
+                                           splits);
   return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TC>
 int launch_dim(const void* q, const void* kc, const void* vc, const int* cur,
-               void* o, int B, int S, int H, int KV, int D, int window,
-               float scale, cudaStream_t stream) {
+               float* part, void* o, int B, int S, int H, int KV, int D,
+               int window, float scale, int splits, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_typed<TQ, TC, 32>(q, kc, vc, cur, o, B, S, H, KV,
-                                      window, scale, stream);
+      return launch_typed<TQ, TC, 32>(q, kc, vc, cur, part, o, B, S, H, KV,
+                                      window, scale, splits, stream);
     case 64:
-      return launch_typed<TQ, TC, 64>(q, kc, vc, cur, o, B, S, H, KV,
-                                      window, scale, stream);
+      return launch_typed<TQ, TC, 64>(q, kc, vc, cur, part, o, B, S, H, KV,
+                                      window, scale, splits, stream);
     case 80:
-      return launch_typed<TQ, TC, 80>(q, kc, vc, cur, o, B, S, H, KV,
-                                      window, scale, stream);
+      return launch_typed<TQ, TC, 80>(q, kc, vc, cur, part, o, B, S, H, KV,
+                                      window, scale, splits, stream);
     case 128:
-      return launch_typed<TQ, TC, 128>(q, kc, vc, cur, o, B, S, H, KV,
-                                       window, scale, stream);
+      return launch_typed<TQ, TC, 128>(q, kc, vc, cur, part, o, B, S, H, KV,
+                                       window, scale, splits, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -221,37 +536,42 @@ int launch_dim(const void* q, const void* kc, const void* vc, const int* cur,
 
 template <typename TQ>
 int launch_cache(const void* q, const void* kc, const void* vc,
-                 const int* cur, void* o, int B, int S, int H, int KV, int D,
-                 int window, float scale, int c_dtype, cudaStream_t stream) {
+                 const int* cur, float* part, void* o, int B, int S, int H,
+                 int KV, int D, int window, float scale, int splits,
+                 int c_dtype, cudaStream_t stream) {
   if (c_dtype == 0)
-    return launch_dim<TQ, float>(q, kc, vc, cur, o, B, S, H, KV, D, window,
-                                 scale, stream);
+    return launch_dim<TQ, float>(q, kc, vc, cur, part, o, B, S, H, KV, D,
+                                 window, scale, splits, stream);
   if (c_dtype == 1)
-    return launch_dim<TQ, __nv_bfloat16>(q, kc, vc, cur, o, B, S, H, KV, D,
-                                         window, scale, stream);
+    return launch_dim<TQ, __nv_bfloat16>(q, kc, vc, cur, part, o, B, S, H,
+                                         KV, D, window, scale, splits,
+                                         stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o: (B,1,H,D) contiguous; kc, vc: (B,S,KV,D) contiguous, one type;
-// cur_len: (B,) int32.  dtype codes: 0 = float32, 1 = bfloat16, for q
-// (and o) and for the caches separately.
+// q, o: (B,1,H,D) contiguous; kc, vc: (B,S,KV,D) contiguous, one type,
+// 16-byte aligned; cur_len: (B,) int32; part: f32 scratch of
+// B*H*splits*(D+2) values.  dtype codes: 0 = float32, 1 = bfloat16, for
+// q (and o) and for the caches separately.  Launches the split kernel,
+// grid (splits, KV, B), then the combine kernel, on `stream`.
 extern "C" int decode_attention_launch(const void* q, const void* kc,
                                        const void* vc, const void* cur_len,
-                                       void* o, int B, int S, int H, int KV,
-                                       int D, int window, float scale,
-                                       int q_dtype, int c_dtype,
-                                       void* stream) {
-  if (KV < 1 || H % KV != 0 || H / KV > kMaxHPW * kWarps)
+                                       void* part, void* o, int B, int S,
+                                       int H, int KV, int D, int window,
+                                       float scale, int splits, int q_dtype,
+                                       int c_dtype, void* stream) {
+  if (KV < 1 || H % KV != 0 || H / KV > kMaxGroup || splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* cur = static_cast<const int*>(cur_len);
+  float* p = static_cast<float*>(part);
   if (q_dtype == 0)
-    return launch_cache<float>(q, kc, vc, cur, o, B, S, H, KV, D, window,
-                               scale, c_dtype, s);
+    return launch_cache<float>(q, kc, vc, cur, p, o, B, S, H, KV, D, window,
+                               scale, splits, c_dtype, s);
   if (q_dtype == 1)
-    return launch_cache<__nv_bfloat16>(q, kc, vc, cur, o, B, S, H, KV, D,
-                                       window, scale, c_dtype, s);
+    return launch_cache<__nv_bfloat16>(q, kc, vc, cur, p, o, B, S, H, KV, D,
+                                       window, scale, splits, c_dtype, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,9 +11,14 @@
 //   h <- e^{total} h + (B e^{total - cum})^T x
 //
 // y comes back in x's type, h_final in f32; x, a and B/C may each be
-// f32 or bf16, all arithmetic is f32.  The decay is the exponential of
-// a difference, taken only where k <= q (0 above the diagonal), never
-// e^{cum_q} e^{-cum_k}, which overflows f32 once -cum passes ~88.  On
+// f32 or bf16, all arithmetic is f32 but the cumsum.  The decay is the
+// exponential of a difference, taken only where k <= q (0 above the
+// diagonal), never e^{cum_q} e^{-cum_k}, which overflows f32 once -cum
+// passes ~88.  cum is summed in f64 and kept as an f32 pair hi + lo, a
+// difference taken as (hi_q - hi_k) + (lo_q - lo_k), so it is off by an
+// ulp of itself, not of cum: at the path's decays (a = -softplus(N(0,1)))
+// -cum reaches ~100 in a chunk of 128, where an f32 cum is off by
+// several ulps of 100 (~1e-5), and every decay with it.  On
 // the zamba2-2.7b serving path it runs once per Mamba2 layer per
 // prefill (54 calls), x (B,S,80,64), B/C (B,S,64), Q = min(128, S).
 //
@@ -32,7 +37,7 @@
 // owns one (b, h) and loops over its chunks itself, with h in shared
 // memory the whole time: 640 blocks at B = 8.  A chunk's x, B and C go
 // to shared memory as f32 (B, C and h rows padded by one float against
-// bank conflicts); warp 0 takes the cumsum with shuffles.  Every
+// bank conflicts); warp 0 takes the cumsum in f64 with shuffles.  Every
 // product is a 64x64 output tile on a 16x16 thread grid, 4x4 values a
 // thread in registers: first, per 64-row query tile, the masked and
 // decayed scores against the keys up to the tile's end (64 x Q f32,
@@ -77,10 +82,17 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Bs[Q][N+1], Cs[Q][N+1], Xs[Q][P], Hs[P][N+1], Ps[kT][Q+1], cum[Q], w[Q]
+// Bs[Q][N+1], Cs[Q][N+1], Xs[Q][P], Hs[P][N+1], Ps[kT][Q+1], hi[Q],
+// lo[Q], w[Q]
 size_t smem_floats(int Q, int P, int N) {
   return 2 * (size_t)Q * (N + 1) + (size_t)Q * P + (size_t)P * (N + 1) +
-         (size_t)kT * (Q + 1) + 2 * (size_t)Q;
+         (size_t)kT * (Q + 1) + 3 * (size_t)Q;
+}
+
+// (hi_a + lo_a) - (hi_b + lo_b), off by an ulp of the result
+__device__ __forceinline__ float diff2(float hi_a, float lo_a, float hi_b,
+                                       float lo_b) {
+  return (hi_a - hi_b) + (lo_a - lo_b);
 }
 
 template <typename TX, typename TA, typename TB>
@@ -97,8 +109,9 @@ __global__ void __launch_bounds__(kThreads)
   float* Xs = Cs + Q * N1;         // [Q][P]
   float* Hs = Xs + Q * P;          // [P][N1]
   float* Ps = Hs + P * N1;         // [kT][Q1]: one query tile's scores
-  float* cum = Ps + kT * Q1;       // [Q]
-  float* wq = cum + Q;             // [Q]: e^{total - cum}
+  float* hi = Ps + kT * Q1;        // [Q]: cum = hi + lo
+  float* lo = hi + Q;              // [Q]
+  float* wq = lo + Q;              // [Q]: e^{total - cum}
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -119,24 +132,29 @@ __global__ void __launch_bounds__(kThreads)
       Bs[r] = to_f32(bm[bc + e]);
       Cs[r] = to_f32(cm[bc + e]);
     }
-    if (tid < 32) {  // inclusive cumsum of a over the chunk, warp 0
-      float carry = 0.f;
+    if (tid < 32) {  // inclusive cumsum of a over the chunk, warp 0, f64
+      double carry = 0.0;
       for (int q0 = 0; q0 < Q; q0 += 32) {
         const int q = q0 + tid;
-        float v = q < Q ? to_f32(a[((size_t)b * S + c0 + q) * H + h]) : 0.f;
+        double v = q < Q ? to_f32(a[((size_t)b * S + c0 + q) * H + h]) : 0.0;
 #pragma unroll
         for (int o = 1; o < 32; o <<= 1) {
-          const float t = __shfl_up_sync(0xffffffffu, v, o);
+          const double t = __shfl_up_sync(0xffffffffu, v, o);
           if (tid >= o) v += t;
         }
         v += carry;
-        if (q < Q) cum[q] = v;
+        if (q < Q) {
+          const float top = (float)v;
+          hi[q] = top;
+          lo[q] = (float)(v - top);
+        }
         carry = __shfl_sync(0xffffffffu, v, 31);
       }
     }
     __syncthreads();
-    const float total = cum[Q - 1];
-    for (int q = tid; q < Q; q += kThreads) wq[q] = expf(total - cum[q]);
+    const float hi_t = hi[Q - 1], lo_t = lo[Q - 1];
+    for (int q = tid; q < Q; q += kThreads)
+      wq[q] = expf(diff2(hi_t, lo_t, hi[q], lo[q]));
 
     // y, one 64-row query tile at a time
     for (int q0 = 0; q0 < Q; q0 += kT) {
@@ -165,7 +183,9 @@ __global__ void __launch_bounds__(kThreads)
             const int k = k0 + tx + 16 * j;
             if (k >= Q) continue;
             Ps[(ty + 16 * i) * Q1 + k] =
-                r < Q && k <= r ? s[i][j] * expf(cum[r] - cum[k]) : 0.f;
+                r < Q && k <= r
+                    ? s[i][j] * expf(diff2(hi[r], lo[r], hi[k], lo[k]))
+                    : 0.f;
           }
         }
       }
@@ -206,7 +226,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int i = 0; i < 4; ++i) {
           const int r = q0 + ty + 16 * i;
           if (r >= Q) continue;
-          const float decay = expf(cum[r]);
+          const float decay = expf(hi[r]);
           TX* yr = y + ((size_t)b * S + c0 + r) * HP + (size_t)h * P;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -219,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // state update; each thread rewrites only the h entries it owns
-    const float et = expf(total);
+    const float et = expf(hi_t);
     for (int p0 = 0; p0 < P; p0 += kT) {
       for (int n0 = 0; n0 < N; n0 += kT) {
         float acc[4][4] = {};

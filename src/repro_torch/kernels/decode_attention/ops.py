@@ -1,10 +1,12 @@
 """Wrapper for flash-decode attention.
 
 A CPU tensor goes to the plain version (``ref.decode_attention_ref``);
-a CUDA tensor launches the kernel of ``csrc/decode_attention.cu`` or
-raises.  q and the cache may differ in type (float32 q over a bfloat16
-cache is the serving path's default).  ``launches`` counts kernel
-launches, so a run can show that its path went through the kernel.
+a CUDA tensor launches the kernels of ``csrc/decode_attention.cu`` (a
+split-K pass over the valid cache, grid ``(num_splits(B, KV, S), KV,
+B)``, then a combine pass) or raises.  q and the cache may differ in
+type (float32 q over a bfloat16 cache is the serving path's default).
+``launches`` counts wrapper calls that launched the kernels, one per
+call, so a run can show that its path went through them.
 """
 
 from __future__ import annotations
@@ -24,13 +26,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)        # the kernel's compiled head sizes
 MAX_GROUP = 32                   # query heads per KV head the kernel holds
 _MAX_GRID = 65535
+TILE = 64                        # cache rows per tile of the kernel
+BLOCK_TARGET = 2 * 132           # blocks to aim for: two per H100 SM
+
+
+def num_splits(B: int, KV: int, S: int) -> int:
+    """Blocks per (b, kv head) along the cache: enough for
+    ``BLOCK_TARGET`` blocks over the B * KV pairs, at most one per
+    ``TILE``-row tile of the cache, at least 1.  Shapes only: the kernel
+    divides each row's valid range among the splits on the device, so
+    the host never reads cur_len."""
+    pairs = max(1, B * KV)
+    return max(1, min(-(-S // TILE), -(-BLOCK_TARGET // pairs)))
 
 
 @functools.cache
 def _entry():
     fn = build.load("decode_attention").decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -101,12 +115,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, cur, window=window)
     S, KV = k_cache.shape[1], k_cache.shape[2]
+    qp, kp, vp = q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()
+    if (qp | kp | vp) % 16:
+        raise ValueError("decode_attention: q and the caches must start "
+                         "on a 16-byte boundary (the kernel loads 16-byte "
+                         "chunks)")
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    rc = launch(_entry(), q.device, q.data_ptr(), k_cache.data_ptr(),
-                v_cache.data_ptr(), cur.data_ptr(), o.data_ptr(), B, S, H,
-                KV, D, int(window), 1.0 / math.sqrt(D), _DTYPES[q.dtype],
+    splits = num_splits(B, KV, S)
+    part = torch.empty((B, H, splits, D + 2), dtype=torch.float32,
+                       device=q.device)
+    rc = launch(_entry(), q.device, qp, kp, vp, cur.data_ptr(),
+                part.data_ptr(), o.data_ptr(), B, S, H, KV, D, int(window),
+                1.0 / math.sqrt(D), splits, _DTYPES[q.dtype],
                 _DTYPES[k_cache.dtype])
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "

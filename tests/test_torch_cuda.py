@@ -174,7 +174,13 @@ DEC_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 8, 8, 32), (3, 512, 4, 1, 128),
               (2, 100, 8, 1, 64), (4, 1000, 32, 1, 64),
               (8, 512, 32, 4, 64),              # full-width TinyLlama decode
               (2, 100, 4, 4, 80),
-              (8, 512, 32, 32, 80)]             # full-width zamba2 decode
+              (8, 512, 32, 32, 80),             # full-width zamba2 decode
+              (1, 4096, 32, 4, 64),             # B = 1: 64 splits
+              (1, 4096, 32, 32, 80),
+              (2, 200, 16, 1, 64),              # G = 16: two head slices
+              (2, 300, 24, 1, 80),              # G = 24: slices of 6
+              (2, 300, 32, 1, 128),             # G = 32, D = 128: the
+              (3, 700, 64, 2, 128)]             # register edge
 
 
 @pytest.mark.parametrize("B,S,H,KV,D", DEC_SHAPES)
@@ -209,6 +215,94 @@ def test_decode_attention_zero_length_row_gives_zero(cuda):
     assert float(got[0].abs().max()) == 0.0
     want = decode_attention_ref(q, kc, kc, cur)
     torch.testing.assert_close(got[1], want[1], atol=2e-5, rtol=2e-5)
+
+
+def _dec_inputs(B, S, H, KV, D, device, q_dtype="float32",
+                c_dtype="bfloat16"):
+    return (_randn((B, 1, H, D), 1, device, DTYPES[q_dtype][0]),
+            _randn((B, S, KV, D), 2, device, DTYPES[c_dtype][0]),
+            _randn((B, S, KV, D), 3, device, DTYPES[c_dtype][0]))
+
+
+def _dec_check(q, kc, vc, cur, window=0):
+    cur = torch.tensor(cur, dtype=torch.int32, device=q.device)
+    before = dec_ops.launches
+    got = dec_ops.decode_attention(q, kc, vc, cur, window=window)
+    torch.cuda.synchronize()
+    assert dec_ops.launches == before + 1
+    want = decode_attention_ref(q, kc, vc, cur, window=window)
+    tol = 2e-5 if q.dtype == kc.dtype == torch.float32 else 2e-2
+    for b, n in enumerate(cur.tolist()):
+        if n == 0:          # every position masked: the kernel gives 0
+            assert float(got[b].abs().max()) == 0.0
+        else:
+            torch.testing.assert_close(got[b].float(), want[b].float(),
+                                       atol=tol, rtol=tol)
+    return got
+
+
+@pytest.mark.parametrize("B,S,KV", [(8, 2048, 8), (2, 1024, 2)])
+@pytest.mark.parametrize("c_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 3, 6, 12])
+def test_decode_attention_cur_len_on_and_past_a_split_boundary(
+        cuda, B, S, KV, c_dtype, k):
+    """Each split takes whole 64-row tiles of the valid range, so a row
+    ends on a split boundary at cur_len = 64 k and one past it at
+    64 k + 1 (a last tile with one valid row).  (8, 2048, 8) gives 5
+    splits of several tiles each, (2, 1024, 2) 16 splits of one."""
+    q, kc, vc = _dec_inputs(B, S, 4 * KV, KV, 64, cuda, "float32", c_dtype)
+    cur = [64 * k + (b % 2) for b in range(B)]
+    _dec_check(q, kc, vc, cur)
+
+
+def test_decode_attention_zero_rows_beside_full_rows(cuda):
+    """Rows with cur_len = 0 between full rows at a many-split shape:
+    the zero rows give exactly 0, the others match."""
+    q, kc, vc = _dec_inputs(4, 1024, 32, 4, 64, cuda)
+    _dec_check(q, kc, vc, [1024, 0, 1, 0])
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", [(1, 4096, 32, 4, 64),
+                                        (8, 2048, 32, 8, 80)])
+@pytest.mark.parametrize("window", [100, 700, 1000])
+def test_decode_attention_window_starting_past_the_first_tiles(
+        cuda, B, S, H, KV, D, window):
+    """A window whose start lies many tiles into the cache and inside a
+    tile: the tiles before it are skipped, the first one processed is
+    partly masked."""
+    q, kc, vc = _dec_inputs(B, S, H, KV, D, cuda)
+    cur = [S - 37 * b for b in range(B)]
+    _dec_check(q, kc, vc, cur, window=window)
+
+
+@pytest.mark.parametrize("S", [100, 1000, 4001])
+@pytest.mark.parametrize("q_dtype,c_dtype", [("float32", "float32"),
+                                             ("float32", "bfloat16")])
+def test_decode_attention_full_rows_with_a_ragged_last_tile(cuda, S, q_dtype,
+                                                            c_dtype):
+    """Every row at cur_len = S with S not a multiple of 64: the last
+    tile's rows past S are never read."""
+    q, kc, vc = _dec_inputs(2, S, 32, 4, 64, cuda, q_dtype, c_dtype)
+    _dec_check(q, kc, vc, [S, S])
+
+
+@pytest.mark.parametrize("which", ["q", "k_cache", "v_cache"])
+def test_decode_attention_refuses_a_misaligned_view(cuda, which):
+    """The kernel loads 16-byte chunks: a view one element past a
+    16-byte boundary is refused, never run by another path."""
+    args = dict(zip(("q", "k_cache", "v_cache"),
+                    _dec_inputs(2, 128, 8, 2, 64, cuda, "float32",
+                                "float32")))
+    t = args[which]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    args[which] = buf[1:].view(t.shape).copy_(t)
+    assert args[which].is_contiguous() and args[which].data_ptr() % 16
+    cur = torch.tensor([128, 64], dtype=torch.int32, device=cuda)
+    before = dec_ops.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        dec_ops.decode_attention(args["q"], args["k_cache"], args["v_cache"],
+                                 cur)
+    assert dec_ops.launches == before
 
 
 @pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
@@ -279,15 +373,35 @@ def _ssd_f64(x, a, b, c, h0):
 def test_ssd_scan_kernel_with_strong_decay_stays_finite(cuda):
     """-cum passes 200 inside a chunk of 128 (e^{-cum} would be inf in
     float32); the kernel takes e^{cum_q - cum_k} and stays finite.  At
-    such |cum| an ulp of cum moves a decay by ~3e-5 relative, in the
-    plain version as in the kernel, so both are held to the float64
-    recurrence: the kernel within twice the plain version's error."""
+    such |cum| an ulp of a float32 cum moves a decay by ~3e-5 relative
+    (the plain version's cum is float32, the kernel's float64), so both
+    are held to the float64 recurrence: the kernel within twice the
+    plain version's error."""
     args = _ssd_inputs(2, 128, 4, 64, 64, cuda, torch.float32, decay=3.0)
     assert float(args[1].sum(dim=1).min()) < -200
     got, plain = ssd_ops.ssd_scan(*args), ssd_scan_ref(*args)
     exact = _ssd_f64(*args)
     assert all(bool(torch.isfinite(t).all()) for t in got)
     for g, p, e in zip(got, plain, exact):
+        err_plain = float((p.double() - e).abs().max())
+        assert float((g.double() - e).abs().max()) <= max(2 * err_plain,
+                                                          3e-5)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_ssd_scan_kernel_at_the_path_decays(cuda, seed):
+    """The full-width Zamba2 prefill shape at the path's decays, a = dt
+    * A = -softplus(N(0,1)) at A = -1: -cum reaches ~100 in the chunk of
+    128.  Held to the float64 recurrence as chip_smoke.py holds it: the
+    kernel within twice the plain version's error (or 3e-5)."""
+    x, _, b, c, h0 = _ssd_inputs(8, 128, 80, 64, 64, cuda, torch.float32,
+                                 seed=seed)
+    g = torch.Generator(device=cuda).manual_seed(seed + 100)
+    a = -torch.nn.functional.softplus(
+        torch.randn((8, 128, 80), generator=g, device=cuda))
+    args = (x, a, b, c, h0)
+    exact = _ssd_f64(*args)
+    for g, p, e in zip(ssd_ops.ssd_scan(*args), ssd_scan_ref(*args), exact):
         err_plain = float((p.double() - e).abs().max())
         assert float((g.double() - e).abs().max()) <= max(2 * err_plain,
                                                           3e-5)

@@ -144,3 +144,33 @@ def test_wrapper_rejects_bad_inputs():
                              vc[..., :48].contiguous(), cur)     # D mismatch
     with pytest.raises(ValueError):
         ops.decode_attention(q, kc.transpose(1, 2), vc, cur)     # layout
+
+
+@pytest.mark.parametrize("B,KV,S", [(1, 1, 1), (1, 4, 64), (1, 4, 65),
+                                    (8, 4, 512), (1, 4, 512), (16, 4, 512),
+                                    (8, 32, 512), (1, 32, 512), (1, 4, 4096),
+                                    (64, 32, 4096), (3, 7, 1000),
+                                    (2, 1, 0)])
+def test_num_splits_fills_the_card_within_the_cache(B, KV, S):
+    """The split count is a function of shapes alone: at least 1, at
+    most one split per 64-row tile of the cache, and enough splits for
+    BLOCK_TARGET blocks over the B * KV pairs wherever the cache has
+    that many tiles."""
+    n = ops.num_splits(B, KV, S)
+    tiles = -(-S // ops.TILE)
+    assert isinstance(n, int) and 1 <= n <= max(1, tiles)
+    if B * KV * tiles >= ops.BLOCK_TARGET:
+        assert B * KV * n >= ops.BLOCK_TARGET
+    else:
+        assert n == max(1, tiles)
+    assert n == ops.num_splits(B, KV, S)          # no state, no device
+
+
+def test_num_splits_at_the_serving_path_shapes():
+    """TinyLlama (KV = 4) over a 512-row cache: 8 splits at B = 8 (256
+    blocks, not 32) and at B = 1 (32, not 4); Zamba2 (KV = 32): 2 at
+    B = 8, 8 at B = 1."""
+    assert ops.num_splits(8, 4, 512) == 8
+    assert ops.num_splits(1, 4, 512) == 8
+    assert ops.num_splits(8, 32, 512) == 2
+    assert ops.num_splits(1, 32, 512) == 8
