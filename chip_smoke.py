@@ -88,6 +88,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
+TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense (data
+                                   # sheet); flash_attention keeps f32
+TF32_PER_F32_OP = 3                # precision with 3xTF32: lo*hi + hi*lo
+                                   # + hi*hi per f32 product
 GN_OPS_PER_ELEMENT = 12            # mean 1, variance 3, normalize 4, SiLU 4
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}   # tests/test_kernels.py sweep
@@ -590,11 +594,29 @@ def llm_shapes(cfg, params):
     return dict(sorted(seen.items()))
 
 
-def _bound(nbytes, ops):
+def _bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+F32_PEAK = "67 TFLOP/s f32 (CUDA cores)"
+FLASH_PEAK = (f"{TF32_PER_F32_OP} x operations at 495 TFLOP/s TF32 (tensor "
+              f"cores, 3xTF32)")
+
+
+def flash_bound(q, k):
+    """Bound of one causal flash_attention call, q (B,S,H,D) and k, v
+    shaped like ``k``, ends aligned at Sq = Skv: q, o, k and v moved
+    once at HBM_BYTES_PER_S against 4 D f32 operations per unmasked
+    (query, key) pair, each TF32_PER_F32_OP tensor-core operations at
+    TF32_OPS_PER_S.  Returns (ms, "bytes" or "operations", f32 ops)."""
+    B, S, H, D = q.shape
+    flops = 4 * D * (S * (S + 1) // 2) * B * H
+    bound, by = _bound(_nbytes(q, q, k, k), TF32_PER_F32_OP * flops,
+                       TF32_OPS_PER_S)
+    return bound, by, flops
 
 
 def _nbytes(*ts):
@@ -746,14 +768,12 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
     if name == "flash_attention":
         (qs, _), (ks, _), _ = sig
         q, k, v = randn((B,) + qs), randn((B,) + ks), randn((B,) + ks)
-        S, H, D = qs
-        pairs = S * (S + 1) // 2 * B * H
-        nb = _nbytes(q, q, k, v)
-        bound, by = _bound(nb, 4 * D * pairs)
+        bound, by, flops = flash_bound(q, k)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         return dict(kernel=name, shape=[B, *qs], kv_shape=[B, *ks],
                     types="float32", calls=calls, bound_ms=bound,
-                    bound_by=by, bytes=nb, flops=4 * D * pairs,
+                    bound_by=by, peak=FLASH_PEAK,
+                    bytes=_nbytes(q, q, k, v), flops=flops,
                     ms=device_time_ms(lambda: run(q, k, v)),
                     plain_ms=device_time_ms(lambda: plain(q, k, v)),
                     library_ms=device_time_ms(
@@ -845,7 +865,8 @@ def phase_llm_kernels(cfg, shapes, seen):
             f"x{r['calls']:<2} kernel {_fmt_us(r['ms'])} us  plain "
             f"{_fmt_us(r['plain_ms'])} us  library "
             f"{_fmt_us(r['library_ms'])} us  bound "
-            f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']})  "
+            f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']}; "
+            f"operations at {r.get('peak', F32_PEAK)})  "
             f"bound/kernel {r['bound_ms'] / r['ms']:.3f}"
             + (f"  splits {r['splits']}, grid {tuple(r['grid'])}"
                if "splits" in r else ""))

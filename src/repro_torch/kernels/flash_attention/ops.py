@@ -1,7 +1,8 @@
 """Wrapper for forward flash attention.
 
 A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
-tensor launches the kernel of ``csrc/flash_attention.cu`` or raises.
+tensor launches the kernel of ``csrc/flash_attention.cu`` (which loads
+16-byte chunks, so q, k and v must be 16-byte aligned) or raises.
 ``launches`` counts kernel launches, so a run can show that its path
 went through the kernel.
 """
@@ -79,12 +80,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v, causal=causal, window=window)
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if (qp | kp | vp) % 16:
+        raise ValueError("flash_attention: q, k and v must start on a "
+                         "16-byte boundary (the kernel loads 16-byte "
+                         "chunks)")
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    rc = launch(_entry(), q.device, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), B, Sq, Skv, H, KV, D,
-                int(bool(causal)), int(window), Skv - Sq,
+    rc = launch(_entry(), q.device, qp, kp, vp, o.data_ptr(), B, Sq, Skv,
+                H, KV, D, int(bool(causal)), int(window), Skv - Sq,
                 1.0 / math.sqrt(D), _DTYPES[q.dtype])
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -147,7 +147,10 @@ FA_SHAPES = [(1, 64, 64, 2, 2, 32), (2, 64, 64, 4, 2, 64),
              (2, 100, 100, 8, 1, 64), (1, 7, 7, 4, 4, 64),
              (8, 128, 128, 32, 4, 64),          # full-width TinyLlama prefill
              (1, 100, 100, 4, 4, 80),
-             (8, 128, 128, 32, 32, 80)]         # full-width zamba2 prefill
+             (8, 128, 128, 32, 32, 80),         # full-width zamba2 prefill
+             (16, 32, 32, 32, 32, 80),          # zamba2 calibration, B = 16
+             (2, 96, 320, 8, 2, 80),            # the K/V ring wraps several
+             (1, 200, 456, 4, 4, 128)]          # times, Sq < Skv
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,D", FA_SHAPES)
@@ -166,6 +169,25 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D,
     assert fa_ops.launches == before + 1
     assert got.dtype == dt and got.shape == q.shape
     _close(got, attention_ref(q, k, v, causal=causal, window=window), dtype)
+
+
+def test_flash_attention_wrapper_rejects_misaligned_inputs(cuda):
+    """The kernel copies 16-byte chunks: a contiguous view that starts
+    4 bytes into its storage is refused, not read misaligned."""
+    q = _randn((1, 16, 4, 64), 1, cuda)
+    k = _randn((1, 16, 2, 64), 2, cuda)
+    shifted = torch.empty(k.numel() + 1, device=cuda)[1:].view(k.shape)
+    shifted.copy_(k)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = fa_ops.launches
+    for args in ((q, shifted, k), (q, k, shifted)):
+        with pytest.raises(ValueError):
+            fa_ops.flash_attention(*args)
+    qs = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    qs.copy_(q)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(qs, k, k)
+    assert fa_ops.launches == before
 
 
 # -- decode attention ------------------------------------------------------

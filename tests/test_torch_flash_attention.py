@@ -3,7 +3,8 @@
 sweeps of tests/test_kernels.py (MHA, GQA, MQA with a longer kv, D up
 to 128; causal and not; windows 16, 48 and 64), zamba2's head size
 D = 80, plus
-``layers.chunked_attention`` against the reference's.
+``layers.chunked_attention`` against the reference's; and an emulation
+of the CUDA kernel's 3xTF32 tensor-core products against the oracle.
 
 Tolerances are the reference's kernel-test ones (tests/test_kernels.py):
 2e-5 in float32, 2e-2 in bfloat16.  On the CPU the wrapper runs the
@@ -68,6 +69,84 @@ def test_plain_matches_jax_ref_and_pallas(B, Sq, Skv, H, KV, D, causal,
                                         bk=32, interpret=True)):
         np.testing.assert_allclose(_f32(got), _f32(want), atol=tol,
                                    rtol=tol)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on float32 values: round the magnitude to 10
+    mantissa bits, ties away from zero (+0x1000 on the bit pattern, then
+    the low 13 bits cleared)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's tensor cores take it: each operand split
+    into hi = tf32(x) and lo = tf32(x - hi), lo*hi + hi*lo + hi*hi
+    summed in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulated(q, k, v, causal, window, mm):
+    """The CUDA kernel's arithmetic in numpy float32: scores by ``mm``,
+    scaled by log2(e)/sqrt(D), masked entries p = 0, exp2, P V by
+    ``mm``, divided by the row sum."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qh = q.transpose(0, 2, 1, 3)
+    kh, vh = (np.repeat(a.transpose(0, 2, 1, 3), H // KV, axis=1)
+              for a in (k, v))
+    s = mm(qh, kh.transpose(0, 1, 3, 2)) * np.float32(
+        1.4426950408889634 / np.sqrt(D))
+    qpos = np.arange(Sq)[:, None] + (Skv - Sq)
+    kpos = np.arange(Skv)[None, :]
+    mask = np.ones((Sq, Skv), bool)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    s = np.where(mask, s, -np.inf).astype(np.float32)
+    p = np.exp2(s - s.max(-1, keepdims=True)).astype(np.float32)
+    o = mm(p, vh) / p.sum(-1, keepdims=True)
+    return o.transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", [
+    (1, 64, 64, 2, 2, 32), (2, 64, 64, 4, 2, 64), (1, 32, 128, 4, 1, 64),
+    (1, 128, 128, 2, 2, 128), (1, 64, 64, 8, 1, 64), (1, 64, 64, 4, 4, 80),
+    (1, 128, 128, 32, 32, 80),   # zamba2's heads at the prefill length
+    (1, 128, 128, 32, 4, 64),    # TinyLlama's
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 48)])
+def test_3xtf32_products_hold_the_float32_tolerance(B, Sq, Skv, H, KV, D,
+                                                    causal, window):
+    """Why the kernel splits every operand: with 3xTF32 products the
+    kernel's arithmetic stays within the float32 tolerance (2e-5) of the
+    JAX oracle; with plain TF32 (hi*hi alone) it does not."""
+    q, k, v = _inputs(B, Sq, Skv, H, KV, D)
+    want = _f32(jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=causal, window=window))
+    got = _emulated(q, k, v, causal, window, _mm_3xtf32)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    plain_tf32 = _emulated(q, k, v, causal, window, _mm_1xtf32)
+    assert not np.allclose(plain_tf32, want, atol=2e-5, rtol=2e-5)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    x = np.array([1 + 2.0 ** -11, 1 + 2.0 ** -10 + 2.0 ** -11,
+                  -(1 + 2.0 ** -11), 1 + 2.0 ** -12, 3.0], np.float32)
+    np.testing.assert_array_equal(
+        _tf32(x), np.array([1 + 2.0 ** -10, 1 + 2.0 ** -9,
+                            -(1 + 2.0 ** -10), 1.0, 3.0], np.float32))
+    hi = _tf32(x)
+    np.testing.assert_array_equal(hi + _tf32(x - hi), x)
 
 
 @pytest.mark.parametrize("window", [16, 48, 64])
