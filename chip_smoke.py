@@ -89,7 +89,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense (data
-                                   # sheet); flash_attention keeps f32
+                                   # sheet); flash_attention and
+                                   # ssd_scan keep f32
 TF32_PER_F32_OP = 3                # precision with 3xTF32: lo*hi + hi*lo
                                    # + hi*hi per f32 product
 GN_OPS_PER_ELEMENT = 12            # mean 1, variance 3, normalize 4, SiLU 4
@@ -602,8 +603,8 @@ def _bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
 
 
 F32_PEAK = "67 TFLOP/s f32 (CUDA cores)"
-FLASH_PEAK = (f"{TF32_PER_F32_OP} x operations at 495 TFLOP/s TF32 (tensor "
-              f"cores, 3xTF32)")
+TC_PEAK = (f"{TF32_PER_F32_OP} x operations at 495 TFLOP/s TF32 (tensor "
+           f"cores, 3xTF32)")
 
 
 def flash_bound(q, k):
@@ -617,6 +618,29 @@ def flash_bound(q, k):
     bound, by = _bound(_nbytes(q, q, k, k), TF32_PER_F32_OP * flops,
                        TF32_OPS_PER_S)
     return bound, by, flops
+
+
+def ssd_bound(x, bmat, h0, chunk):
+    """Bound of one ssd_scan call, x (B,S,H,P), bmat and cmat (B,S,N),
+    h0 (B,H,P,N), chunks of Q = min(chunk, S): x, y, a (taken in x's
+    type), B, C, h0 and h_final moved once at HBM_BYTES_PER_S, against
+    the f32 operations, each TF32_PER_F32_OP tensor-core operations at
+    TF32_OPS_PER_S (all four products run on 3xTF32).  Per (b, h) and
+    chunk: 2QPN for C h^T and 2QPN for the state update; per causal (q,
+    k) pair a decay multiply and 2P for the product with x.  The scores
+    C B^T are the same for every head, so the function needs their 2N
+    per pair once per batch row.  Returns (ms, "bytes" or "operations",
+    f32 ops, bytes)."""
+    B, S, H, P = x.shape
+    N = bmat.shape[-1]
+    Q = min(chunk, S)
+    pairs = B * (S // Q) * Q * (Q + 1) // 2
+    flops = (B * H * (S // Q) * 4 * Q * P * N + (2 * P + 1) * H * pairs
+             + 2 * N * pairs)
+    nb = (_nbytes(x, x, bmat, bmat, h0, h0)
+          + B * S * H * x.element_size())
+    bound, by = _bound(nb, TF32_PER_F32_OP * flops, TF32_OPS_PER_S)
+    return bound, by, flops, nb
 
 
 def _nbytes(*ts):
@@ -739,18 +763,10 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
         S, H, P = sig[0][0]
         N = sig[2][0][-1]
         Q = min(128, S)                  # the chunk mamba2_forward asks
-        # per (b, h) and chunk: 2QPN for C h^T and 2QPN for the state
-        # update; per causal (q, k) pair a decay multiply and 2P for the
-        # product with x.  The scores C B^T are the same for every head,
-        # so the function needs their 2N per pair once per batch row.
-        pairs = B * (S // Q) * Q * (Q + 1) // 2
-        flops = (B * H * (S // Q) * 4 * Q * P * N + (2 * P + 1) * H * pairs
-                 + 2 * N * pairs)
-        nb = _nbytes(x, x, a, b, c, h0, h0)
-        bound, by = _bound(nb, flops)
+        bound, by, flops, nb = ssd_bound(x, b, h0, Q)
         return dict(kernel=name, shape=[B, *sig[0][0]], bc_shape=[B, S, N],
                     types="float32", calls=calls, chunk=Q, bound_ms=bound,
-                    bound_by=by, bytes=nb, flops=flops,
+                    bound_by=by, peak=TC_PEAK, bytes=nb, flops=flops,
                     ms=device_time_ms(lambda: run(x, a, b, c, h0)),
                     plain_ms=device_time_ms(lambda: plain(x, a, b, c, h0)),
                     library_ms=None)
@@ -772,7 +788,7 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         return dict(kernel=name, shape=[B, *qs], kv_shape=[B, *ks],
                     types="float32", calls=calls, bound_ms=bound,
-                    bound_by=by, peak=FLASH_PEAK,
+                    bound_by=by, peak=TC_PEAK,
                     bytes=_nbytes(q, q, k, v), flops=flops,
                     ms=device_time_ms(lambda: run(q, k, v)),
                     plain_ms=device_time_ms(lambda: plain(q, k, v)),

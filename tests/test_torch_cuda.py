@@ -352,7 +352,9 @@ SSD_SHAPES = [(2, 64, 3, 16, 8, 16), (1, 128, 2, 32, 16, 32),
               (2, 32, 1, 8, 8, 32), (1, 48, 3, 24, 12, 16),
               (2, 256, 4, 64, 64, 128), (1, 40, 5, 64, 64, 40),
               (16, 32, 80, 64, 64, 128),        # zamba2 calibration prefill
-              (8, 128, 80, 64, 64, 128)]        # full-width zamba2 prefill
+              (8, 128, 80, 64, 64, 128),        # full-width zamba2 prefill
+              # chunks past the kernel's 128-row score tile
+              (1, 288, 2, 64, 64, 144), (2, 160, 3, 16, 8, 160)]
 SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
 

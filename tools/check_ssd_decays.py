@@ -1,6 +1,6 @@
-"""Hold the ssd_scan kernel of two checkouts to the float64 recurrence.
+"""Hold the ssd_scan kernel of one or more checkouts to the float64 recurrence.
 
-    python3 tools/check_ssd_decays.py [--other DIR] [--seeds N]
+    python3 tools/check_ssd_decays.py [--other DIR ...] [--seeds N]
 
 At the B=8 prefill shape of the Zamba2 serving path (x (8,128,80,64),
 B/C (8,128,64), one chunk of 128) and the path's decays (a = dt * A =
@@ -12,11 +12,13 @@ bounds by 2 (or 3e-5 absolute).  Also, at the decays of the reference's
 sweep (a = -0.2 |N(0,1)|), how far the kernel is from the plain version
 in units of chip_smoke.py's float32 tolerance (|got - want| over 3e-5 +
 3e-5 |want|; at most 1 passes).  Then the kernel's device time per call
-at that shape, with the method of chip_smoke.py (a CUDA graph, L2-warm).
-With ``--other DIR`` (an unpacked checkout, e.g. the parent commit) the
-two run in separate processes in the order other, this, this, other.
-Prints one JSON object per run and writes all of them to
-chiprun_out/check_ssd_decays.json.
+at that shape, with the method of chip_smoke.py (a CUDA graph, L2-warm),
+beside chip_smoke.py's bound for it (``ssd_bound``).  With ``--other
+DIR`` (an unpacked checkout, e.g. the parent commit; may be given more
+than once) each runs in a process of its own, in the order others,
+this, this, others reversed; a checkout whose run fails is reported
+with its error and the others go on.  Prints one JSON object per run
+and writes all of them to chiprun_out/check_ssd_decays.json.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ SHAPE = (8, 128, 80, 64, 64)   # B, S, H, P, N
 def worker(seeds: int) -> dict:
     import torch
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import _ssd_f64, device_time_ms
+    from chip_smoke import _ssd_f64, device_time_ms, ssd_bound
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     B, S, H, P, N = SHAPE
@@ -62,8 +64,10 @@ def worker(seeds: int) -> dict:
                          ratio=off["kernel"] / off["plain"],
                          of_tolerance=tol))
     ms = device_time_ms(lambda: ops.ssd_scan(x, a, b, c, h0))
+    bound, by, _, _ = ssd_bound(x, b, h0, S)
     return {"checkout": str(Path(ops.__file__).resolve().parents[4]),
             "shape": list(SHAPE), "kernel_us": ms * 1e3,
+            "bound_us": bound * 1e3, "bound_by": by,
             "max_ratio": max(r["ratio"] for r in rows),
             "max_kernel": max(r["kernel"] for r in rows),
             "max_plain": max(r["plain"] for r in rows),
@@ -78,13 +82,13 @@ def run(checkout: Path, seeds: int) -> dict:
     res = subprocess.run(cmd, cwd=checkout, env=env, capture_output=True,
                          text=True, timeout=600)
     if res.returncode != 0:
-        raise RuntimeError(f"worker in {checkout} failed:\n{res.stderr}")
+        return {"checkout": str(checkout), "error": res.stderr[-4000:]}
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--other", type=Path)
+    ap.add_argument("--other", type=Path, action="append", default=[])
     ap.add_argument("--seeds", type=int, default=16)
     ap.add_argument("--worker", action="store_true")
     args = ap.parse_args()
@@ -100,8 +104,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    order = ([args.other, ROOT, ROOT, args.other] if args.other
-             else [ROOT])
+    order = ([*args.other, ROOT, ROOT, *reversed(args.other)]
+             if args.other else [ROOT])
     runs = [run(c.resolve(), args.seeds) for c in order]
     for r in runs:
         print(json.dumps({k: v for k, v in r.items() if k != "seeds"}),
@@ -110,7 +114,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "check_ssd_decays.json").write_text(
         json.dumps(dict(card=card, runs=runs), indent=1))
-    return 0
+    return int(any("error" in r for r in runs))
 
 
 if __name__ == "__main__":
