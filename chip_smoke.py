@@ -14,8 +14,10 @@ when it does not hold:
   3. kernels  -- groupnorm_silu's wrapper against its plain PyTorch
                  version on the card, at every shape one full-width
                  U-Net forward gives it, B in {1, 8, 16}, float32 (tol
-                 2e-5) and bfloat16 (tol 2e-2); times at B=16: kernel,
-                 plain version, library yardstick and the bound.
+                 2e-5) and bfloat16 (tol 2e-2); times at B=16 and B=8
+                 (the DDIM step's batch): kernel, plain version, library
+                 yardstick and the bound, beside the kernel's launch
+                 plan (slab, threads, loads a thread, blocks, tile).
   4. main     -- the full-width ddim-cifar10 U-Net (35.7M params, random
                  weights from a seed) through the port's Provisioner on
                  the card: calibrate g(X) at batch 1..16, a K=8 scenario
@@ -188,9 +190,46 @@ def gn_shapes(cfg):
     return dict(sorted(seen.items()))
 
 
-def phase_kernels(cfg):
+def gn_time_row(ops, B, H, W, C, G, calls=1, plain=True):
+    """One per-shape timing row of groupnorm_silu at (B, H, W, C), f32:
+    the wrapper, its plain version (when ``plain``), F.group_norm on an
+    NCHW copy (GroupNorm only, the library yardstick) and the bound,
+    each ms per call; with the wrapper's launch plan where it has one."""
+    import dataclasses
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.groupnorm_silu.ref import groupnorm_silu_ref
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((B, H, W, C), generator=gen, device="cuda") * 2 + 0.5
+    s = torch.randn(C, generator=gen, device="cuda")
+    b = torch.randn(C, generator=gen, device="cuda")
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    nbytes = 2 * x.numel() * 4 + 2 * C * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = GN_OPS_PER_ELEMENT * x.numel() / F32_OPS_PER_S * 1e3
+    row = dict(shape=[B, H, W, C], calls=calls,
+               ms=device_time_ms(lambda: ops.groupnorm_silu(x, s, b, G)),
+               plain_ms=device_time_ms(
+                   lambda: groupnorm_silu_ref(x, s, b, G)) if plain
+               else None,
+               group_norm_ms=device_time_ms(
+                   lambda: F.group_norm(xn, G, s, b, 1e-6)),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes)
+    if hasattr(ops, "plan"):
+        row["plan"] = dataclasses.asdict(
+            ops.plan(B, H * W, C, ops.num_groups_for(C, G), 4))
+    return row
+
+
+def gn_plan_text(p):
+    return (f"slab {p['slab']:>3} threads {p['threads']:>3} nv {p['nv']:>2} "
+            f"blocks {p['blocks']:>4} tile {p['tile_bytes'] / 1024:>4.1f} KB")
+
+
+def phase_kernels(cfg):
+    import torch
     from repro_torch.diffusion import unet
     from repro_torch.kernels.groupnorm_silu import ops
     from repro_torch.kernels.groupnorm_silu.ref import groupnorm_silu_ref
@@ -223,36 +262,25 @@ def phase_kernels(cfg):
                 ok = bool(torch.allclose(got, want, atol=tol, rtol=tol))
                 check(ok, f"groupnorm_silu {name} B={B} {(H, W, C)}: max "
                       f"abs err {e:.3g} over tolerance {tol}")
-            if B != 16:
-                continue
-            xn = x32.permute(0, 3, 1, 2).contiguous()
-            k_ms = device_time_ms(lambda: ops.groupnorm_silu(x32, s, b, G))
-            p_ms = device_time_ms(lambda: groupnorm_silu_ref(x32, s, b, G))
-            l_ms = device_time_ms(lambda: F.group_norm(xn, G, s, b, 1e-6))
-            nbytes = 2 * x32.numel() * 4 + 2 * C * 4
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = GN_OPS_PER_ELEMENT * x32.numel() / F32_OPS_PER_S * 1e3
-            rows.append(dict(shape=[16, H, W, C], calls=n, ms=k_ms,
-                             plain_ms=p_ms, group_norm_ms=l_ms,
-                             bound_ms=max(t_bytes, t_ops),
-                             bound_by="bytes" if t_bytes >= t_ops
-                             else "operations", bytes=nbytes))
+            if B != 1:
+                rows.append(gn_time_row(ops, B, H, W, C, G, calls=n))
     log(f"[kernels] all {len(shapes)} shapes x B in (1, 8, 16) match the "
         f"plain version: max abs err float32 {err['float32']:.3g} "
         f"(tol 2e-5), bfloat16 {err['bfloat16']:.3g} (tol 2e-2)")
-    log("[kernels] B=16 float32, device time per call (CUDA graph, "
-        "L2-warm); library = F.group_norm on an NCHW copy, GroupNorm only")
+    log("[kernels] float32, device time per call (CUDA graph, L2-warm); "
+        "library = F.group_norm on an NCHW copy, GroupNorm only; the "
+        "kernel's launch plan (ops.plan)")
     log(f"[kernels] {'(B,H,W,C)':>18} {'calls':>5} {'kernel_us':>10} "
         f"{'plain_us':>9} {'library_us':>10} {'bound_us':>9} "
-        f"{'bound/kern':>10}")
-    for r in rows:
+        f"{'bound/kern':>10}  plan")
+    for r in sorted(rows, key=lambda r: r["shape"][0], reverse=True):
         log(f"[kernels] {str(tuple(r['shape'])):>18} {r['calls']:>5} "
             f"{r['ms'] * 1e3:>10.2f} {r['plain_ms'] * 1e3:>9.2f} "
             f"{r['group_norm_ms'] * 1e3:>10.2f} {r['bound_ms'] * 1e3:>9.2f} "
-            f"{r['bound_ms'] / r['ms']:>10.3f}")
+            f"{r['bound_ms'] / r['ms']:>10.3f}  {gn_plan_text(r['plan'])}")
 
-    def per_forward(key):
-        return sum(r[key] * r["calls"] for r in rows)
+    def per_forward(key, B=16):
+        return sum(r[key] * r["calls"] for r in rows if r["shape"][0] == B)
     summary = dict(name="groupnorm_silu", route="cuda",
                    source="src/repro_torch/kernels/csrc/groupnorm_silu.cu",
                    replaces="src/repro/kernels/groupnorm_silu/kernel.py:36",
@@ -264,10 +292,16 @@ def phase_kernels(cfg):
                                            for r in rows) else "operations",
                    library_ms=per_forward("group_norm_ms"),
                    timed_as=f"sum over the {calls} calls of one U-Net "
-                            f"forward at B=16, float32")
-    log(f"[kernels] per forward at B=16: kernel {summary['ms']:.4f} ms, "
-        f"plain {summary['plain_ms']:.4f} ms, F.group_norm "
-        f"{summary['library_ms']:.4f} ms, bound {summary['bound_ms']:.4f} ms")
+                            f"forward at B=16, float32",
+                   ms_b8=per_forward("ms", 8),
+                   bound_ms_b8=per_forward("bound_ms", 8),
+                   library_ms_b8=per_forward("group_norm_ms", 8))
+    for B in (16, 8):
+        log(f"[kernels] per forward at B={B}: kernel "
+            f"{per_forward('ms', B):.4f} ms, plain "
+            f"{per_forward('plain_ms', B):.4f} ms, F.group_norm "
+            f"{per_forward('group_norm_ms', B):.4f} ms, bound "
+            f"{per_forward('bound_ms', B):.4f} ms")
     return summary, rows
 
 

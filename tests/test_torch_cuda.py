@@ -47,8 +47,25 @@ from repro_torch.models.params import P, init_params, map_schema  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
+# (H, W, C) of every gn_silu call of a full-width ddim-cifar10 forward
+# (G = 32) and of SMOKE's (G = 8): the lists that
+# tests/test_torch_groupnorm_silu.py holds to a forward.
+UNET_GN = [(4, 4, 256), (4, 4, 512), (8, 8, 256), (8, 8, 512),
+           (16, 16, 128), (16, 16, 256), (16, 16, 384), (16, 16, 512),
+           (32, 32, 128), (32, 32, 256), (32, 32, 384)]
+SMOKE_GN = [(8, 8, 32), (8, 8, 64), (8, 8, 96), (8, 8, 128), (16, 16, 32),
+            (16, 16, 64), (16, 16, 96)]
 SHAPES = [(2, 8, 8, 32, 8), (1, 16, 16, 24, 6), (3, 4, 4, 16, 16),
-          (16, 4, 4, 256, 32), (8, 32, 32, 384, 32)]
+          (16, 4, 4, 256, 32), (8, 32, 32, 384, 32)] + [
+    (B, H, W, C, 32) for (H, W, C) in UNET_GN for B in (1, 8, 16)
+    if (B, H, W, C) not in ((16, 4, 4, 256), (8, 32, 32, 384))] + [
+    (2, H, W, C, 8) for (H, W, C) in SMOKE_GN] + [
+    (1, 9, 11, 64, 32),     # 99 pixels: a ragged last pass
+    (2, 33, 33, 96, 32),    # 1089 pixels in 288 threads, groups of 3
+    (1, 5, 5, 6, 3),        # rows of 24 bytes: scalar loads
+    (1, 256, 256, 32, 32),  # too large to hold: chunks, x read three times
+]                           # (tests/test_torch_groupnorm_silu.py checks
+                            # that the plans of these four do so)
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 
 
@@ -87,6 +104,46 @@ def test_groupnorm_silu_kernel_matches_plain(cuda, B, H, W, C, G, dtype):
     assert got.dtype == tdt and got.shape == x.shape
     want = groupnorm_silu_ref(x, s, b, G)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_groupnorm_silu_misaligned_view_takes_scalar_loads(cuda):
+    B, H, W, C, G = 2, 8, 8, 64, 32
+    buf = _randn(B * H * W * C + 1, 3, cuda) * 2 + 0.5
+    x = buf[1:].view(B, H, W, C)            # 4 bytes past a 16-byte line
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert ops.plan(B, H * W, C, G, 4, aligned=False).vec == 1
+    s, b = _randn(C, 4, cuda), _randn(C, 5, cuda)
+    before = ops.launches
+    got = ops.groupnorm_silu(x, s, b, G)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    _close(got, groupnorm_silu_ref(x, s, b, G), "float32")
+
+
+def _gn_f64(x, s, b, G):
+    B, H, W, C = x.shape
+    xd = x.double().reshape(B, H * W, G, C // G)
+    mu = xd.mean(dim=(1, 3), keepdim=True)
+    var = ((xd - mu) ** 2).mean(dim=(1, 3), keepdim=True)
+    h = ((xd - mu) / torch.sqrt(var + 1e-6)).reshape(B, H, W, C)
+    return torch.nn.functional.silu(h * s.double() + b.double())
+
+
+@pytest.mark.parametrize("B,H,W,C", [(1, 32, 32, 384), (8, 32, 32, 128)])
+def test_groupnorm_silu_centred_variance_at_an_offset(cuda, B, H, W, C):
+    """x = randn + 100: the kernel, whose sums are split over threads and
+    lanes, stays within 2x the plain version's distance from float64."""
+    x = _randn((B, H, W, C), 7, cuda) + 100
+    s, b = _randn(C, 8, cuda), _randn(C, 9, cuda)
+    before = ops.launches
+    got = ops.groupnorm_silu(x, s, b, 32)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    want = _gn_f64(x, s, b, 32)
+    err = float((got.double() - want).abs().max())
+    plain = float((groupnorm_silu_ref(x, s, b, 32).double() - want)
+                  .abs().max())
+    assert err <= 2 * plain, (err, plain)
 
 
 def test_groupnorm_silu_wrapper_rejects_non_nhwc(cuda):
