@@ -809,8 +809,11 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
         x, w = randn((B,) + xs), randn(xs[-1:])
         nb = _nbytes(x, x, w)
         bound, by = _bound(nb, RMS_OPS_PER_ELEMENT * x.numel())
+        p = _llm_ops()[name].plan(xs[-1], x.element_size())
         return dict(kernel=name, shape=[B, *xs], types="float32",
                     calls=calls, bound_ms=bound, bound_by=by, bytes=nb,
+                    plan=dict(threads=p.threads, nv=p.nv, vec=p.vec,
+                              chunks=p.chunks),
                     ms=device_time_ms(lambda: run(x, w)),
                     plain_ms=device_time_ms(lambda: plain(x, w)),
                     library_ms=device_time_ms(
@@ -919,7 +922,9 @@ def phase_llm_kernels(cfg, shapes, seen):
             f"operations at {r.get('peak', F32_PEAK)})  "
             f"bound/kernel {r['bound_ms'] / r['ms']:.3f}"
             + (f"  splits {r['splits']}, grid {tuple(r['grid'])}"
-               if "splits" in r else ""))
+               if "splits" in r else "")
+            + ("  plan: threads {threads} nv {nv} vec {vec} chunks "
+               "{chunks}".format(**r["plan"]) if "plan" in r else ""))
     summaries = {}
     for name in names:
         mine = [r for r in rows if r["kernel"] == name]

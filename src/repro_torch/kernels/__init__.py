@@ -23,12 +23,15 @@ from __future__ import annotations
 import torch
 
 
-def launch(fn, device: torch.device, *args) -> int:
+def launch(fn, index: int, *args) -> int:
     """Call the C entry ``fn(*args, stream)`` on the current stream of
-    ``device``.  Enters ``torch.cuda.device`` only when ``device`` is
-    not the current one, to keep the host cost of a launch low."""
-    if device.index is not None and \
-            device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            return fn(*args, torch.cuda.current_stream().cuda_stream)
-    return fn(*args, torch.cuda.current_stream().cuda_stream)
+    CUDA device ``index`` (a tensor's ``get_device()``), read anew on
+    every call (under ``torch.cuda.graph`` it is the capture stream) as
+    a raw handle, without building a ``torch.cuda.Stream``.  Enters
+    ``torch.cuda.device`` only when ``index`` is not the current device,
+    to keep the host cost of a launch low."""
+    current = torch.cuda.current_device()
+    if index != current:
+        with torch.cuda.device(index):
+            return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    return fn(*args, torch._C._cuda_getCurrentRawStream(current))

@@ -126,7 +126,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     splits = num_splits(B, KV, S)
     part = torch.empty((B, H, splits, D + 2), dtype=torch.float32,
                        device=q.device)
-    rc = launch(_entry(), q.device, qp, kp, vp, cur.data_ptr(),
+    rc = launch(_entry(), q.get_device(), qp, kp, vp, cur.data_ptr(),
                 part.data_ptr(), o.data_ptr(), B, S, H, KV, D, int(window),
                 1.0 / math.sqrt(D), splits, _DTYPES[q.dtype],
                 _DTYPES[k_cache.dtype])

@@ -88,7 +88,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    rc = launch(_entry(), q.device, qp, kp, vp, o.data_ptr(), B, Sq, Skv,
+    rc = launch(_entry(), q.get_device(), qp, kp, vp, o.data_ptr(), B, Sq, Skv,
                 H, KV, D, int(bool(causal)), int(window), Skv - Sq,
                 1.0 / math.sqrt(D), _DTYPES[q.dtype])
     if rc != 0:

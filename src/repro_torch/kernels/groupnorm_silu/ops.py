@@ -154,7 +154,7 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return y
     p = plan(B, H * W, C, G, x.element_size(),
              aligned=x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    rc = launch(_entry(), x.device, x.data_ptr(), scale.data_ptr(),
+    rc = launch(_entry(), x.get_device(), x.data_ptr(), scale.data_ptr(),
                 bias.data_ptr(), y.data_ptr(), B, H * W, C, G, float(eps),
                 _DTYPES[x.dtype], p.slab, p.threads, p.vec, p.nv)
     if rc != 0:

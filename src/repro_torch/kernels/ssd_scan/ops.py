@@ -84,7 +84,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     h_fin = torch.empty_like(h0)
     if x.numel() == 0:
         return y, h_fin
-    rc = launch(_entry(), x.device, x.data_ptr(), a.data_ptr(),
+    rc = launch(_entry(), x.get_device(), x.data_ptr(), a.data_ptr(),
                 bmat.data_ptr(), cmat.data_ptr(), h0.data_ptr(),
                 y.data_ptr(), h_fin.data_ptr(), B, S, H, P, N, Q,
                 _DTYPES[x.dtype], _DTYPES[a.dtype], _DTYPES[bmat.dtype])

@@ -173,9 +173,17 @@ def test_unet_forward_on_card_matches_cpu(cuda):
 
 # -- rmsnorm ------------------------------------------------------------------
 
+# every rmsnorm call shape of the two LLM paths (TinyLlama d 2048, Zamba2
+# d 2560 and d_inner 5120; decode S = 1, prefill S = 128) at B in {1, 8,
+# 16}, odd widths, and rows wider than a block holds (chunks, x read
+# again; tests/test_torch_rmsnorm.py checks that their plans do so)
+RMS_PATH = [(B, S, d) for d in (2048, 2560, 5120) for S in (1, 128)
+            for B in (1, 8, 16)]
+
+
 @pytest.mark.parametrize("shape", [(4, 64), (3, 7, 96), (2, 5, 3, 128),
-                                   (1, 256), (5, 100), (8, 1, 2048),
-                                   (8, 128, 2048), (2, 10000)])
+                                   (1, 256), (5, 100), (2, 10000),
+                                   (2, 40000), (3, 16388)] + RMS_PATH)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("scale_dtype", list(DTYPES))
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, scale_dtype):
@@ -187,6 +195,44 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, scale_dtype):
     assert rms_ops.launches == before + 1
     assert got.dtype == x.dtype and got.shape == x.shape
     _close(got, rmsnorm_ref(x, s), dtype)
+
+
+@pytest.mark.parametrize("d", [2048, 2560, 5120])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("which", ["x", "scale"])
+def test_rmsnorm_misaligned_view_takes_scalar_loads(cuda, d, dtype, which):
+    tdt = DTYPES[dtype][0]
+    x, s = _randn((8, 1, d), 3, cuda, tdt), _randn(d, 4, cuda, tdt)
+    buf = _randn(x.numel() + s.numel() + 1, 5, cuda, tdt)
+    if which == "x":                 # one element past a 16-byte line
+        x = buf[1:x.numel() + 1].view(x.shape)
+    else:
+        s = buf[1:d + 1]
+    assert (x.data_ptr() | s.data_ptr()) % 16 != 0
+    assert rms_ops.plan(d, x.element_size(), aligned=False).vec == 1
+    before = rms_ops.launches
+    got = rms_ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rms_ops.launches == before + 1
+    _close(got, rmsnorm_ref(x, s), dtype)
+
+
+def test_rmsnorm_launch_refuses_a_plan_that_misses_the_row(cuda):
+    x, s = _randn((2, 2048), 6, cuda), _randn(2048, 7, cuda)
+    y = torch.empty_like(x)
+    fn = rms_ops._entry()
+    stream = torch.cuda.current_stream().cuda_stream
+    for threads, nv, vec, chunks in ((256, 1, 4, 1),     # half the row
+                                     (256, 6, 4, 1),     # no such template
+                                     (512, 1, 4, 1),     # nor 16-byte nv 1
+                                     (1024, 4, 4, 1),    # over the bound
+                                     (256, 2, 8, 1)):    # not f32's vector
+        rc = fn(x.data_ptr(), s.data_ptr(), y.data_ptr(), 2, 2048, 1e-6, 0,
+                0, threads, nv, vec, chunks, stream)
+        assert rc != 0, (threads, nv, vec, chunks)
+    assert fn(x.data_ptr(), s.data_ptr(), y.data_ptr(), 2, 2048, 1e-6, 0, 0,
+              256, 2, 4, 1, stream) == 0
+    _close(y, rmsnorm_ref(x, s), "float32")
 
 
 def test_rmsnorm_wrapper_rejects_bad_inputs(cuda):

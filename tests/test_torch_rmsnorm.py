@@ -94,3 +94,43 @@ def test_wrapper_rejects_bad_inputs():
         ops.rmsnorm(torch.randn(64, 4).T, torch.ones(64))    # not contiguous
     with pytest.raises(ValueError):
         ops.rmsnorm(x, torch.ones(64, device="meta"))        # other device
+
+
+# -- the kernel's plan (ops.plan), checked without a card ---------------------
+
+PATH_WIDTHS = (2048, 2560, 5120)     # TinyLlama d; Zamba2 d and d_inner
+PLAN_WIDTHS = PATH_WIDTHS + (64, 96, 100, 128, 256, 10000, 16388, 40000)
+
+
+@pytest.mark.parametrize("d", PLAN_WIDTHS)
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_plan_holds_the_row_in_whole_warps(d, elem_bytes, aligned):
+    p = ops.plan(d, elem_bytes, aligned)
+    full = 16 // elem_bytes
+    assert p.vec == (full if aligned and d % full == 0 else 1)
+    assert p.nv in ops.NV and (p.vec == 1 or p.nv >= 2)
+    assert p.threads % 32 == 0
+    assert 64 <= p.threads <= ops.max_threads(p.nv, p.vec) <= 1024
+    held = p.threads * p.nv * p.vec
+    if p.chunks == 1:
+        assert held >= d                     # the whole row in registers
+        assert held - d < p.threads * p.vec or p.threads == 64
+    else:                                    # no block holds it: chunks
+        assert held * (p.chunks - 1) < d <= held * p.chunks
+        assert held == max(ops.max_threads(n, p.vec) * n
+                           for n in ops.NV) * p.vec
+
+
+@pytest.mark.parametrize("elem_bytes,want", [
+    (4, {2048: (128, 4), 2560: (160, 4), 5120: (320, 4)}),
+    (2, {2048: (64, 4), 2560: (64, 5), 5120: (160, 4)})])
+def test_plan_at_the_path_widths_has_no_idle_lane(elem_bytes, want):
+    """Every path width is held whole with no idle lane, 4 vectors a
+    thread where that divides the row."""
+    for d in PATH_WIDTHS:
+        p = ops.plan(d, elem_bytes)
+        assert (p.threads, p.nv) == want[d] and p.chunks == 1
+        assert p.threads * p.nv * p.vec == d
+        q = ops.plan(d, elem_bytes, aligned=False)       # scalar loads
+        assert q.vec == 1 and q.chunks == 1 and q.threads * q.nv == d
