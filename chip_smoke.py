@@ -28,11 +28,33 @@ when it does not hold:
                  launched groupnorm_silu once per gn_silu call.
   5. trace    -- where one DDIM step's time goes at batch 8: device
                  busy share, kernels by device time (torch.profiler),
-                 host time of one wrapper call.
+                 host time of one wrapper call; then the same step as
+                 one replay of the bucketed engine's CUDA graph.
   6. parity   -- a short plan (K=2) on the card (kernel) and on the CPU
                  (plain version), same params with conv_out redrawn and
                  same latents; final images agree within 1e-3 (max abs
                  error).
+  6b. bucketed -- the bucketed pool engine, one CUDA graph per (pool
+                 rows, bucket[, steps]), on the same U-Net: g(X) at batch
+                 1..16 through the bucket graphs beside phase main's
+                 dict curve; phase main's K=8 scenario through
+                 Provisioner(execute="open", exec_engine="bucketed"),
+                 timed; with conv_out redrawn (eps of order 1), on an
+                 executor of its own, phase main's plan untimed
+                 (multi-step graphs) and a plan with batches of every
+                 size 16..1 timed (every padding), each against the dict
+                 engine from the same latents, within MATCH_TOL (1e-5).
+                 Graphs captured, capture seconds by key, replays, peak
+                 memory of each engine, and exact groupnorm_silu
+                 launches: 45 captured per step of each graph, counter =
+                 45 x eager forwards + captured; executed = 45 x eager +
+                 captured x replays.
+  6c. closed  -- Provisioner.run(execute="closed") on both engines,
+                 planned with the calibrated g and with g x 0.5 (drift
+                 must replan): replans, refits, wall_clock /
+                 predicted_wall(), FID, outage, per bucket; executed log
+                 monotone, no resurrection, images finite, one dispatch
+                 per batch, launches exact.
 
 Then phases 7-10 run for each model of the llm_decode path, at full
 width and depth with f32 weights drawn on the card from a seed:
@@ -48,7 +70,9 @@ groups, one weight-shared attention block per group, 2.42B params):
                  (Zamba2), per decode step 22 or 9 decode, per forward
                  45 or 127 rmsnorm; every request gets its planned
                  tokens.  Every kernel call is recorded by its shapes
-                 and types.
+                 and types.  TinyLlama then runs the same plan through
+                 execute_plan(mode="open") on EXECUTORS["llm_decode"]:
+                 launches exact, tokens equal to the Provisioner's.
   8. llm-kernels -- each kernel of the path, its wrapper against its
                  plain version at every call shape phase llm-main gave
                  it (batch 1..16; prompt 32 in the calibration, 128 in
@@ -393,7 +417,8 @@ def phase_main(cfg, card):
                 measured_s=measured, predicted_s=predicted, wall_s=wall,
                 launches=cal_launches + main_launches,
                 calibration_launches=cal_launches,
-                provision_launches=main_launches, forwards=forwards), wl
+                provision_launches=main_launches, forwards=forwards), \
+        wl, (scn, g)
 
 
 def phase_trace(wl, batch: int = 8, steps: int = 5):
@@ -453,10 +478,67 @@ def phase_trace(wl, batch: int = 8, steps: int = 5):
         torch.cuda.synchronize()
     log("[trace] host us per call (200 calls, no sync): "
         + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    graph = trace_bucketed(ex, batch, steps)
     return dict(batch=batch, wall_us=wall_us, device_us=device_us,
                 busy=busy, launches_per_step=launches, gn_us=gn_us,
                 top=sorted(dev.items(), key=lambda kv: -kv[1])[:8],
-                host_us_per_call=host)
+                host_us_per_call=host, bucketed_graph=graph)
+
+
+def trace_bucketed(ex, batch: int, steps: int):
+    """The same DDIM step at ``batch`` through a bucketed session, one
+    graph replay a step: wall per replay (unprofiled), device time and
+    kernels per replay (torch.profiler)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.delay_model import DelayModel
+    from repro_torch.core.plan import BatchPlan
+    cfg = ex.cfg
+    n = 2 * steps + 1
+    ks = list(range(batch))
+    plan = BatchPlan(batches=[[(k, i) for k in ks] for i in range(n)],
+                     start_times=[0.0] * n,
+                     steps_completed={k: n for k in ks}, delay=DelayModel())
+    rng = np.random.default_rng(9)
+    sess = ex.open_session(plan, latents={
+        k: rng.standard_normal((cfg.image_size, cfg.image_size,
+                                cfg.in_channels)).astype(np.float32)
+        for k in ks}, exec_engine="bucketed")
+    sess.run_batch(ks)                  # captures the graph if it is new
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sess.run_batch(ks)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            sess.run_batch(ks)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev = {e.key: e.self_device_time_total / steps for e in events}
+    launches = sum(e.count for e in events) / steps
+    device_us = sum(dev.values())
+    busy = device_us / wall_us
+    gn_us = sum(v for k, v in dev.items() if "groupnorm_silu_kernel" in k)
+    if device_us > 0:
+        log(f"[trace] the same step on the bucketed graph (one replay a "
+            f"step, batch {batch} in bucket {batch}): wall {wall_us:.0f} "
+            f"us per replay, device busy {device_us:.0f} us = {busy:.1%} "
+            f"of wall, idle {1 - busy:.1%}; {launches:.0f} kernels per "
+            f"replay; groupnorm_silu {gn_us:.0f} us")
+    else:
+        log(f"[trace] the same step on the bucketed graph: wall "
+            f"{wall_us:.0f} us per replay; the profiler recorded no device "
+            f"time inside graph replays: kernels and busy share not "
+            f"measured")
+    return dict(wall_us=wall_us, device_us=device_us, busy=busy,
+                launches_per_step=launches, gn_us=gn_us,
+                top=sorted(dev.items(), key=lambda kv: -kv[1])[:8])
 
 
 def _leaves(tree):
@@ -470,23 +552,29 @@ def _leaves(tree):
         yield tree
 
 
+def redrawn(params):
+    """The U-Net's params with conv_out redrawn (seed 7): it is
+    initialised at 1e-10, so eps ~ 0 and a comparison of images would
+    scale any error of the U-Net by 1e-10."""
+    import torch
+    params = dict(params)
+    w = params["conv_out"]
+    params["conv_out"] = torch.randn(
+        w.shape, generator=torch.Generator().manual_seed(7)).to(w.device) \
+        / math.sqrt(w.shape[1])
+    return params
+
+
 def phase_parity(cfg, params):
     import numpy as np
-    import torch
     from repro_torch.api import DiffusionWorkload
     from repro_torch.core.delay_model import DelayModel
     from repro_torch.core.plan import BatchPlan
     from repro_torch.diffusion import unet
     from repro_torch.kernels.groupnorm_silu import ops
 
-    # conv_out is initialised at 1e-10 (eps ~ 0): redraw it so the
-    # comparison means something.  Each executor moves the params to
-    # its own device.
-    params = dict(params)
-    w = params["conv_out"]
-    params["conv_out"] = torch.randn(
-        w.shape, generator=torch.Generator().manual_seed(7)) \
-        / math.sqrt(w.shape[1])
+    # each executor moves the params to its own device
+    params = redrawn(params)
     # K=2: service 0 takes 3 steps, service 1 takes 2; batch sizes 2, 2, 1
     plan = BatchPlan(batches=[[(0, 0), (1, 0)], [(0, 1), (1, 1)], [(0, 2)]],
                      start_times=[0.0, 1.0, 2.0],
@@ -514,6 +602,353 @@ def phase_parity(cfg, params):
         f"max abs err {err:.3g} (tolerance {PARITY_TOL}), largest |image| "
         f"{scale:.3g}")
     return dict(max_abs_err=err, image_scale=scale, tol=PARITY_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The bucketed pool engine (CUDA graphs) and the closed loop
+# ---------------------------------------------------------------------------
+
+def gn_accounting(ex, before, counter: int, calls: int, tag: str):
+    """Exact groupnorm_silu launches of one path run on executor ``ex``
+    since ``before`` = (ex.graph_counts(), ex.forwards), the wrapper's
+    counter zeroed at ``before`` and reading ``counter`` now.  The
+    counter moves at eager calls and at capture, not at a replay, so:
+    every graph must hold ``calls`` launches per step it runs, and the
+    counter must be ``calls`` x eager forwards + the launches captured
+    here.  The launches executed are then the eager ones + each graph's
+    captured launches x its replays."""
+    counts0, f0 = before
+    counts = ex.graph_counts()
+    for key, c in counts.items():
+        check(c["launches"] == calls * c["steps"],
+              f"{tag}: graph {key} captured {c['launches']} groupnorm_silu "
+              f"launches for {c['steps']} steps")
+    new = [k for k in counts if k not in counts0]
+    replays = {k: c["replays"] - counts0.get(k, {"replays": 0})["replays"]
+               for k, c in counts.items()}
+    eager = ex.forwards - f0
+    captured = sum(counts[k]["launches"] for k in new)
+    check(counter == calls * eager + captured,
+          f"{tag}: counter {counter}, expected {calls} x {eager} eager "
+          f"forwards + {captured} captured")
+    graph_forwards = sum(counts[k]["steps"] * r for k, r in replays.items())
+    executed = calls * eager + sum(counts[k]["launches"] * r
+                                   for k, r in replays.items())
+    return dict(counter=counter, executed=executed, eager_forwards=eager,
+                graph_forwards=graph_forwards, captures=len(new),
+                replays=sum(replays.values()))
+
+
+def _gn_run(ex, calls, tag, fn):
+    """``fn()`` with the groupnorm_silu counter zeroed just before and
+    read just after; returns (fn's result, gn_accounting)."""
+    from repro_torch.kernels.groupnorm_silu import ops
+    before = (ex.graph_counts(), ex.forwards)
+    ops.launches = 0
+    out = fn()
+    import torch
+    torch.cuda.synchronize()
+    return out, gn_accounting(ex, before, ops.launches, calls, tag)
+
+
+def phase_bucketed(wl, main, scn, g, card):
+    """The bucketed engine at full width: g(X) through the bucket graphs,
+    phase main's K=8 scenario open loop through the Provisioner, and one
+    untimed run (multi-step graphs) beside the dict engine from the same
+    latents."""
+    import numpy as np
+    import torch
+    from repro_torch.api import DiffusionWorkload, Provisioner
+    from repro_torch.core.delay_model import DelayModel, fit
+    from repro_torch.core.execution import shape_bucket
+    from repro_torch.core.plan import BatchPlan
+    from repro_torch.diffusion import unet
+    from repro_torch.diffusion.bucketed import MATCH_TOL
+    ex = wl._ex()
+    cfg = ex.cfg
+    calls = unet.gn_silu_calls(cfg)
+    clog0 = len(ex.compile_log)
+    sizes, reps = (1, 2, 4, 8, 16), 5
+    curve, acc_curve = _gn_run(ex, calls, "bucketed curve", lambda: (
+        wl.measure_delay_curve(torch.Generator().manual_seed(1),
+                               batch_sizes=sizes, reps=reps,
+                               exec_engine="bucketed")))
+    check(acc_curve["graph_forwards"] == len(sizes) * (1 + reps)
+          and acc_curve["eager_forwards"] <= acc_curve["captures"],
+          f"bucketed curve ran {acc_curve['graph_forwards']} forwards")
+    raw = fit([c[0] for c in curve], [c[1] for c in curve])
+    # the bucketed engine's own calibration, floored as phase main's is
+    g_bucketed = DelayModel(a=max(raw.a, 1e-9), b=max(raw.b, 1e-9))
+    check(g_bucketed.g(16) > 0 and g_bucketed.b > 1e-6,
+          f"degenerate bucketed delay fit {raw}")
+    dict_curve = dict(main["curve"])
+    log(f"[bucketed] delay curve (batch: dict / bucketed graph, best-of-"
+        f"{reps} s per DDIM step): " + ", ".join(
+            f"{x}: {dict_curve[x] * 1e3:.3f} / {s * 1e3:.3f} ms"
+            for x, s in curve))
+    log(f"[bucketed] fitted g(X): dict {main['fit_a'] * 1e3:.4f} ms * X + "
+        f"{main['fit_b'] * 1e3:.4f} ms; bucketed {raw.a * 1e3:.4f} ms * X + "
+        f"{raw.b * 1e3:.4f} ms on {card}")
+
+    t0 = time.perf_counter()
+    rep, acc_open = _gn_run(ex, calls, "bucketed open loop", lambda: (
+        Provisioner(scn, workload=wl, scheduler="stacking",
+                    allocator="inv_se", delay=g, device="cuda",
+                    execute="open",
+                    execute_kwargs={"exec_engine": "bucketed"}).run(
+            torch.Generator().manual_seed(2), timed=True)))
+    wall_open = time.perf_counter() - t0
+    plan, res = rep.plan, rep.execution
+    check(acc_open["graph_forwards"] == plan.num_batches
+          and acc_open["eager_forwards"] <= acc_open["captures"],
+          f"open loop: {acc_open} for {plan.num_batches} batches")
+    check(res.session_telemetry["dispatches"] == plan.num_batches,
+          f"open loop: {res.session_telemetry['dispatches']} dispatches")
+    for k, img in rep.content.items():
+        check(bool(np.isfinite(img).all()), f"service {k}: image not finite")
+    log(f"[bucketed] K={scn.K} open loop (Provisioner execute='open', "
+        f"exec_engine='bucketed', timed): {plan.num_batches} batches, "
+        f"measured {res.wall_clock:.4f} s, predicted (plan makespan) "
+        f"{plan.makespan():.4f} s, measured/predicted "
+        f"{res.wall_clock / plan.makespan():.4f} (dict, phase main: "
+        f"{main['measured_s'] / main['predicted_s']:.4f}); whole run "
+        f"{wall_open:.3f} s; per bucket " + ", ".join(
+            f"{b}: {v['batches']} x {v['mean_s'] * 1e3:.3f} ms"
+            for b, v in sorted(res.per_bucket().items())))
+
+    # images: the same U-Net with conv_out redrawn (eps of order 1), on
+    # an executor of its own: phase main's plan untimed (multi-step
+    # graphs), then a plan whose batches take every size from 16 down
+    # to 1 timed (a step graph per bucket, every padding), each against
+    # the dict engine from the same latents
+    wl_r = DiffusionWorkload(cfg=cfg, params=redrawn(wl.params),
+                             device="cuda")
+    ex_r = wl_r._ex()
+    rng = np.random.default_rng(21)
+    shape = (cfg.image_size, cfg.image_size, cfg.in_channels)
+    lat = {k: rng.standard_normal(shape).astype(np.float32)
+           for k in plan.steps_completed}
+    torch.cuda.reset_peak_memory_stats()
+    want, acc_dict = _gn_run(ex_r, calls, "dict untimed", lambda: (
+        wl_r.execute(plan, latents=lat, exec_engine="dict").content))
+    check(acc_dict["eager_forwards"] == plan.num_batches,
+          f"dict run: {acc_dict}")
+    peak_dict = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = ex_r.open_session(plan, latents=lat, exec_engine="bucketed")
+    got, acc_scan = _gn_run(ex_r, calls, "bucketed untimed", lambda: (
+        sess.run_plan([[k for k, _ in b] for b in plan.batches]),
+        sess.finish())[1])
+    wall_scan = time.perf_counter() - t0
+    peak_graph = torch.cuda.max_memory_allocated()
+    tele = sess.telemetry()
+    check(acc_scan["graph_forwards"] == plan.num_batches
+          and acc_scan["eager_forwards"] <= acc_scan["captures"],
+          f"bucketed untimed: {acc_scan} for {plan.num_batches} batches")
+    sizes = sorted({len(b) for b in plan.batches})
+    log(f"[bucketed] untimed run of the same plan (batch sizes {sizes}) "
+        f"from the same latents, conv_out redrawn: {tele['dispatches']} "
+        f"dispatches for {plan.num_batches} batches "
+        f"({tele['scan_fused_steps']} steps in multi-step graphs "
+        f"{tele['scan_dispatches']}, steps {tele['by_bucket']}), "
+        f"{wall_scan:.3f} s with {tele['compiles']} captures "
+        f"({tele['compile_s']:.3f} s)")
+    every = {k: k + 1 for k in range(16)}      # sizes 16, 15, ..., 1
+    rem, batches = dict(every), []
+    while any(rem.values()):
+        batches.append([(k, every[k] - rem[k]) for k in sorted(rem)
+                        if rem[k]])
+        for k, _ in batches[-1]:
+            rem[k] -= 1
+    plan16 = BatchPlan(batches=batches, start_times=[0.0] * len(batches),
+                       steps_completed=every, delay=DelayModel())
+    lat16 = {k: rng.standard_normal(shape).astype(np.float32)
+             for k in every}
+    want16 = wl_r.execute(plan16, latents=lat16, exec_engine="dict").content
+    got16, acc16 = _gn_run(ex_r, calls, "bucketed every size", lambda: (
+        ex_r.run(plan16, latents=lat16, timed=True,
+                 exec_engine="bucketed")[0]))
+    check(acc16["graph_forwards"] == len(batches),
+          f"bucketed every size: {acc16} for {len(batches)} batches")
+    errs = {}
+    for tag, p_, g_, w_, l_ in (("phase main's plan", plan, got, want, lat),
+                                ("sizes 16..1", plan16, got16, want16,
+                                 lat16)):
+        errs[tag] = max(float(np.abs(g_[k] - w_[k]).max()) for k in w_)
+        over = sum(int((~np.isclose(g_[k], w_[k], **MATCH_TOL)).sum())
+                   for k in w_)
+        # one step is t = 0: it hardly moves the latent
+        moved = min(float(np.abs(g_[k] - l_[k]).max())
+                    for k, T in p_.steps_completed.items() if T > 1)
+        scale_ = max(float(np.abs(v).max()) for v in w_.values())
+        check(all(bool(np.isfinite(g_[k]).all()) for k in g_),
+              f"{tag}: bucketed image not finite")
+        check(over == 0, f"{tag}: bucketed vs dict max abs err "
+              f"{errs[tag]:.3g}, {over} elements over MATCH_TOL")
+        check(moved > 1e-2, f"{tag}: images did not move")
+        log(f"[bucketed] {tag}, conv_out redrawn: bucketed vs dict max "
+            f"abs err {errs[tag]:.3g}, {over} elements over MATCH_TOL "
+            f"(atol = rtol = 1e-5), at |image| <= {scale_:.3g}")
+    err = max(errs.values())
+    scale = max(float(np.abs(v).max()) for v in want.values())
+
+    # the longest chunk: a stable phase of 40 steps at batch 8 runs as
+    # one 32-step and one 8-step graph; twice, the first run captures
+    n, ks = 40, list(range(8))
+    plan40 = BatchPlan(batches=[[(k, i) for k in ks] for i in range(n)],
+                       start_times=[0.0] * n,
+                       steps_completed={k: n for k in ks},
+                       delay=DelayModel())
+    walls40, acc40 = [], []
+    for _ in range(2):
+        sess40 = ex.open_session(plan40, latents={k: lat[k] for k in ks},
+                                 exec_engine="bucketed")
+        t0 = time.perf_counter()
+        acc40.append(_gn_run(ex, calls, "stable phase of 40", lambda: (
+            sess40.run_plan([ks] * n)))[1])
+        walls40.append(time.perf_counter() - t0)
+        check(acc40[-1]["graph_forwards"] == n
+              and sess40.telemetry()["scan_dispatches"] ==
+              {"b8_c32": 1, "b8_c8": 1}, f"stable phase: {acc40[-1]}, "
+              f"{sess40.telemetry()['scan_dispatches']}")
+    cap32 = [s for k, s in ex.compile_log
+             if k == ("bscan", shape_bucket(len(ks) + 1), 8, 32)]
+    log(f"[bucketed] a stable phase of {n} steps at batch 8 (one 32-step "
+        f"and one 8-step graph): {walls40[0]:.3f} s with the 32-step "
+        f"capture ({cap32[0] if cap32 else float('nan'):.3f} s), then "
+        f"{walls40[1]:.3f} s = {walls40[1] / n * 1e3:.3f} ms a step")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    caps = ex.compile_log[clog0:] + ex_r.compile_log
+    counts = {**ex.graph_counts(),
+              **{("redrawn",) + k: c for k, c in ex_r.graph_counts().items()}}
+    log(f"[bucketed] peak memory allocated: dict {peak_dict / 2**20:.1f} "
+        f"MiB, bucketed with its graphs {peak_graph / 2**20:.1f} MiB; "
+        f"after empty_cache, reserved beyond allocated (the graphs' "
+        f"shared pools of two executors, {len(counts)} graphs) "
+        f"{held / 2**20:.1f} MiB")
+    log(f"[bucketed] {len(caps)} graphs captured, "
+        f"{sum(s for _, s in caps):.3f} s in all: " + ", ".join(
+            f"{k}: {s:.3f} s" for k, s in caps))
+    log("[bucketed] replays by graph: " + ", ".join(
+        f"{k}: {c['replays']}" for k, c in counts.items()))
+    acc = {"curve": acc_curve, "open": acc_open, "dict": acc_dict,
+           "untimed": acc_scan, "every_size": acc16, "stable_40": acc40[0],
+           "stable_40_again": acc40[1]}
+    executed = sum(a["executed"] for a in acc.values())
+    log(f"[bucketed] groupnorm_silu launches executed (counter + captured "
+        f"x replays, exact): " + ", ".join(
+            f"{k} {a['executed']} = {calls} x "
+            f"{a['eager_forwards'] + a['graph_forwards']}"
+            for k, a in acc.items()))
+    return g_bucketed, dict(curve=curve, fit_a=raw.a, fit_b=raw.b,
+                open_measured_s=res.wall_clock,
+                open_predicted_s=plan.makespan(),
+                per_bucket=res.per_bucket(), max_abs_err=err,
+                image_scale=scale, wall_untimed_s=wall_scan,
+                telemetry_untimed=tele, peak_dict_bytes=peak_dict,
+                peak_graph_bytes=peak_graph, graph_pool_held_bytes=held,
+                stable_40_s=walls40, capture_32_s=cap32,
+                captures=[[list(k), s] for k, s in caps],
+                replays={str(k): c["replays"] for k, c in counts.items()},
+                accounting=acc, launches=executed)
+
+
+def phase_closed(wl, scn, models, card):
+    """Provisioner.run(execute="closed") on both engines, each planned
+    with its own calibrated g (``models[engine]``: the bucketed engine
+    runs a step in about half the dict engine's time, so the dict g x 0.5
+    is close to the bucketed truth) and with a prior misestimated x0.5
+    (drift must trigger replans): replans, refits, the measured /
+    predicted ratio, FID, outage, per bucket; executed logs monotone with
+    no resurrection, images finite, one dispatch per batch run."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Provisioner
+    from repro_torch.diffusion import unet
+    ex = wl._ex()
+    cfg = ex.cfg
+    calls = unet.gn_silu_calls(cfg)
+    rng = np.random.default_rng(22)
+    shape = (cfg.image_size, cfg.image_size, cfg.in_channels)
+    lat = {s.id: rng.standard_normal(shape).astype(np.float32)
+           for s in scn.services}
+    runs, executed = [], 0
+    for label, scale in (("calibrated g", 1.0), ("prior g x 0.5", 0.5)):
+        for eng in ("dict", "bucketed"):
+            model = models[eng].scaled(scale)
+            tag = f"closed {label} {eng}"
+            t0 = time.perf_counter()
+            rep, acc = _gn_run(ex, calls, tag, lambda: Provisioner(
+                scn, workload=wl, scheduler="stacking", allocator="inv_se",
+                delay=model, device="cuda", execute="closed",
+                execute_kwargs={"exec_engine": eng}).run(latents=lat))
+            wall = time.perf_counter() - t0
+            res = rep.execution
+            n = len(res.records)
+            # the dict engine runs each batch eagerly; the bucketed one
+            # replays a graph, eager only for a warm step before a capture
+            ran = acc["graph_forwards"] if eng == "bucketed" \
+                else acc["eager_forwards"]
+            check(ran == n and res.session_telemetry["dispatches"] == n
+                  and (eng == "dict" or
+                       acc["eager_forwards"] <= acc["captures"]),
+                  f"{tag}: {acc}, {res.session_telemetry['dispatches']} "
+                  f"dispatches for {n} batches")
+            seen = {}
+            for _, k, steps in res.executed_log:
+                check(steps == seen.get(k, 0) + 1,
+                      f"{tag}: service {k} step {steps} after "
+                      f"{seen.get(k, 0)}")
+                seen[k] = steps
+            times = [t for t, _, _ in res.executed_log]
+            check(times == sorted(times), f"{tag}: log not monotone")
+            for o in res.outcomes:
+                img = res.content[o.id]
+                check(seen.get(o.id, 0) == o.steps
+                      and bool(np.isfinite(img).all()),
+                      f"{tag}: service {o.id}")
+                if o.steps == 0:
+                    check(np.array_equal(img, lat[o.id]),
+                          f"{tag}: service {o.id} ran no step but moved")
+            if scale != 1.0:
+                check(res.replans >= 1, f"{tag}: no replan under a x0.5 "
+                      f"prior")
+            ratio = res.wall_clock / res.predicted_wall()
+            planned = res.wall_clock / res.predicted_wall(model)
+            executed += acc["executed"]
+            log(f"[closed] {label}, {eng}: planned with g = "
+                f"{model.a * 1e3:.4f} ms * X + {model.b * 1e3:.4f} ms; "
+                f"{n} batches, replans "
+                f"{res.replans}, refits {res.refits}, wall_clock "
+                f"{res.wall_clock:.4f} s / predicted_wall() "
+                f"{res.predicted_wall():.4f} s = {ratio:.4f} (under the "
+                f"planning model {planned:.4f}); mean FID "
+                f"{res.mean_fid:.4f}, delivered FID "
+                f"{res.delivered_fid:.4f}, outage {res.outage_rate:.1%}; "
+                f"final g {res.delay.a * 1e3:.4f} ms * X + "
+                f"{res.delay.b * 1e3:.4f} ms; whole run {wall:.3f} s")
+            log(f"[closed]   per bucket: " + ", ".join(
+                f"{b}: {v['batches']} x {v['mean_s'] * 1e3:.3f} ms "
+                f"(predicted {v['predicted_s'] / v['batches'] * 1e3:.3f})"
+                for b, v in sorted(res.per_bucket().items()))
+                + f"; groupnorm_silu {acc['executed']} = {calls} x "
+                f"{acc['eager_forwards'] + acc['graph_forwards']}")
+            runs.append(dict(label=label, exec_engine=eng,
+                             planning_a=model.a, planning_b=model.b,
+                             batches=n,
+                             replans=res.replans, refits=res.refits,
+                             wall_clock=res.wall_clock,
+                             predicted_wall=res.predicted_wall(),
+                             ratio=ratio, ratio_planning_model=planned,
+                             mean_fid=res.mean_fid,
+                             delivered_fid=res.delivered_fid,
+                             outage_rate=res.outage_rate,
+                             per_bucket=res.per_bucket(), accounting=acc))
+    torch.cuda.synchronize()
+    return dict(runs=runs, launches=executed)
 
 
 # ---------------------------------------------------------------------------
@@ -1057,6 +1492,37 @@ def phase_llm_main(cfg, params, card):
               and all(0 <= t < cfg.vocab_size for t in toks),
               f"request {k}: {len(toks)} tokens, planned "
               f"{plan.steps_completed[k]}")
+    via_executor, ex_launches = None, {k: 0 for k in launches}
+    if cfg.family != "hybrid":
+        # the same plan again through the "llm_decode" entry of EXECUTORS
+        # (open loop, timed per batch): the same tokens
+        from repro_torch.api import execute_plan
+        _zero_llm_counts()
+        p0, d0 = eng.prefill_calls, eng.decode_calls
+        with _recording(seen):
+            res = execute_plan(scn, plan, rep.allocation, wl, mode="open",
+                               delay=g)
+        torch.cuda.synchronize()
+        ex_launches = _llm_counts()
+        ex_prefills = eng.prefill_calls - p0
+        ex_decodes = eng.decode_calls - d0
+        check(ex_decodes == plan.num_batches == len(res.records)
+              and ex_launches == expected_launches(cfg, ex_prefills,
+                                                   ex_decodes),
+              f"execute_plan: {ex_launches} launches for {ex_prefills} "
+              f"prefills and {ex_decodes} decode steps")
+        check(res.content == rep.content,
+              "execute_plan's tokens differ from the Provisioner's")
+        log(f"{tag} execute_plan(mode='open') through EXECUTORS"
+            f"['llm_decode']: {len(res.records)} batches, tokens equal "
+            f"to the Provisioner's; wall_clock {res.wall_clock:.4f} s / "
+            f"predicted_wall() {res.predicted_wall():.4f} s = "
+            f"{res.wall_clock / res.predicted_wall():.4f}; launches "
+            f"{ex_launches}")
+        via_executor = dict(batches=len(res.records),
+                            wall_clock=res.wall_clock,
+                            predicted_wall=res.predicted_wall(),
+                            launches=ex_launches)
     measured = sum(s for _, s in rep.timings)
     predicted = plan.makespan()
     tokens = sum(steps)
@@ -1078,9 +1544,10 @@ def phase_llm_main(cfg, params, card):
                 measured_s=measured, predicted_s=predicted,
                 tokens_per_s=tokens / measured, wall_s=wall,
                 prefills=prefills, decodes=decodes,
+                execute_plan=via_executor,
                 calibration_launches=cal, provision_launches=launches,
-                launches={k: cal[k] + launches[k] for k in launches}), \
-        wl, seen
+                launches={k: cal[k] + launches[k] + ex_launches[k]
+                          for k in launches}), wl, seen
 
 
 def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
@@ -1366,10 +1833,25 @@ def main() -> int:
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     phase_build()
     kernel, rows = phase_kernels(CONFIG)
-    main_path, wl = phase_main(CONFIG, card)
-    kernel["launches"] = main_path["launches"]
+    main_path, wl, (scn, g) = phase_main(CONFIG, card)
     trace = phase_trace(wl)
     parity = phase_parity(CONFIG, wl.params)
+    t0 = time.perf_counter()
+    g_bucketed, bucketed = phase_bucketed(wl, main_path, scn, g, card)
+    bucketed["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    closed = phase_closed(wl, scn, {"dict": g, "bucketed": g_bucketed},
+                          card)
+    closed["seconds"] = time.perf_counter() - t0
+    log(f"[done] phase bucketed {bucketed['seconds']:.1f} s, phase closed "
+        f"{closed['seconds']:.1f} s")
+    # launches executed on the paths: main, the bucketed graphs (replays
+    # counted) and the closed loop
+    kernel["launches"] = main_path["launches"] + bucketed["launches"] + \
+        closed["launches"]
+    kernel["launches_by_path"] = dict(main=main_path["launches"],
+                                      bucketed=bucketed["launches"],
+                                      closed=closed["launches"])
     del wl
     from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA
     from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2
@@ -1382,7 +1864,8 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         kernel=kernel, kernel_rows=rows, main=main_path, trace=trace,
-        parity=parity, llm_kernels=llm_kernels, llm=llm,
+        parity=parity, bucketed=bucketed, closed=closed,
+        llm_kernels=llm_kernels, llm=llm,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

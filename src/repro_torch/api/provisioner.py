@@ -8,8 +8,10 @@ runs P1 (bandwidth allocation) -> P2 (batch-denoising plan) -> validate
 -> simulate -> execution on the workload's model (the U-Net, or the
 transformer for ``workload="llm_decode"``), and bundles the result
 in a ``ProvisionReport``.  Omitting the workload gives the analytic
-pipeline alone.  The port of ``repro.api.provisioner.Provisioner``'s
-static path; components are chosen by name from the plain dicts
+pipeline alone.  ``execute="open"``/``"closed"`` drives the plan through
+``core/execution.py``'s ``ExecutionLoop`` (measure -> refit ->
+replan).  The port of ``repro.api.provisioner.Provisioner``'s static
+path; components are chosen by name from the plain dicts
 ``SCHEDULERS`` and ``ALLOCATORS`` below, or passed as callables.
 """
 
@@ -21,11 +23,14 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api.workloads import DecodeWorkload, DiffusionWorkload
+from repro_torch.api.execution import execute_plan, with_kwargs
+from repro_torch.api.workloads import (DecodeWorkload, DiffusionWorkload,
+                                       WorkloadOutput)
 from repro_torch.core.bandwidth import (coordinate_refine, equal_allocate,
                                         inv_se_allocate, make_plan,
                                         pso_allocate)
-from repro_torch.core.delay_model import DelayModel
+from repro_torch.core.delay_model import DelayModel, fit
+from repro_torch.core.execution import ExecutionResult
 from repro_torch.core.plan import BatchPlan
 from repro_torch.core.quality_model import PowerLawFID, QualityModel
 from repro_torch.core.service import Scenario
@@ -57,6 +62,7 @@ SCHEDULERS = {"stacking": stacking}
 ALLOCATORS = {"equal": _equal, "inv_se": _inv_se, "pso": _pso,
               "coordinate": _coordinate}
 WORKLOADS = {"diffusion": DiffusionWorkload, "llm_decode": DecodeWorkload}
+EXECUTE_MODES = (None, False, True, "open", "closed")
 
 
 def _pick(table: dict, choice, kind: str):
@@ -66,6 +72,14 @@ def _pick(table: dict, choice, kind: str):
         raise ValueError(f"unknown {kind} {choice!r}; expected one of "
                          f"{sorted(table)}")
     return table[choice]
+
+
+def _check_execute(execute):
+    if execute not in EXECUTE_MODES:
+        raise ValueError(f"execute must be one of {EXECUTE_MODES}, got "
+                         f"{execute!r}")
+    return execute
+
 
 
 @dataclasses.dataclass
@@ -84,6 +98,7 @@ class ProvisionReport:
     scheduler_name: str = ""
     allocator_name: str = ""
     workload_name: str = ""
+    execution: Optional[ExecutionResult] = None  # closed/open-loop run
 
     @property
     def mean_fid(self) -> float:
@@ -93,12 +108,55 @@ class ProvisionReport:
     def outage_rate(self) -> float:
         return self.sim.outage_rate
 
+    def refit_delay(self) -> DelayModel:
+        """Fit g(X) = aX + b from this run's measured per-batch timings
+        (requires a timed execution with >= 2 distinct batch sizes): the
+        calibrate->replan loop's measurement half."""
+        sizes = [x for x, _ in self.timings]
+        if len(set(sizes)) < 2:
+            raise ValueError(
+                "need timed batches of >= 2 distinct sizes to refit; "
+                "run with timed=True on a plan with varied batch sizes")
+        m = fit(sizes, [s for _, s in self.timings])
+        # least squares can extrapolate a (slightly) negative slope or
+        # intercept from noisy timings; delays are physically nonnegative
+        # and the schedulers require g(X) > 0
+        return DelayModel(a=max(m.a, 0.0), b=max(m.b, 1e-6))
+
     def summary(self) -> str:
         head = (f"[{self.workload_name or 'analytic'}] "
                 f"scheduler={self.scheduler_name} "
                 f"allocator={self.allocator_name} "
                 f"batches={self.plan.num_batches}")
-        return head + "\n" + self.sim.summary()
+        body = head + "\n" + self.sim.summary()
+        if self.execution is not None:
+            body += "\n" + self.execution.summary()
+        return body
+
+    def to_dict(self) -> dict:
+        """JSON-serializable aggregates, no model artifacts: the keys of
+        the reference's ``report_dict`` protocol, plus the execution's
+        own ``to_dict`` and its per-bucket telemetry."""
+        mean_fid = self.mean_fid
+        d = {
+            "kind": "provision",
+            "mean_fid": None if np.isnan(mean_fid) else float(mean_fid),
+            "outage_rate": float(self.outage_rate),
+            "makespan": float(self.plan.makespan()),
+            "components": {"scheduler": self.scheduler_name,
+                           "allocator": self.allocator_name,
+                           "workload": self.workload_name},
+            "telemetry": {"batches": self.plan.num_batches,
+                          "timings": [[int(x), float(s)]
+                                      for x, s in self.timings]},
+            "n_services": self.scenario.K,
+        }
+        if self.execution is not None:
+            d["execution"] = self.execution.to_dict()
+            d["telemetry"]["exec_engine"] = d["execution"]["exec_engine"]
+            d["telemetry"]["per_bucket"] = \
+                d["execution"]["telemetry"]["per_bucket"]
+        return d
 
 
 class Provisioner:
@@ -108,15 +166,23 @@ class Provisioner:
     ``DiffusionWorkload`` on ``device``), ``"llm_decode"`` (a
     ``DecodeWorkload`` on ``device``) or a workload instance.
     ``allocator_kwargs`` pass through to the P1 solver
-    (``num_particles``, ``iters``, ``seed``, ...)."""
+    (``num_particles``, ``iters``, ``seed``, ...).  ``execute`` is
+    ``run()``'s default execution mode (see ``run``); ``execute_kwargs``
+    tunes the loop (``window``, ``drift_tol``, ``min_batches``,
+    ``max_replans``, ``headroom``, ``executor``, ``executor_kwargs``,
+    plus ``exec_engine="bucketed"`` for the diffusion sessions'
+    pool engine)."""
 
     def __init__(self, scenario: Scenario, *, workload=None,
                  scheduler="stacking", allocator="pso",
                  delay: Optional[DelayModel] = None,
                  quality: Optional[QualityModel] = None,
                  allocator_kwargs: Optional[dict] = None,
-                 device="cuda"):
+                 device="cuda", execute=None,
+                 execute_kwargs: Optional[dict] = None):
         self.scenario = scenario
+        self.execute_default = _check_execute(execute)
+        self.execute_kwargs = dict(execute_kwargs or {})
         self.scheduler_name = getattr(scheduler, "__name__", str(scheduler))
         self.allocator_name = getattr(allocator, "__name__", str(allocator))
         self.scheduler = _pick(SCHEDULERS, scheduler, "scheduler")
@@ -154,19 +220,39 @@ class Provisioner:
 
     # -- one-call end-to-end --------------------------------------------
     def run(self, generator: Optional[torch.Generator] = None, *,
-            timed: bool = False, calibrate: bool = False,
-            validate: bool = True,
+            execute=None, timed: bool = False, calibrate: bool = False,
+            refit: bool = False, validate: bool = True,
             latents: Optional[Mapping[int, Any]] = None
             ) -> ProvisionReport:
         """(calibrate) -> allocate -> plan -> (validate) -> simulate ->
         execute.
 
+        execute: ``None`` falls back to the constructor's ``execute=``
+            (default: one-shot workload execution).  ``True`` runs
+            ``workload.execute`` open loop; ``False`` executes nothing;
+            ``"open"``/``"closed"`` drive the plan through
+            ``ExecutionLoop`` (measured wall-clock, rolling delay refit;
+            ``"closed"`` also replans mid-flight on drift) and attach
+            the ``ExecutionResult`` as ``report.execution``.
         calibrate: measure the workload's delay curve first and plan
             with the fitted model (the Fig.-1a loop).
         timed: record per-batch wall clock during execution.
+        refit: refit ``self.delay`` in place from the measured timings
+            so the *next* ``run`` plans with them; implies
+            ``timed=True`` and needs an executing workload.
         latents: initial noise per service id (default: drawn from
-            ``generator``).
+            ``generator``), in the one-shot and the loop paths alike.
         """
+        mode = self.execute_default if execute is None \
+            else _check_execute(execute)
+        if mode is None:
+            mode = True                    # default: one-shot execution
+        if refit:
+            if mode is False or self.workload is None:
+                raise ValueError(
+                    "refit=True needs measured timings: attach a workload "
+                    "and keep execute=True")
+            timed = True                   # refit is meaningless untimed
         if calibrate:
             self.calibrate(generator)
         alloc = self.allocate()
@@ -174,15 +260,32 @@ class Provisioner:
         if validate:
             plan.validate(gen_deadlines=tp)
         sim = simulate(self.scenario, alloc, plan, self.quality)
-        content, timings = None, []
-        if self.workload is not None:
+        out = WorkloadOutput(content=None)
+        execution = None
+        if mode is True and self.workload is not None:
             out = self.workload.execute(plan, generator, timed=timed,
                                         latents=latents)
-            content, timings = out.content, out.timings
-        return ProvisionReport(
+        elif mode in ("open", "closed"):
+            kw = dict(self.execute_kwargs)
+            if latents is not None:
+                kw["executor_kwargs"] = dict(kw.get("executor_kwargs") or {},
+                                             latents=latents)
+            execution = execute_plan(
+                self.scenario, plan, alloc, self.workload, mode=mode,
+                generator=generator, scheduler=self.scheduler,
+                allocator=with_kwargs(self.allocator,
+                                      self.allocator_kwargs),
+                delay=self.delay, quality=self.quality,
+                validate=validate, **kw)
+            out = WorkloadOutput(content=execution.content,
+                                 timings=execution.timings)
+        report = ProvisionReport(
             scenario=self.scenario, allocation=alloc, tau_prime=tp,
-            plan=plan, sim=sim, content=content, timings=timings,
+            plan=plan, sim=sim, content=out.content, timings=out.timings,
             delay=self.delay, quality=self.quality,
             scheduler_name=self.scheduler_name,
             allocator_name=self.allocator_name,
-            workload_name=self.workload_name)
+            workload_name=self.workload_name, execution=execution)
+        if refit:
+            self.delay = report.refit_delay()
+        return report

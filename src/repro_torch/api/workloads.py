@@ -7,8 +7,10 @@ decode token).
 The port of ``repro.api.workloads``.  Randomness is a
 ``torch.Generator`` instead of a jax key; the diffusion workload's
 ``execute`` and ``open_session`` also take ``latents=`` (service id ->
-(H, W, C) array) so a run can start from given noise.  Models are built
-lazily, at the first call that needs them.
+(H, W, C) array) so a run can start from given noise.  ``exec_engine``
+picks the denoising engine (``"dict"`` or ``"bucketed"``,
+``diffusion/bucketed.py``).  Models are built lazily, at the first call
+that needs them.
 """
 
 from __future__ import annotations
@@ -46,16 +48,20 @@ class DiffusionWorkload:
 
     cfg: a ``UNetConfig`` (default ``SMOKE``); params: the U-Net's param
     tree on any device (default: ``init_params`` from a CPU generator
-    seeded ``init_seed``); device: where the U-Net runs."""
+    seeded ``init_seed``); device: where the U-Net runs; exec_engine:
+    the engine of every session this workload opens (``"dict"`` /
+    ``"bucketed"``; None = the executor's, then the process default)."""
 
     name = "diffusion"
 
     def __init__(self, cfg=None, params=None, executor=None,
-                 init_seed: int = 0, device="cuda"):
+                 init_seed: int = 0, device="cuda",
+                 exec_engine: Optional[str] = None):
         self.cfg = cfg
         self.params = params
         self._executor = executor
         self.init_seed = init_seed
+        self.exec_engine = exec_engine
         self.device = resolve_device(device) if executor is None \
             else executor.device
 
@@ -68,8 +74,9 @@ class DiffusionWorkload:
                     unet.schema(cfg),
                     torch.Generator().manual_seed(self.init_seed),
                     self.device)
-            self._executor = BatchDenoisingExecutor(cfg, params,
-                                                    device=self.device)
+            self._executor = BatchDenoisingExecutor(
+                cfg, params, device=self.device,
+                exec_engine=self.exec_engine)
             self.cfg, self.params = cfg, self._executor.params
         return self._executor
 
@@ -81,32 +88,44 @@ class DiffusionWorkload:
 
     def measure_delay_curve(self, generator: Optional[torch.Generator] = None,
                             batch_sizes: Sequence[int] = (1, 2, 4, 8),
-                            reps: int = 3):
-        """Fig. 1a raw data: steady-state per-step delay vs batch size."""
+                            reps: int = 3,
+                            exec_engine: Optional[str] = None):
+        """Fig. 1a raw data: steady-state per-step delay vs batch size.
+        Capture time never lands in the readings; the executor's
+        ``last_compile_log`` carries it separately."""
         return self._ex().measure_delay_curve(generator,
                                               batch_sizes=batch_sizes,
-                                              reps=reps)
+                                              reps=reps,
+                                              exec_engine=exec_engine)
 
     def calibrate(self, generator: Optional[torch.Generator] = None, *,
                   batch_sizes: Sequence[int] = (1, 2, 4, 8),
-                  reps: int = 3) -> DelayModel:
-        curve = self.measure_delay_curve(generator, batch_sizes, reps)
+                  reps: int = 3,
+                  exec_engine: Optional[str] = None) -> DelayModel:
+        curve = self.measure_delay_curve(generator, batch_sizes, reps,
+                                         exec_engine=exec_engine)
         return fit([c[0] for c in curve], [c[1] for c in curve])
 
     def execute(self, plan: BatchPlan,
                 generator: Optional[torch.Generator] = None, *,
                 timed: bool = False,
-                latents: Optional[Mapping[int, Any]] = None
-                ) -> WorkloadOutput:
+                latents: Optional[Mapping[int, Any]] = None,
+                exec_engine: Optional[str] = None) -> WorkloadOutput:
         images, timings = self._ex().run(plan, generator, timed=timed,
-                                         latents=latents)
+                                         latents=latents,
+                                         exec_engine=exec_engine)
         return WorkloadOutput(content=images, timings=timings)
 
     def open_session(self, plan: BatchPlan,
                      generator: Optional[torch.Generator] = None,
-                     latents: Optional[Mapping[int, Any]] = None):
-        """Stepwise execution handle (``DenoiseSession``)."""
-        return self._ex().open_session(plan, generator, latents)
+                     latents: Optional[Mapping[int, Any]] = None,
+                     exec_engine: Optional[str] = None):
+        """Stepwise execution handle (the ``"diffusion"`` entry of
+        ``EXECUTORS``): the closed loop drives batches itself.
+        ``exec_engine`` overrides the workload's engine for this
+        session."""
+        return self._ex().open_session(plan, generator, latents,
+                                       exec_engine=exec_engine)
 
 
 class DecodeWorkload:
@@ -212,7 +231,14 @@ class DecodeWorkload:
                               timings=list(eng.last_timings))
 
     def open_session(self, plan: BatchPlan,
-                     generator: Optional[torch.Generator] = None):
-        """Stepwise decode handle (``DecodeSession``)."""
+                     generator: Optional[torch.Generator] = None,
+                     exec_engine: Optional[str] = None):
+        """Stepwise decode handle (``DecodeSession``, the
+        ``"llm_decode"`` entry of ``EXECUTORS``); ``generator`` is
+        unused: decoding is greedy argmax."""
+        if exec_engine not in (None, "dict"):
+            raise ValueError(f"llm_decode executor has no "
+                             f"exec_engine={exec_engine!r} (the bucketed "
+                             f"engine is diffusion-only)")
         self._load_requests(plan)
         return self._eng().open_session(plan)

@@ -6,10 +6,11 @@ B = 40 kHz, content size S identical across services (one generated
 image; default 3 KiB ~= a 32x32 PNG), or per service when
 ``content_bits_range`` is given.
 
-A copy of the paper's static single-server setting of
-``repro.core.service``; a given seed draws the same scenario as the
-original.  Arrivals over time and multi-server cells are not part of
-this port yet.
+A copy of ``repro.core.service``'s single-server setting; a given seed
+draws the same scenario as the original.  ``arrival`` is the request's
+submission time (0 = the paper's static batch; ``arrival_rate`` draws a
+Poisson process for ``core/online.py``).  Multi-server cells are not
+part of this port yet.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ DEFAULT_CONTENT_BITS = 3 * 1024 * 8.0
 @dataclasses.dataclass(frozen=True)
 class ServiceRequest:
     id: int
-    deadline: float            # tau_k, end-to-end (s)
+    deadline: float            # tau_k, end-to-end, relative to arrival (s)
     spectral_eff: float        # eta_k (bit/s/Hz)
+    arrival: float = 0.0       # submission time (0 = the paper's static batch)
     content_bits: Optional[float] = None   # per-service S; None = scenario's
 
     def tx_delay(self, bandwidth_hz: float,
@@ -55,13 +57,18 @@ def make_scenario(K: int = 20, tau_min: float = 7.0, tau_max: float = 20.0,
                   eta_min: float = 5.0, eta_max: float = 10.0,
                   total_bandwidth_hz: float = DEFAULT_BANDWIDTH_HZ,
                   content_bits: float = DEFAULT_CONTENT_BITS,
+                  arrival_rate: Optional[float] = None,
                   content_bits_range: Optional[Tuple[float, float]] = None,
                   seed: int = 0) -> Scenario:
     """Sample a K-service scenario (Sec. IV constants by default).
 
-    content_bits_range: (lo, hi) uniform per-service content sizes,
-        drawn after the base loop so a seed's deadlines and spectral
-        efficiencies do not change with it.
+    arrival_rate: requests/s of a Poisson arrival process; service k
+        arrives at the k-th arrival epoch.  ``None`` keeps every
+        arrival at t=0.
+    content_bits_range: (lo, hi) uniform per-service content sizes.
+
+    Both are drawn after the base loop, in this order, so a seed's
+    deadlines and spectral efficiencies do not change with them.
     """
     rng = np.random.default_rng(seed)
     services = [
@@ -72,6 +79,12 @@ def make_scenario(K: int = 20, tau_min: float = 7.0, tau_max: float = 20.0,
         )
         for k in range(K)
     ]
+    if arrival_rate is not None:
+        if arrival_rate <= 0:
+            raise ValueError("arrival_rate must be positive (requests/s)")
+        arrivals = np.cumsum(rng.exponential(1.0 / arrival_rate, size=K))
+        services = [dataclasses.replace(s, arrival=float(t))
+                    for s, t in zip(services, arrivals)]
     if content_bits_range is not None:
         lo, hi = content_bits_range
         bits = rng.uniform(lo, hi, size=K)

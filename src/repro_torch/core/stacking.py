@@ -105,3 +105,14 @@ def stacking(services: Sequence[ServiceRequest],
     if best_plan is None:
         raise ValueError("stacking: no T* candidate produced a plan")
     return best_plan
+
+
+def check_engine(engine) -> None:
+    """Raise for a planning engine this port does not have.  The
+    reference's ``repro.core.arrays`` picks a vectorised or jax engine;
+    the port has only the scalar loops above (``None`` = ``"scalar"``),
+    which give the reference's ``vec`` plans bit for bit."""
+    if engine not in (None, "scalar"):
+        raise NotImplementedError(
+            f"planning engine {engine!r} is not ported; only 'scalar' "
+            f"(ROADMAP.md, queue 1 item 8: the planner device engine)")

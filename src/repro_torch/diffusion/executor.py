@@ -1,16 +1,26 @@
 """Batch-denoising executor: runs a BatchPlan against the DDIM U-Net.
 
-The port of ``repro.diffusion.executor``'s ``"dict"`` engine.  Each
-service k ends the plan with T_k steps on its evenly-spaced T_k-step
-DDIM schedule.  Batch n gathers the current latents of its services
-(at *different* step indices of *different* schedules), advances them
-with ONE batched U-Net call using per-sample timesteps, and scatters the
-results back: the parallelism the paper's Fig. 1a measures.
+The port of ``repro.diffusion.executor``.  Each service k ends the plan
+with T_k steps on its evenly-spaced T_k-step DDIM schedule.  Batch n
+gathers the current latents of its services (at *different* step
+indices of *different* schedules), advances them with ONE batched U-Net
+call using per-sample timesteps, and scatters the results back: the
+parallelism the paper's Fig. 1a measures.
 
-PyTorch runs eagerly, so there is no compile step: ``compile_log`` stays
-empty and timed readings are the real step, run once.  On the card a
-timed reading is the host clock between two ``torch.cuda.synchronize``
-calls.
+Two execution engines share the ``DenoiseSession`` interface:
+
+  * ``"dict"`` (default): latents live in a per-service dict and each
+    batch is stacked, stepped eagerly and scattered back.
+  * ``"bucketed"`` (``diffusion/bucketed.py``): all K latents live in
+    one pool, batches run as power-of-two padded gather->step->scatter
+    programs, and stable plan phases fuse into multi-step programs.  On
+    the card each program is a CUDA graph, captured at first use and
+    cached on the executor in ``_programs`` (the reference's AOT
+    programs); capture seconds go to ``compile_log``.  On the CPU the
+    same functions run eagerly and nothing is captured.
+
+Timed readings are the real step, run once: on the card the host clock
+between two ``torch.cuda.synchronize`` calls.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.ddim_cifar10 import UNetConfig
+from repro_torch.core.execution import EXEC_ENGINES, exec_engine_default
 from repro_torch.core.plan import BatchPlan
 from repro_torch.diffusion import ddim, unet
 
@@ -35,50 +46,116 @@ def _sync(device: torch.device) -> None:
 class BatchDenoisingExecutor:
     def __init__(self, cfg: UNetConfig, params,
                  num_train_timesteps: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", exec_engine: Optional[str] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.T_train = num_train_timesteps or cfg.num_train_timesteps
-        # the reference's compile log; eager PyTorch compiles nothing,
-        # so it stays empty
+        if exec_engine is not None and exec_engine not in EXEC_ENGINES:
+            raise ValueError(f"unknown exec_engine {exec_engine!r}; "
+                             f"expected one of {EXEC_ENGINES}")
+        self.exec_engine = exec_engine
+        # captured programs (CUDA graphs of diffusion/bucketed.py),
+        # keyed by (kind, pool rows, padded batch[, steps])
+        self._programs: Dict[tuple, object] = {}
+        # [(program key, capture seconds)] in capture order
         self.compile_log: List[Tuple[tuple, float]] = []
-        # batched DDIM steps executed (all sessions) — one U-Net forward
-        # each, so a timed run provably runs the U-Net once per batch
+        # capture entries added by the most recent measure_delay_curve
+        self.last_compile_log: List[Tuple[tuple, float]] = []
+        # what the bucketed graphs share: one static pool per row count
+        # (graphs bind addresses), the holder whose rows it holds, one
+        # memory pool for every graph's intermediates and one stream
+        # for every warm step and capture
+        self._pools: Dict[int, torch.Tensor] = {}
+        self._pool_owner: Dict[int, object] = {}
+        self._graph_mempool = None
+        self._side_stream = None
+        # (pool rows, padded batch) already run once eagerly on the card
+        self._warm: set = set()
+        # program executions (all engines, all sessions): a dict step,
+        # a graph replay, an eager bucketed step or scan chunk
         self.dispatches = 0
+        # U-Net forwards run outside a capture (a graph replay runs
+        # its captured forwards without counting here)
+        self.forwards = 0
 
     def eps_fn(self, x, t):
         return unet.forward(self.cfg, self.params, x, t)
 
     def step_fn(self, x, t_now, t_next):
-        """One batched DDIM step with per-sample timesteps."""
+        """One batched DDIM step with per-sample timesteps: the
+        function every engine's programs are built from."""
+        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            self.forwards += 1
         return ddim.ddim_step(self.eps_fn, x, t_now, t_next, self.T_train)
+
+    def resolve_engine(self, exec_engine: Optional[str] = None) -> str:
+        """Call-site override > constructor knob > process default."""
+        eng = exec_engine or self.exec_engine or exec_engine_default()
+        if eng not in EXEC_ENGINES:
+            raise ValueError(f"unknown exec_engine {eng!r}; "
+                             f"expected one of {EXEC_ENGINES}")
+        return eng
+
+    def program(self, key: tuple, build):
+        """The program cached under ``key``, built by ``build()`` (a
+        CUDA graph capture) at first use, its seconds logged in
+        ``compile_log``."""
+        prog = self._programs.get(key)
+        if prog is None:
+            t0 = time.perf_counter()
+            prog = build()
+            _sync(self.device)
+            self.compile_log.append((key, time.perf_counter() - t0))
+            self._programs[key] = prog
+        return prog
+
+    def graph_counts(self) -> Dict[tuple, Dict[str, int]]:
+        """Per captured program: the U-Net forwards one replay runs
+        (``steps``), the groupnorm_silu launches captured in it
+        (``launches``) and its replays so far: a replay launches its
+        kernels without moving the wrappers' counters."""
+        return {key: dict(steps=g.steps, launches=g.launches,
+                          replays=g.replays)
+                for key, g in self._programs.items()}
 
     def open_session(self, plan: BatchPlan,
                      generator: Optional[torch.Generator] = None,
-                     latents: Optional[Mapping[int, object]] = None
+                     latents: Optional[Mapping[int, object]] = None,
+                     exec_engine: Optional[str] = None
                      ) -> "DenoiseSession":
         """Stepwise execution handle: batches are driven one
-        ``run_batch`` call at a time."""
+        ``run_batch`` call at a time, so a closed loop
+        (``core/execution.py``) can observe wall-clock and retarget
+        remaining schedules between batches."""
+        if self.resolve_engine(exec_engine) == "bucketed":
+            # imported here: bucketed.py subclasses DenoiseSession
+            from repro_torch.diffusion.bucketed import \
+                BucketedDenoiseSession
+            return BucketedDenoiseSession(self, plan, generator, latents)
         return DenoiseSession(self, plan, generator, latents)
 
     def run(self, plan: BatchPlan,
             generator: Optional[torch.Generator] = None,
             timed: bool = False,
-            latents: Optional[Mapping[int, object]] = None
+            latents: Optional[Mapping[int, object]] = None,
+            exec_engine: Optional[str] = None
             ) -> Tuple[Dict[int, np.ndarray], List]:
         """Execute the plan.  Returns ({service: final image}, timings).
 
         timings: list of (batch_size, seconds) when timed=True.
         Zero-step services are never batched; their latent comes back
-        untouched."""
-        sess = self.open_session(plan, generator, latents)
+        untouched.  Untimed runs go through ``run_plan``, so the
+        bucketed engine can fuse stable plan phases into multi-step
+        programs; timed runs stay stepwise (one reading per batch)."""
+        sess = self.open_session(plan, generator, latents, exec_engine)
+        batches = [[k for k, _ in batch] for batch in plan.batches]
         timings = []
-        for batch in plan.batches:
-            ks = [k for k, _ in batch]
-            dt = sess.run_batch(ks, timed=timed)
-            if timed:
-                timings.append((len(ks), dt))
+        if timed:
+            for ks in batches:
+                timings.append((len(ks), sess.run_batch(ks, timed=True)))
+        else:
+            sess.run_plan(batches)
         return sess.finish(), timings
 
     def step_batch(self, latents: Dict[int, torch.Tensor],
@@ -107,13 +184,28 @@ class BatchDenoisingExecutor:
         return dt
 
     def measure_delay_curve(self, generator: Optional[torch.Generator] = None,
-                            batch_sizes=range(1, 17), reps: int = 3
+                            batch_sizes=range(1, 17), reps: int = 3,
+                            exec_engine: Optional[str] = None
                             ) -> List[Tuple[int, float]]:
         """Fig. 1a measurement: steady-state per-step delay vs batch
-        size, the best of ``reps`` readings after one warm call."""
-        cfg = self.cfg
+        size, the best of ``reps`` readings after one warm call.  On the
+        bucketed engine sizes share power-of-two bucket programs, and
+        the reading for size X is the padded bucket's cost, what that
+        engine pays; capture seconds land in ``last_compile_log``."""
         if generator is None:
             generator = torch.Generator().manual_seed(1)
+        clog0 = len(self.compile_log)
+        if self.resolve_engine(exec_engine) == "bucketed":
+            from repro_torch.diffusion.bucketed import \
+                measure_bucketed_curve
+            out = measure_bucketed_curve(self, generator, batch_sizes, reps)
+        else:
+            out = self._measure_dict_curve(generator, batch_sizes, reps)
+        self.last_compile_log = self.compile_log[clog0:]
+        return out
+
+    def _measure_dict_curve(self, generator, batch_sizes, reps):
+        cfg = self.cfg
         out = []
         for X in batch_sizes:
             x = torch.randn((X, cfg.image_size, cfg.image_size,

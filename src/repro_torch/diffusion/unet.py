@@ -10,6 +10,16 @@ reference does.  Inside, activations stay NHWC-contiguous:
 ``F.conv2d`` takes natively, and the GroupNorm+SiLU kernel reads the
 NHWC tensor with no copy.  Params are a plain nested dict of tensors
 (``schema`` below), convolution weights OIHW.
+
+The matrix products (time embedding, attention) run at
+``product_rows(B)`` rows, the power-of-two bucket of the batch, with
+zero rows added where B is short of it.  cuBLAS picks its kernel, and
+so the order of each row's sums, by the row count; at the bucket a row
+gets the same products in a batch of B as in the bucketed engine's
+padded batch (``diffusion/bucketed.py``).  cuDNN does the same for a
+few convolution shapes, and those alone run at the bucket too
+(``conv_rows``).  The group norms give a row the same result at either
+width.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.ddim_cifar10 import UNetConfig
+from repro_torch.core.execution import shape_bucket
 from repro_torch.kernels.groupnorm_silu import ops as gn_ops
 from repro_torch.kernels.groupnorm_silu.ref import group_norm_ref
 from repro_torch.models.params import P
@@ -37,10 +48,7 @@ def _same_pads(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-def conv2d(x, w, b=None, stride: int = 1):
-    """x: (B, H, W, Cin) NHWC; w: (Cout, Cin, kh, kw).  "SAME" padding
-    as in the reference: for k=3, s=2 on an even input that pads (0, 1),
-    which ``padding=1`` would get wrong."""
+def _conv(x, w, stride: int):
     xn = x.permute(0, 3, 1, 2)
     (ph0, ph1) = _same_pads(x.shape[1], w.shape[2], stride)
     (pw0, pw1) = _same_pads(x.shape[2], w.shape[3], stride)
@@ -48,7 +56,36 @@ def conv2d(x, w, b=None, stride: int = 1):
         out = F.conv2d(xn, w, stride=stride, padding=(ph0, pw0))
     else:
         out = F.conv2d(F.pad(xn, (pw0, pw1, ph0, ph1)), w, stride=stride)
-    out = out.permute(0, 2, 3, 1).contiguous()
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+# (x shape, w shape, stride, device) of a convolution on the card -> the
+# rows it runs at (conv_rows)
+_conv_rows_seen: dict = {}
+
+
+def conv_rows(x, w, stride: int) -> int:
+    """Rows a convolution of the batch x runs at: B, or on the card
+    ``product_rows(B)`` where cuDNN gives a row another result at B
+    than at that width (it picks its algorithm by the batch size).
+    Found at the first call of each shape by running both."""
+    B, Bp = x.shape[0], product_rows(x.shape[0])
+    if Bp == B or not x.is_cuda:
+        return B
+    key = (tuple(x.shape), tuple(w.shape), stride, x.device)
+    if key not in _conv_rows_seen:
+        same = torch.equal(_conv(x, w, stride),
+                           _conv(pad_rows(x, Bp), w, stride)[:B])
+        _conv_rows_seen[key] = B if same else Bp
+    return _conv_rows_seen[key]
+
+
+def conv2d(x, w, b=None, stride: int = 1):
+    """x: (B, H, W, Cin) NHWC; w: (Cout, Cin, kh, kw).  "SAME" padding
+    as in the reference: for k=3, s=2 on an even input that pads (0, 1),
+    which ``padding=1`` would get wrong.  Runs at ``conv_rows`` rows."""
+    B = x.shape[0]
+    out = _conv(pad_rows(x, conv_rows(x, w, stride)), w, stride)[:B]
     if b is not None:
         out = out + b
     return out
@@ -62,6 +99,19 @@ def gn_silu(x, scale, bias, num_groups: int):
     """Fused GroupNorm+SiLU: the CUDA kernel for a tensor on the card,
     its plain version on the CPU (``kernels/groupnorm_silu/ops.py``)."""
     return gn_ops.groupnorm_silu(x, scale, bias, num_groups)
+
+
+def product_rows(B: int) -> int:
+    """Rows the matrix products run at for a batch of B."""
+    return shape_bucket(B)
+
+
+def pad_rows(x, rows: int, value: float = 0.0):
+    """x with rows of ``value`` added along dim 0 up to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    return F.pad(x, (0, 0) * (x.dim() - 1) + (0, rows - x.shape[0]),
+                 value=value)
 
 
 def timestep_embedding(t, dim: int, max_period: float = 10000.0):
@@ -181,7 +231,7 @@ def gn_silu_calls(cfg: UNetConfig) -> int:
 def _res_block(cfg, p, x, temb):
     h = gn_silu(x, p["gn1_s"], p["gn1_b"], cfg.num_groups)
     h = conv2d(h, p["conv1"])
-    h = h + (F.silu(temb) @ p["temb"])[:, None, None, :]
+    h = h + (F.silu(temb) @ p["temb"])[:h.shape[0], None, None, :]
     h = gn_silu(h, p["gn2_s"], p["gn2_b"], cfg.num_groups)
     h = conv2d(h, p["conv2"])
     skip = conv2d(x, p["skip"]) if "skip" in p else x
@@ -191,16 +241,18 @@ def _res_block(cfg, p, x, temb):
 def _attn_block(cfg, p, x):
     B, H, W, C = x.shape
     h = group_norm(x, p["gn_s"], p["gn_b"], cfg.num_groups)
-    flat = h.reshape(B, H * W, C)
+    flat = pad_rows(h.reshape(B, H * W, C), product_rows(B))
     q, k, v = flat @ p["wq"], flat @ p["wk"], flat @ p["wv"]
     attn = torch.softmax(q @ k.transpose(1, 2) / math.sqrt(C), dim=-1)
     out = (attn @ v) @ p["wo"]
-    return x + out.reshape(B, H, W, C)
+    return x + out[:B].reshape(B, H, W, C)
 
 
 def forward(cfg: UNetConfig, params, x, t):
     """x: (B, H, W, C) noisy images; t: (B,) per-sample timesteps.
-    Returns predicted noise eps, same shape as x."""
+    Returns predicted noise eps, same shape as x.  The time embedding
+    runs at ``product_rows(B)`` rows (added rows at t = -1)."""
+    t = pad_rows(t, product_rows(x.shape[0]), -1.0)
     temb = timestep_embedding(t, cfg.base_channels)
     temb = F.silu(temb @ params["temb1"]) @ params["temb2"]
 

@@ -616,3 +616,211 @@ def test_zamba2_on_card_matches_cpu(cuda):
                 == (4, 2, 2, 26)
     for got, want in zip(outs[str(cuda)], outs["cpu"]):
         torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+# -- the bucketed pool engine on CUDA graphs ----------------------------------
+
+def _smoke_executor(cuda, redraw=True):
+    """SMOKE on the card; conv_out redrawn (``redraw``) so eps is not ~0,
+    or at the reference's init (1e-10), as the reference's tests run."""
+    params = init_params(unet.schema(SMOKE), torch.Generator().manual_seed(0),
+                         "cpu")
+    if redraw:
+        params["conv_out"] = torch.randn(
+            params["conv_out"].shape,
+            generator=torch.Generator().manual_seed(1)
+        ) / SMOKE.base_channels ** 0.5
+    return BatchDenoisingExecutor(SMOKE, params, device=cuda)
+
+
+def _plan(counts, batches):
+    from repro_torch.core.delay_model import DelayModel
+    from repro_torch.core.plan import BatchPlan
+    idx = {k: 0 for k in counts}
+    bb = []
+    for ks in batches:
+        bb.append([(k, idx[k]) for k in ks])
+        for k in ks:
+            idx[k] += 1
+    return BatchPlan(batches=bb, start_times=[0.0] * len(bb),
+                     steps_completed=dict(counts), delay=DelayModel())
+
+
+# sizes 5, 4, 4, 3, 2, 2, 1, ...: buckets 8, 4, 2; stable phases fuse
+BUCKET_COUNTS = {0: 9, 1: 6, 2: 4, 3: 2, 4: 1}
+# sizes 8, 8, 8, 4, 4, 2, 2: every batch already fills its bucket
+POW2_COUNTS = {0: 7, 1: 7, 2: 5, 3: 5, 4: 3, 5: 3, 6: 3, 7: 3}
+
+
+def _stacked(counts):
+    rem, out = dict(counts), []
+    while any(rem.values()):
+        ks = sorted(k for k, v in rem.items() if v)
+        out.append(ks)
+        for k in ks:
+            rem[k] -= 1
+    return out
+
+
+def _latents(counts, seed=3):
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal((16, 16, 3)).astype(np.float32)
+            for k in counts}
+
+
+@pytest.mark.parametrize("timed", [False, True])
+def test_bucketed_graphs_match_eager_on_card(cuda, timed):
+    """Graph replays (steps, and multi-step chunks when untimed) against
+    the same pool functions run eagerly on the card, at the same padded
+    shapes: within MATCH_TOL."""
+    from repro_torch.core.execution import shape_bucket
+    from repro_torch.diffusion.bucketed import MATCH_TOL, pool_step
+    ex = _smoke_executor(cuda)
+    plan = _plan(BUCKET_COUNTS, _stacked(BUCKET_COUNTS))
+    lat = _latents(BUCKET_COUNTS)
+    got, _ = ex.run(plan, latents=lat, timed=timed, exec_engine="bucketed")
+    assert ex._programs and all(k[0] in ("bstep", "bscan")
+                                for k in ex._programs)
+    # the eager pool path, one step a batch, by hand
+    sess = ex.open_session(plan, latents=lat, exec_engine="dict")
+    ids = sorted(lat)
+    pool = torch.stack([torch.from_numpy(lat[k]) for k in ids]
+                       + [torch.zeros(16, 16, 3)]).to(cuda)
+    for ks in _stacked(BUCKET_COUNTS):
+        Bp = shape_bucket(len(ks))
+        lanes = np.full((3, Bp), -1, np.int64)
+        lanes[0] = len(ids)
+        for i, k in enumerate(ks):
+            rem = sess._remaining[k]
+            lanes[:, i] = ids.index(k), rem[0], rem[1] if len(rem) > 1 \
+                else -1
+            rem.pop(0)
+        t = torch.from_numpy(lanes).to(cuda)
+        pool_step(ex.step_fn, pool, t[0], t[1], t[2])
+    eager = pool.cpu().numpy()
+    for k in ids:
+        np.testing.assert_allclose(got[k], eager[ids.index(k)], **MATCH_TOL)
+        assert np.abs(got[k] - lat[k]).max() > 1e-2
+
+
+@pytest.mark.parametrize("redraw,counts", [(False, BUCKET_COUNTS),
+                                           (True, BUCKET_COUNTS),
+                                           (True, POW2_COUNTS)])
+def test_bucketed_graphs_match_dict_on_card(cuda, redraw, counts):
+    """The bucketed engine's graphs against the dict engine on the card,
+    within MATCH_TOL: at the reference's init and with eps of order 1
+    (conv_out redrawn), on batches that need padding and on batches that
+    fill their bucket."""
+    from repro_torch.diffusion.bucketed import MATCH_TOL
+    ex = _smoke_executor(cuda, redraw)
+    plan = _plan(counts, _stacked(counts))
+    lat = _latents(counts)
+    for timed in (False, True):
+        got, _ = ex.run(plan, latents=lat, timed=timed,
+                        exec_engine="bucketed")
+        want, _ = ex.run(plan, latents=lat, exec_engine="dict")
+        for k, T in counts.items():
+            np.testing.assert_allclose(got[k], want[k], **MATCH_TOL)
+            if T > 1:                       # one step is t = 0: ~no move
+                assert np.abs(got[k] - lat[k]).max() > 1e-2
+
+
+@pytest.mark.parametrize("B", [B for B in range(1, 16) if B & (B - 1)])
+def test_unet_rows_are_the_same_at_the_bucket_width(cuda, B):
+    """A forward on B images gives each the same result, bit for bit, as
+    the forward on them padded to shape_bucket(B), the bucketed engine's
+    width (its matrix products run at the bucket in both)."""
+    from repro_torch.core.execution import shape_bucket
+    params = _smoke_executor(cuda).params
+    g = torch.Generator().manual_seed(B)
+    Bp = shape_bucket(B)
+    x = torch.zeros((Bp, 16, 16, 3))
+    x[:B] = torch.randn((B, 16, 16, 3), generator=g)
+    t = torch.full((Bp,), -1.0)
+    t[:B] = torch.randint(0, 1000, (B,), generator=g).float()
+    x, t = x.to(cuda), t.to(cuda)
+    want = unet.forward(SMOKE, params, x, t)[:B]
+    got = unet.forward(SMOKE, params, x[:B], t[:B])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_bucketed_launch_accounting_is_exact(cuda):
+    """Each graph captured gn_silu_calls launches per step it holds.  The
+    wrapper's counter moves at eager calls and at capture, not at a
+    replay: it reads gn_silu_calls per eager forward plus the launches
+    captured, and the graphs' replays run the plan's steps."""
+    ex = _smoke_executor(cuda)
+    calls = unet.gn_silu_calls(SMOKE)
+    plan = _plan(BUCKET_COUNTS, _stacked(BUCKET_COUNTS))
+    ops.launches, f0 = 0, ex.forwards
+    ex.run(plan, latents=_latents(BUCKET_COUNTS), exec_engine="bucketed")
+    torch.cuda.synchronize()
+    counts = ex.graph_counts()
+    assert any(k[0] == "bscan" for k in counts)
+    for key, c in counts.items():
+        assert c["launches"] == calls * c["steps"], key
+        assert c["replays"] >= 1
+    eager = ex.forwards - f0                     # the warm steps
+    assert eager == len({(k[1], k[2]) for k in counts})
+    assert ops.launches == calls * eager + sum(
+        c["launches"] for c in counts.values())
+    assert sum(c["steps"] * c["replays"] for c in counts.values()) == \
+        plan.num_batches
+
+
+def test_second_session_captures_nothing(cuda):
+    ex = _smoke_executor(cuda)
+    plan = _plan(BUCKET_COUNTS, _stacked(BUCKET_COUNTS))
+    ex.run(plan, latents=_latents(BUCKET_COUNTS), exec_engine="bucketed")
+    n, before = len(ex.compile_log), ops.launches
+    sess = ex.open_session(plan, latents=_latents(BUCKET_COUNTS, 4),
+                           exec_engine="bucketed")
+    sess.run_plan(_stacked(BUCKET_COUNTS))
+    tele = sess.telemetry()
+    assert tele["compiles"] == 0 and tele["compile_s"] == 0.0
+    assert tele["dispatches"] > 0
+    assert len(ex.compile_log) == n and ops.launches == before
+
+
+def test_interleaved_sessions_keep_their_own_rows(cuda):
+    """Two sessions of one pool size on one executor, stepped in turns,
+    each end with the images it gives when run alone."""
+    from repro_torch.diffusion.bucketed import MATCH_TOL
+    ex = _smoke_executor(cuda)
+    counts = {0: 4, 1: 3, 2: 2}
+    batches = _stacked(counts)
+    plan = _plan(counts, batches)
+    lats = [_latents(counts, 5), _latents(counts, 6)]
+    alone = [ex.run(plan, latents=lat, exec_engine="bucketed")[0]
+             for lat in lats]
+    sessions = [ex.open_session(plan, latents=lat, exec_engine="bucketed")
+                for lat in lats]
+    for ks in batches:
+        for sess in sessions:
+            sess.run_batch(ks, timed=True)
+    for sess, want in zip(sessions, alone):
+        got = sess.finish()
+        for k in counts:
+            np.testing.assert_allclose(got[k], want[k], **MATCH_TOL)
+    assert not np.allclose(alone[0][0], alone[1][0])
+
+
+def test_failing_capture_raises_and_caches_nothing(cuda):
+    """A step that syncs the host cannot be captured: the run raises; no
+    eager fallback runs and no program is cached."""
+    ex = _smoke_executor(cuda)
+    counts = {0: 2, 1: 2}
+    plan = _plan(counts, _stacked(counts))
+    step = ex.step_fn
+
+    def syncing(x, t_now, t_next):
+        float(t_now.sum())                        # a host read
+        return step(x, t_now, t_next)
+    ex.step_fn = syncing
+    sess = ex.open_session(plan, latents=_latents(counts),
+                           exec_engine="bucketed")
+    with pytest.raises(RuntimeError):
+        sess.run_batch([0, 1])
+    assert ex._programs == {} and ex.compile_log == []
+    assert sess.steps_done == {0: 0, 1: 0}
+    torch.cuda.synchronize()

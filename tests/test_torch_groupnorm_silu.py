@@ -114,6 +114,20 @@ def test_gn_shape_lists_are_the_forwards(cfg_name, monkeypatch):
     assert sorted(seen) == (UNET_GN if cfg_name == "CONFIG" else SMOKE_GN)
 
 
+@pytest.mark.parametrize("H,W,C,G", PLAN_CASES)
+def test_plan_is_the_same_at_a_batch_and_its_bucket(H, W, C, G):
+    """The bucketed engine runs a batch of B at shape_bucket(B): at every
+    U-Net shape the kernel's tiling, and so each group's order of sums,
+    is the same at both (the grid's batch axis only adds blocks)."""
+    from repro_torch.core.execution import shape_bucket
+    G = ops.num_groups_for(C, G)
+    for B in range(1, 17):
+        a = ops.plan(B, H * W, C, G, 4)
+        b = ops.plan(shape_bucket(B), H * W, C, G, 4)
+        assert (a.slab, a.threads, a.vec, a.nv, a.chunks) == \
+            (b.slab, b.threads, b.vec, b.nv, b.chunks), B
+
+
 @pytest.fixture
 def fresh_plans():
     ops.plan.cache_clear()

@@ -143,6 +143,46 @@ def test_conv2d_same_padding(stride, size):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("B", [1, 3, 5, 8])
+def test_forward_runs_its_products_at_the_bucket_width(B, monkeypatch):
+    """Every matrix product of a forward on B images runs at
+    shape_bucket(B) rows; the added rows leave the B images' results as
+    they are (the card holds them bit for bit: tests/test_torch_cuda.py)."""
+    import torch
+    from repro_torch.core.execution import shape_bucket
+    cfg = cfgs.SMOKE
+    params = init_params(unet.schema(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    params["conv_out"] = torch.randn(
+        params["conv_out"].shape, generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(B)
+    x = torch.randn((B, cfg.image_size, cfg.image_size, cfg.in_channels),
+                    generator=g)
+    t = torch.randint(0, 1000, (B,), generator=g).float()
+    rows = []
+    mm = torch.Tensor.__matmul__
+
+    def record(a, b):
+        rows.append(a.shape[0])
+        return mm(a, b)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", record)
+    got = unet.forward(cfg, params, x, t)
+    assert rows and set(rows) == {shape_bucket(B)}
+    monkeypatch.setattr(unet, "product_rows", lambda n: n)
+    torch.testing.assert_close(got, unet.forward(cfg, params, x, t),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_pad_rows():
+    import torch
+    x = torch.arange(6.0).reshape(3, 2)
+    assert unet.pad_rows(x, 3) is x
+    torch.testing.assert_close(unet.pad_rows(x, 4), torch.cat(
+        [x, torch.zeros(1, 2)]))
+    torch.testing.assert_close(unet.pad_rows(torch.ones(1), 2, -1.0),
+                               torch.tensor([1.0, -1.0]))
+
+
 def test_timestep_embedding_cos_then_sin():
     t = np.array([0.0, 1.0, 17.0, 500.0, 999.0], np.float32)
     want = np.asarray(jax_unet.timestep_embedding(jnp.asarray(t), 32))
