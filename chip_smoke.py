@@ -95,6 +95,36 @@ groups, one weight-shared attention block per group, 2.42B params):
                  card with kernels, the card with plain versions, the
                  CPU, and the CPU with the embedding moved by one ulp.
 
+Then training, on full-width TinyLlama-1.1B (f32 weights, TF32 off):
+
+ 11. train   -- (a) a 2-layer full-width model on std-0.02 weights, one
+                 batch (B=2, S=128) on the card, where rmsnorm and
+                 flash_attention launch through their autograd
+                 Functions, and on the CPU: loss within 1e-4 relative,
+                 every gradient leaf within 1e-3 x its largest |g|.
+                 (b) all 22 layers from the launcher's init, B=8,
+                 S=512, synthetic data (seed 0), 5 steps of train_loop
+                 at lr 1e-3: every loss finite, after step 1 every leaf
+                 has a finite non-zero .grad (no detached output), 45
+                 rmsnorm and 22 flash launches a forward exactly; the
+                 median step of steps 2-5, tokens/s and TFLOP/s against
+                 the bound, peak memory; one more step split into
+                 forward, backward and AdamW with memory at each; then 2
+                 steps with remat="block" from the same params and data:
+                 the same step-1 loss, grads within 1e-6 of each leaf's
+                 max |g|, the recompute's 44 and 22 launches a step
+                 counted, peak memory, and its split step.  (c) each
+                 Function at every shape (a) and (b) gave it: forward
+                 within 2e-5 of the plain version, grads == autograd
+                 through the plain version.  (d) python -m
+                 repro_torch.launch.train --steps 3 --seq-len 128
+                 --batch 2 at full width; its npz checkpoint restores
+                 with the port's checkpoint.restore.  The phase's
+                 launches join the kernels line's rmsnorm and
+                 flash_attention counts (``launches_by_path``).
+                 ``--only train`` runs phases 1, 2 and 11 alone and
+                 prints no result line.
+
 The last lines are the card (nvidia-smi), one JSON object with the
 kernels' numbers and, last, {"ok": true, "device": {...}}.  Details go
 to chiprun_out/chip_smoke.json.
@@ -104,8 +134,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1819,8 +1851,438 @@ def phase_llm(card, cfg):
                            parity=parity)
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Training: full-width TinyLlama-1.1B train steps through the kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 512, 5, 1e-3
+TRAIN_REMAT_STEPS = 2
+TRAIN_PARITY = dict(layers=2, batch=2, seq=128)
+TRAIN_LOSS_TOL = 1e-4          # card vs CPU loss, relative
+TRAIN_GRAD_TOL = 1e-3          # card vs CPU grads, x the leaf's max |g|
+TRAIN_REMAT_TOL = 1e-6         # remat vs not, grads, x the leaf's max |g|
+TRAIN_KERNELS = ("rmsnorm", "flash_attention")
+
+
+def _train_data(cfg, batch, seq):
+    from repro_torch.training.data import DataConfig, batches
+    return batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                              global_batch=batch, seed=0))
+
+
+def _leaf_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _leaf_items(tree[k], f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+def _loss_and_grads(cfg, params, toks, labels, run):
+    """Loss of one batch and each leaf's gradient (as left in .grad)."""
     import torch
+    from repro_torch.training import train
+    train.trainable(params)
+    for _, p in _leaf_items(params):
+        p.grad = None
+    dev = _leaf_items(params)[0][1].device
+    loss, _ = train.make_loss_fn(cfg, run)(
+        params, torch.as_tensor(toks, device=dev),
+        torch.as_tensor(labels, device=dev))
+    loss.backward()
+    return float(loss.detach()), {k: p.grad for k, p in _leaf_items(params)}
+
+
+def train_parity(cfg, seen):
+    """TinyLlama at full width, TRAIN_PARITY["layers"] layers, std-0.02
+    weights (``parity_params``): loss and every leaf's gradient of one
+    batch on the card (the kernels' Functions) and on the CPU (plain
+    versions).  Kernel calls are recorded by shape in ``seen``."""
+    import torch
+    from repro_torch.config import RunConfig
+    small = dataclasses.replace(cfg, num_layers=TRAIN_PARITY["layers"])
+    params = parity_params(small)
+    cpu_params = _tree_to(params, "cpu")
+    toks, labels = next(_train_data(small, TRAIN_PARITY["batch"],
+                                    TRAIN_PARITY["seq"]))
+    before = _llm_counts()
+    with _recording(seen):
+        loss_card, g_card = _loss_and_grads(small, params, toks, labels,
+                                            RunConfig())
+    torch.cuda.synchronize()
+    launches = {k: _llm_counts()[k] - before[k] for k in TRAIN_KERNELS}
+    want = expected_launches(small, 1, 0)
+    check(all(launches[k] == want[k] for k in TRAIN_KERNELS),
+          f"parity step launched {launches}, expected {want}")
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = _loss_and_grads(small, cpu_params, toks, labels,
+                                      RunConfig())
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    check(loss_err <= TRAIN_LOSS_TOL,
+          f"train parity: loss card {loss_card} vs CPU {loss_cpu}, "
+          f"relative err {loss_err:.3g} over {TRAIN_LOSS_TOL}")
+    errs = {}
+    for key, g in g_cpu.items():
+        errs[key] = float((g_card[key].cpu() - g).abs().max()
+                          / g.abs().max())
+        check(errs[key] <= TRAIN_GRAD_TOL,
+              f"train parity: grad {key} card vs CPU {errs[key]:.3g} of "
+              f"its max |g|, over {TRAIN_GRAD_TOL}")
+    worst = max(errs, key=errs.get)
+    log(f"[train parity] TinyLlama d {small.d_model}, "
+        f"{small.num_layers} layers, B={TRAIN_PARITY['batch']} "
+        f"S={TRAIN_PARITY['seq']}, weights normal(0, {LLM_PARITY_STD}): "
+        f"loss card {loss_card:.7f} CPU {loss_cpu:.7f} (relative err "
+        f"{loss_err:.3g}, tol {TRAIN_LOSS_TOL}); grads max err / leaf max "
+        f"|g| {errs[worst]:.3g} at {worst} (tol {TRAIN_GRAD_TOL}); "
+        f"launches {launches}; CPU step {cpu_s:.1f} s")
+    return dict(loss_card=loss_card, loss_cpu=loss_cpu,
+                loss_rel_err=loss_err, grad_rel_err=errs,
+                launches=launches, cpu_seconds=cpu_s)
+
+
+def _ocfg():
+    from repro_torch.training import optimizer as opt
+    # the launcher's schedule for this many steps
+    return opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10,
+                                                          1),
+                           total_steps=TRAIN_STEPS)
+
+
+def _fresh_params(cfg):
+    import torch
+    from repro_torch.models import api
+    return api.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+
+
+def _split_step(cfg, run, params, state, launches):
+    """One more step, split into forward, backward and AdamW (host
+    clock, a sync at each boundary), with device memory at each: GiB
+    allocated after it and the peak inside it.  Checks ``launches``."""
+    import torch
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train
+    _zero_llm_counts()
+    toks, labels = (torch.as_tensor(a, device="cuda")
+                    for a in next(_train_data(cfg, TRAIN_B, TRAIN_S)))
+    for p in opt.leaves(params):
+        p.grad = None
+    out, gib = {}, 2.0 ** 30
+    torch.cuda.synchronize()
+    out["start_gib"] = torch.cuda.memory_allocated() / gib
+
+    def part(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / gib
+        out[f"{name}_end_gib"] = torch.cuda.memory_allocated() / gib
+        return res
+    loss, _ = part("forward", lambda: train.make_loss_fn(cfg, run)(
+        params, toks, labels))
+    part("backward", loss.backward)
+    del loss
+    part("adamw", lambda: opt.apply_updates(
+        _ocfg(), params, opt.tree_map(lambda p: p.grad, params), state))
+    got = {k: _llm_counts()[k] for k in TRAIN_KERNELS}
+    check(got == launches, f"split step launched {got}, expected "
+          f"{launches}")
+    out["launches"] = got
+    log(f"[train] one step, remat={run.remat!r}, split: " + ", ".join(
+        f"{n} {out[n + '_ms']:.1f} ms (peak {out[n + '_peak_gib']:.2f} "
+        f"GiB, then {out[n + '_end_gib']:.2f})"
+        for n in ("forward", "backward", "adamw"))
+        + f"; {out['start_gib']:.2f} GiB allocated before it")
+    return out
+
+
+def train_bounds(cfg, params):
+    """The least time a train step could take on the card, from the
+    step's work at B=TRAIN_B, S=TRAIN_S: (f32 operations, ms at
+    F32_OPS_PER_S), and AdamW's (bytes, ms at HBM_BYTES_PER_S).  The
+    products: 6 operations per matmul weight (every leaf of rank >= 2
+    but the token embedding, which is gathered) and token.  Attention
+    per layer: the kernel's causal forward, 4 D per unmasked (q, k)
+    pair, and the plain backward's recompute and gradients over the
+    full S x S scores, 4 D + 8 D per pair.  AdamW reads p, g, m, v and
+    writes p, m, v once."""
+    n_mm = sum(p.numel() for k, p in _leaf_items(params)
+               if p.dim() >= 2 and k != "embed/tok")
+    n_all = sum(p.numel() for _, p in _leaf_items(params))
+    tokens, S = TRAIN_B * TRAIN_S, TRAIN_S
+    H, D = cfg.num_heads, cfg.resolved_head_dim
+    attn = cfg.num_layers * TRAIN_B * H * D * (
+        4 * S * (S + 1) // 2 + 12 * S * S)
+    ops = 6 * n_mm * tokens + attn
+    adamw_bytes = 7 * 4 * n_all
+    return dict(step_ops=ops, step_bound_ms=ops / F32_OPS_PER_S * 1e3,
+                adamw_bytes=adamw_bytes,
+                adamw_bound_ms=adamw_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def train_full(cfg, seen):
+    """All layers of ``cfg`` at B=TRAIN_B, S=TRAIN_S on synthetic data
+    (seed 0), from the launcher's init (seed 0): TRAIN_STEPS steps of
+    ``train_loop`` (timed between steps, each ending in the loop's host
+    read of its metrics), the detach witness after step 1 (every leaf's
+    .grad finite and non-zero), exact launches, peak memory; one more
+    step split into forward, backward and AdamW; then TRAIN_REMAT_STEPS
+    steps with remat="block" from the same params and data: the same
+    step-1 loss, grads within TRAIN_REMAT_TOL, the recompute's launches
+    counted, kernel calls recorded by shape in ``seen``."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train
+    tokens = TRAIN_B * TRAIN_S
+    L = cfg.num_layers
+    per_fwd = expected_launches(cfg, 1, 0)
+    marks, step1 = [], {}
+
+    def callback(entry):
+        t = time.perf_counter()
+        check(math.isfinite(entry["loss"]), f"train step {entry['step']}: "
+              f"loss {entry['loss']}")
+        if entry["step"] == 0:
+            for key, p in _leaf_items(params):
+                g = p.grad
+                check(g is not None, f"{key}: grad None after step 1")
+                check(bool(torch.isfinite(g).all())
+                      and float(g.abs().max()) > 0,
+                      f"{key}: grad not finite or all zero after step 1")
+            step1.update({k: p.grad.cpu() for k, p in _leaf_items(params)})
+        marks.append((t, time.perf_counter()))
+
+    params = _fresh_params(cfg)
+    bounds = train_bounds(cfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_llm_counts()
+    t0 = time.perf_counter()
+    params, state, hist = train.train_loop(
+        cfg, RunConfig(), _train_data(cfg, TRAIN_B, TRAIN_S),
+        steps=TRAIN_STEPS, ocfg=_ocfg(), params=params, device="cuda",
+        log_every=1, callback=callback)
+    counts = _llm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: counts[k] for k in TRAIN_KERNELS}
+    want = {k: per_fwd[k] * TRAIN_STEPS for k in TRAIN_KERNELS}
+    check(launches == want and counts["decode_attention"] == 0
+          and counts["ssd_scan"] == 0,
+          f"{TRAIN_STEPS} train steps launched {counts}, expected {want}")
+    starts = [t0] + [end for _, end in marks[:-1]]
+    step_s = [t - s for (t, _), s in zip(marks, starts)]
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    log(f"[train] {cfg.name} {L} layers, B={TRAIN_B} S={TRAIN_S}, "
+        f"lr {TRAIN_LR}: losses "
+        + ", ".join(f"{h['loss']:.4f}" for h in hist)
+        + f"; step s " + ", ".join(f"{x:.4f}" for x in step_s)
+        + f"; median of steps 2-{TRAIN_STEPS} {med * 1e3:.1f} ms = "
+        f"{tokens / med:.0f} tokens/s ({bounds['step_ops'] / med / 1e12:.1f}"
+        f" TFLOP/s; bound {bounds['step_bound_ms']:.1f} ms, "
+        f"{bounds['step_ops']:.4g} f32 operations at 67 TFLOP/s); peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    split = _split_step(cfg, RunConfig(), params, state, {
+        k: per_fwd[k] for k in TRAIN_KERNELS})
+    log(f"[train] AdamW bound {bounds['adamw_bound_ms']:.2f} ms "
+        f"({bounds['adamw_bytes'] / 1e9:.2f} GB at 3.35 TB/s) against "
+        f"{split['adamw_ms']:.1f} ms")
+    del params, state
+    torch.cuda.empty_cache()
+    # remat="block": the same first step, the recompute counted
+    remat = RunConfig(remat="block")
+    params = _fresh_params(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    remat_step1 = {}
+
+    def remat_cb(entry):
+        if entry["step"] == 0:
+            remat_step1.update({k: p.grad.cpu()
+                                for k, p in _leaf_items(params)})
+    _zero_llm_counts()
+    t0 = time.perf_counter()
+    with _recording(seen):
+        params, state, rhist = train.train_loop(
+            cfg, remat, _train_data(cfg, TRAIN_B, TRAIN_S),
+            steps=TRAIN_REMAT_STEPS, ocfg=_ocfg(), params=params,
+            device="cuda", log_every=1, callback=remat_cb)
+    remat_s = time.perf_counter() - t0
+    remat_peak = torch.cuda.max_memory_allocated()
+    rcounts = {k: _llm_counts()[k] for k in TRAIN_KERNELS}
+    recompute = {"rmsnorm": 2 * L, "flash_attention": L}
+    want = {k: (per_fwd[k] + recompute[k]) * TRAIN_REMAT_STEPS
+            for k in TRAIN_KERNELS}
+    check(rcounts == want, f"remat steps launched {rcounts}, expected "
+          f"{want}")
+    check(rhist[0]["loss"] == hist[0]["loss"],
+          f"remat step-1 loss {rhist[0]['loss']} != {hist[0]['loss']}")
+    remat_err = {k: float((remat_step1[k] - g).abs().max() / g.abs().max())
+                 for k, g in step1.items()}
+    worst = max(remat_err, key=remat_err.get)
+    check(remat_err[worst] <= TRAIN_REMAT_TOL,
+          f"remat grads: {worst} {remat_err[worst]:.3g} of its max |g|, "
+          f"over {TRAIN_REMAT_TOL}")
+    log(f"[train remat] remat=block, {TRAIN_REMAT_STEPS} steps in "
+        f"{remat_s:.2f} s: step-1 loss {rhist[0]['loss']:.6f} (equal); "
+        f"grads max err / leaf max |g| {remat_err[worst]:.3g}; launches "
+        f"{rcounts} (of which recompute "
+        f"{ {k: v * TRAIN_REMAT_STEPS for k, v in recompute.items()} }); "
+        f"peak memory {remat_peak / 2**30:.2f} GiB")
+    remat_split = _split_step(cfg, remat, params, state, {
+        k: per_fwd[k] + recompute[k] for k in TRAIN_KERNELS})
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(
+        losses=[h["loss"] for h in hist], step_seconds=step_s,
+        median_step_ms=med * 1e3, tokens_per_s=tokens / med, **bounds,
+        peak_memory_bytes=peak, split=split, launches=launches,
+        remat=dict(losses=[h["loss"] for h in rhist], seconds=remat_s,
+                   grad_rel_err=remat_err, peak_memory_bytes=remat_peak,
+                   launches=rcounts, split=remat_split,
+                   recompute_launches={k: v * TRAIN_REMAT_STEPS
+                                       for k, v in recompute.items()}))
+
+
+def train_kernels(seen):
+    """Each Function at every shape the training runs gave it: forward
+    within TOL of the plain version, every input's gradient ``==``
+    autograd through the plain version (which is its backward)."""
+    import torch
+    ops, plain = _llm_ops(), _plain_llm()
+    err = collections.defaultdict(dict)
+    shapes = collections.defaultdict(list)
+    for (name, sig), _calls in sorted(seen.items()):
+        check(name in TRAIN_KERNELS, f"training path called {name}")
+        if sig in shapes[name]:
+            continue
+        shapes[name].append(sig)
+        gen = torch.Generator(device="cuda").manual_seed(len(shapes[name]))
+
+        def randn(shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        if name == "rmsnorm":
+            x = randn(sig[0][0])
+            ins = (x, randn(x.shape[-1:]) + 1)
+        else:
+            ins = tuple(randn(s) for s, _ in sig)
+        dout = randn(sig[0][0])
+        outs = {}
+        for how, fn in (("kernel", getattr(ops[name], name)),
+                        ("plain", plain[name])):
+            leaves = [t.clone().requires_grad_() for t in ins]
+            before = ops[name].launches
+            y = fn(*leaves)
+            y.backward(dout)
+            torch.cuda.synchronize()
+            check(ops[name].launches - before == (how == "kernel"),
+                  f"{name} under grad ({how}) launched "
+                  f"{ops[name].launches - before}")
+            outs[how] = (y.detach(), [t.grad for t in leaves])
+        _check_close(f"{name} under grad {sig}", outs["kernel"][0],
+                     outs["plain"][0], "float32", err[name])
+        for i, (g, w) in enumerate(zip(outs["kernel"][1],
+                                       outs["plain"][1])):
+            check(torch.equal(g, w), f"{name} {sig}: grad of input {i} "
+                  f"differs from plain autograd by "
+                  f"{float((g - w).abs().max()):.3g}")
+    max_err = {n: e["float32"] for n, e in err.items()}
+    check(set(max_err) == set(TRAIN_KERNELS), f"training path called "
+          f"{sorted(max_err)}, expected {TRAIN_KERNELS}")
+    log(f"[train kernels] forward under grad within {TOL['float32']} "
+        f"(max abs err {max_err}), grads == plain autograd, at " + "; ".join(
+            f"{n}: {[tuple(s for s, _ in sig) for sig in v]}"
+            for n, v in shapes.items()))
+    return dict(max_abs_err=max_err,
+                shapes={n: [[list(s) for s, _ in sig] for sig in v]
+                        for n, v in shapes.items()})
+
+
+def train_launcher(cfg):
+    """``python -m repro_torch.launch.train`` at full width, 3 steps,
+    B=2, S=128, with a checkpoint under build/ (gitignored), restored
+    with the port's ``checkpoint.restore``: step 3, every leaf finite,
+    the moments non-zero.  The file is removed after."""
+    import numpy as np
+    from repro_torch.models import api
+    from repro_torch.models.params import map_schema
+    from repro_torch.training import checkpoint
+    path = ROOT / "build" / "train_launcher_ckpt.npz"
+    path.parent.mkdir(exist_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "3",
+           "--seq-len", "128", "--batch", "2", "--log-every", "1",
+           "--ckpt", str(path)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(
+                              os.environ, PYTHONPATH=str(ROOT / "src")))
+    run_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[train launcher] | {line}")
+    check(proc.returncode == 0, f"launcher exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    try:
+        t0 = time.perf_counter()
+        shape_of = map_schema(lambda p, _: np.broadcast_to(np.float32(0),
+                                                            p.shape),
+                              api.get_model(cfg).schema(cfg))
+        back = checkpoint.restore(str(path), {
+            "params": shape_of, "opt": {"step": np.int32(0), "m": shape_of,
+                                        "v": shape_of}})
+        restore_s = time.perf_counter() - t0
+        size = path.stat().st_size
+    finally:
+        path.unlink(missing_ok=True)
+    check(int(back["opt"]["step"]) == 3, f"checkpoint step "
+          f"{back['opt']['step']}")
+    for key, a in _leaf_items(back):
+        check(bool(np.isfinite(a).all()), f"checkpoint {key} not finite")
+    check(all(np.abs(a).max() > 0 for _, a in _leaf_items(back["opt"]["m"])),
+          "checkpoint: a first moment is all zero")
+    log(f"[train launcher] {' '.join(cmd[1:])}: {run_s:.1f} s; checkpoint "
+        f"{size / 2**30:.2f} GiB restored with checkpoint.restore in "
+        f"{restore_s:.1f} s (step 3, every leaf finite)")
+    return dict(seconds=run_s, restore_seconds=restore_s,
+                checkpoint_bytes=size, stdout=proc.stdout.splitlines())
+
+
+def phase_train(card):
+    """Full-width TinyLlama-1.1B training on the card (see the module
+    docstring, phase 11).  Returns {kernel: launches on the phase's
+    training paths} and the phase's details."""
+    import torch
+    from repro_torch.configs.tinyllama_1_1b import CONFIG
+    t0 = time.perf_counter()
+    seen = collections.Counter()
+    parity = train_parity(CONFIG, seen)
+    torch.cuda.empty_cache()
+    full = train_full(CONFIG, seen)
+    kernels = train_kernels(seen)
+    launcher = train_launcher(CONFIG)
+    launches = {k: parity["launches"][k] + full["launches"][k]
+                + full["split"]["launches"][k]
+                + full["remat"]["launches"][k]
+                + full["remat"]["split"]["launches"][k]
+                for k in TRAIN_KERNELS}
+    secs = time.perf_counter() - t0
+    log(f"[train] phase train {secs:.1f} s on {card}; launches on its "
+        f"paths {launches}")
+    return launches, dict(parity=parity, full=full, kernels=kernels,
+                          launcher=launcher, launches=launches,
+                          seconds=secs)
+
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=["train"], default=None,
+                    help="run the device and build phases and this one, "
+                         "and print no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1832,6 +2294,15 @@ def main() -> int:
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     phase_build()
+    if args.only == "train":
+        _, train = phase_train(card)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_train.json").write_text(json.dumps(dict(
+            card=card, train=train), indent=1, default=str))
+        log(f"[done] {time.perf_counter() - t_start:.1f} s (phase train "
+            f"only: no result line)")
+        return 0
     kernel, rows = phase_kernels(CONFIG)
     main_path, wl, (scn, g) = phase_main(CONFIG, card)
     trace = phase_trace(wl)
@@ -1859,13 +2330,22 @@ def main() -> int:
     for cfg in (TINYLLAMA, ZAMBA2):
         per_model[cfg.name], llm[cfg.name] = phase_llm(card, cfg)
     llm_kernels = merge_kernel_summaries(per_model)
+    train_launches, train = phase_train(card)
+    for entry in llm_kernels:
+        name = entry["name"]
+        if name in train_launches:
+            entry["launches_by_path"] = dict(llm_decode=entry["launches"],
+                                             train=train_launches[name])
+            entry["launches"] += train_launches[name]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       train["kernels"]["max_abs_err"][name])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         kernel=kernel, kernel_rows=rows, main=main_path, trace=trace,
         parity=parity, bucketed=bucketed, closed=closed,
-        llm_kernels=llm_kernels, llm=llm,
+        llm_kernels=llm_kernels, llm=llm, train=train,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

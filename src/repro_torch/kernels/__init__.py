@@ -10,7 +10,13 @@ Each kernel package ships:
                      launch count
 
 The wrapper decides by the tensor's device alone.  There is no switch
-and no fallback: a CUDA tensor never reaches the plain version.
+and no fallback: a CUDA tensor never reaches the plain version's
+forward.  No TPU kernel of the reference has a backward, so where the
+training path needs a gradient (rmsnorm, flash_attention, ssd_scan) the
+wrapper launches through a ``torch.autograd.Function`` whose backward is
+the plain version's autograd, recomputed from the saved inputs; the
+other wrappers raise on a CUDA input that needs a gradient under grad
+mode.  None returns a detached output.
 
 Kernels ported: groupnorm_silu (diffusion U-Net hot spot), rmsnorm,
 flash_attention (prefill) and decode_attention (flash-decode over the

@@ -6,7 +6,8 @@ split-K pass over the valid cache, grid ``(num_splits(B, KV, S), KV,
 B)``, then a combine pass) or raises.  q and the cache may differ in
 type (float32 q over a bfloat16 cache is the serving path's default).
 ``launches`` counts wrapper calls that launched the kernels, one per
-call, so a run can show that its path went through them.
+call, so a run can show that its path went through them.  There is no
+gradient: under grad mode a CUDA input that needs one raises.
 """
 
 from __future__ import annotations
@@ -114,6 +115,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     cur = _cur_tensor(cur_len, B, q.device)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, cur, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k_cache.requires_grad
+                                    or v_cache.requires_grad):
+        raise NotImplementedError(
+            "decode_attention: the kernel has no backward (nor has the TPU "
+            "kernel it replaces); call it under torch.no_grad() or on "
+            "inputs that need no gradient")
     S, KV = k_cache.shape[1], k_cache.shape[2]
     qp, kp, vp = q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()
     if (qp | kp | vp) % 16:

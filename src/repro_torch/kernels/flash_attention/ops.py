@@ -3,6 +3,11 @@
 A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
 tensor launches the kernel of ``csrc/flash_attention.cu`` (which loads
 16-byte chunks, so q, k and v must be 16-byte aligned) or raises.
+Under grad mode, when q, k or v needs a gradient, the launch goes
+through ``FlashAttentionFunction``: the kernel's forward, and as
+backward the plain version's autograd recomputed from the saved inputs
+(``flash_attention_backward``), since the TPU kernel has no backward to
+port.
 ``launches`` counts kernel launches, so a run can show that its path
 went through the kernel.
 """
@@ -68,16 +73,55 @@ def _check(q, k, v, window):
                          f"limit {_MAX_GRID_YZ}")
 
 
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int = 0):
+    """(dq, dk, dv), dk and dv in the GQA layout (B,Skv,KV,D): the
+    gradient of ``attention_ref`` at ``do``, by autograd through the
+    plain version re-run from q, k and v.  It holds the (B,H,Sq,Skv)
+    float32 scores while it runs."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        o = attention_ref(q, k, v, causal=causal, window=window)
+        return torch.autograd.grad(o, (q, k, v), do)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The kernel's forward with ``flash_attention_backward`` as its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, do, causal=ctx.causal,
+                                          window=ctx.window), None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Softmax attention of q (B,Sq,H,D) over k, v (B,Skv,KV,D), query
     head h reading KV head h // (H/KV); query i sits at key position
     i + Skv - Sq (ends aligned).  f32 scores and accumulation; output in
     q's type."""
-    global launches
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)
+
+
+def _launch(q, k, v, causal, window):
+    """One launch of the kernel on checked CUDA tensors."""
+    global launches
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()

@@ -3,7 +3,8 @@
 A CPU tensor goes to the plain version (``ref.groupnorm_silu_ref``); a
 CUDA tensor launches the kernel of ``csrc/groupnorm_silu.cu`` or raises.
 ``launches`` counts kernel launches, so a run can show that its path went
-through the kernel.  ``plan`` chooses the kernel's tiling for a shape: a
+through the kernel.  There is no gradient: under grad mode a CUDA input
+that needs one raises.  ``plan`` chooses the kernel's tiling for a shape: a
 plain function of the shape, so that it can be checked without a card.
 """
 
@@ -148,6 +149,12 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     G = _check(x, scale, bias, num_groups)
     if x.device.type == "cpu":
         return groupnorm_silu_ref(x, scale, bias, num_groups, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        raise NotImplementedError(
+            "groupnorm_silu: the kernel has no backward (nor has the TPU "
+            "kernel it replaces); call it under torch.no_grad() or on "
+            "inputs that need no gradient")
     B, H, W, C = x.shape
     y = torch.empty_like(x)
     if x.numel() == 0:

@@ -1,7 +1,11 @@
 """Wrapper for fused RMSNorm over the last axis.
 
 A CPU tensor goes to the plain version (``ref.rmsnorm_ref``); a CUDA
-tensor launches the kernel of ``csrc/rmsnorm.cu`` or raises.
+tensor launches the kernel of ``csrc/rmsnorm.cu`` or raises.  Under grad
+mode, when x or scale needs a gradient, the launch goes through
+``RMSNormFunction``: the kernel's forward, and as backward the plain
+version's autograd recomputed from the saved inputs
+(``rmsnorm_backward``), since the TPU kernel has no backward to port.
 ``launches`` counts kernel launches, so a run can show that its path
 went through the kernel.  ``plan`` chooses the kernel's block for a row
 width: a plain function of the width, so that it can be checked without
@@ -113,13 +117,48 @@ def _check(x, scale) -> bool:
     return on_card
 
 
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor,
+                     dy: torch.Tensor, eps: float = 1e-6):
+    """(dx, dscale): the gradient of ``rmsnorm_ref(x, scale, eps)`` at
+    ``dy``, by autograd through the plain version re-run from x and
+    scale."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        scale = scale.detach().requires_grad_()
+        y = rmsnorm_ref(x, scale, eps)
+        return torch.autograd.grad(y, (x, scale), dy)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """The kernel's forward with ``rmsnorm_backward`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _launch(x, scale, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        return (*rmsnorm_backward(x, scale, dy, ctx.eps), None)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2, -1) + eps) * scale`` with float32 statistics;
     output in x's type.  x: (..., d), scale: (d,)."""
-    global launches
     if not _check(x, scale):
         return rmsnorm_ref(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormFunction.apply(x, scale, eps)
+    return _launch(x, scale, eps)
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """One launch of the kernel on checked CUDA tensors."""
+    global launches
     y = torch.empty_like(x)
     d = x.shape[-1]
     rows = x.numel() // d if d else 0

@@ -8,6 +8,7 @@ schema we derive
   * ``init_params``       -- random tensors from a ``torch.Generator``
   * ``params_from_numpy`` -- the reference's param tree (numpy arrays)
                              as the port's tensors, shape-checked
+  * ``opt_state_from_numpy`` -- the reference's AdamW state the same way
 
 Convolution leaves are stored OIHW, the layout ``F.conv2d`` takes; the
 reference stores them HWIO, and ``params_from_numpy`` transposes them.
@@ -114,3 +115,15 @@ def params_from_numpy(schema, tree, device,
                 for i, (a, b) in enumerate(zip(s, t))]
 
     return convert(schema, tree, "")
+
+
+def opt_state_from_numpy(schema, state, device):
+    """The reference's AdamW state ``{"step", "m", "v"}`` (leaves
+    convertible with ``np.asarray``) as the port's: ``step`` an int32
+    scalar tensor, ``m`` and ``v`` float32 trees converted as
+    ``params_from_numpy`` converts params, so a JAX run resumes in the
+    port."""
+    return {"step": torch.tensor(np.asarray(state["step"]),
+                                 dtype=torch.int32, device=device),
+            "m": params_from_numpy(schema, state["m"], device),
+            "v": params_from_numpy(schema, state["v"], device)}

@@ -11,9 +11,14 @@ one flash-attention call per layer at prefill and one flash-decode call
 per layer at each decode step.
 
 The default decode path is the reference's non-in-place one: each step
-returns a new cache and leaves the caller's as it was.  ``RunConfig``
-knobs this port does not implement raise ``NotImplementedError``
-(``check_run``); MoE and cross-attention configs raise too.
+returns a new cache and leaves the caller's as it was.  ``forward`` is
+differentiable (the training path): ``RunConfig.remat="block"``
+recomputes each layer in the backward (``torch.utils.checkpoint``, as
+the reference's ``jax.checkpoint`` of its scan body), and ``"full"`` and
+``"group"`` do what they do in the reference's dense transformer without
+cross-attention: nothing.  ``RunConfig`` knobs this port does not
+implement raise ``NotImplementedError`` (``check_run``); MoE and
+cross-attention configs raise too.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, RunConfig
 from repro_torch.models import kv_cache
@@ -34,7 +40,7 @@ from repro_torch.models.params import P, map_schema
 # means "off" (the reference's default)
 _UNPORTED_KNOBS = {"decode_inplace_cache": False, "decode_slice_reads": False,
                    "decode_uniform_pos": False, "prefill_parallel_q": False,
-                   "remat": "none", "fsdp": False, "shard_kv_seq": False}
+                   "fsdp": False, "shard_kv_seq": False}
 
 
 def check_run(cfg: ModelConfig, run: RunConfig) -> None:
@@ -78,6 +84,18 @@ def layer_params(stacked, i: int):
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
     return stacked[i]
+
+
+def unstack(stacked):
+    """Every layer's params, in order: views of each stacked leaf from
+    one ``unbind`` per leaf.  Its backward stacks the layers' gradients
+    once, where one ``layer_params`` select a layer would add a
+    zero-padded gradient of the whole stacked leaf per layer."""
+    if isinstance(stacked, dict):
+        parts = {k: unstack(v) for k, v in stacked.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return stacked.unbind(0)
 
 
 # ---------------------------------------------------------------------------
@@ -136,9 +154,16 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
     window = run.decode_window or 0
     tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, (k, v) = block_seq(cfg, layer_params(params["layers"], i), x,
-                              positions, tab, window=window)
+    for lp in unstack(params["layers"]):
+        if run.remat == "block":
+            # recomputed in the backward; the blocks draw no random
+            # numbers, so no RNG state is kept
+            x, (k, v) = checkpoint(block_seq, cfg, lp, x, positions, tab,
+                                   window=window, use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            x, (k, v) = block_seq(cfg, lp, x, positions, tab,
+                                  window=window)
         if collect_kv:
             ks.append(k)
             vs.append(v)

@@ -23,7 +23,10 @@ The cache holds, besides ``pos`` and the shared block's k/v per group
 the activations' type after a decode step (as the reference's), and
 ``ssm`` ``(G, E, B, H, P, N)`` float32.  ``RunConfig`` knobs the port
 does not implement raise ``NotImplementedError``
-(``transformer.check_run``).
+(``transformer.check_run``), and so does ``remat`` "block" or "group"
+(the reference checkpoints each group there; not ported).  ``forward``
+is differentiable: the ``ssd_scan``, ``rmsnorm`` and flash-attention
+wrappers carry a gradient on the card.
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ from repro_torch.models.layers import (
 from repro_torch.models.ssm import (mamba2_forward, mamba2_init_state,
                                     mamba2_schema, mamba2_step)
 from repro_torch.models.transformer import (
-    block_decode, block_seq, check_run, layer_params, stack_schema,
-    stacked_kv, write_stacked)
+    block_decode, block_seq, check_run as _check_dense, layer_params,
+    stack_schema, stacked_kv, unstack, write_stacked)
 
 
 def _groups(cfg: ModelConfig) -> int:
@@ -64,6 +67,16 @@ def schema(cfg: ModelConfig):
     }
 
 
+def check_run(cfg: ModelConfig, run: RunConfig) -> None:
+    """``transformer.check_run``, and raise for ``remat``, which zamba2
+    does not port."""
+    _check_dense(cfg, run)
+    if run.remat in ("block", "group"):
+        raise NotImplementedError(
+            f"{cfg.name}: RunConfig.remat={run.remat!r} is not ported for "
+            f"zamba2 (only 'none' and 'full', which do nothing)")
+
+
 def _mamba_params(params, g: int, i: int):
     return layer_params(layer_params(params["groups"], g), i)
 
@@ -80,12 +93,11 @@ def _backbone(cfg: ModelConfig, params, tokens: torch.Tensor,
     tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     window = run.decode_window or 0
     kvs, states = [], []
-    for g in range(_groups(cfg)):
+    for group in unstack(params["groups"]):
         x, kv = block_seq(cfg, params["shared"], x, positions, tab,
                           window=window)
         kvs.append(kv)
-        for i in range(cfg.shared_attn_every):
-            lp = _mamba_params(params, g, i)
+        for lp in unstack(group):
             h, st = mamba2_forward(cfg, lp["mamba"],
                                    apply_norm(cfg, lp["ln"], x))
             x = x + h

@@ -1,6 +1,7 @@
 """The port's copies of the NumPy planning core give results EQUAL
 (``==``) to ``repro.core``'s on several seeds: scenarios, allocations,
-STACKING plans, simulated outcomes and mean FID."""
+STACKING plans, simulated outcomes and mean FID; and the training data
+pipeline's batches."""
 
 import dataclasses
 
@@ -16,12 +17,14 @@ from repro.core import quality_model as jq  # noqa: E402
 from repro.core import service as js  # noqa: E402
 from repro.core import simulator as jsim  # noqa: E402
 from repro.core import stacking as jst  # noqa: E402
+from repro.training import data as jdata  # noqa: E402
 from repro_torch.core import bandwidth as pb  # noqa: E402
 from repro_torch.core import delay_model as pd  # noqa: E402
 from repro_torch.core import quality_model as pq  # noqa: E402
 from repro_torch.core import service as ps  # noqa: E402
 from repro_torch.core import simulator as psim  # noqa: E402
 from repro_torch.core import stacking as pst  # noqa: E402
+from repro_torch.training import data as pdata  # noqa: E402
 
 SEEDS = [0, 1, 7, 42]
 DELAYS = [(0.0240, 0.3543), (0.01, 0.2)]
@@ -111,3 +114,32 @@ def test_validate_rejects_a_broken_plan():
     plan.start_times.append(plan.makespan())
     with pytest.raises(AssertionError):
         plan.validate()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("vocab,seq,batch", [(512, 16, 2), (32000, 64, 8)])
+def test_synthetic_batches_equal(seed, vocab, seq, batch):
+    kw = dict(vocab_size=vocab, seq_len=seq, global_batch=batch, seed=seed)
+    ref = jdata.batches(jdata.DataConfig(**kw))
+    port = pdata.batches(pdata.DataConfig(**kw))
+    for _ in range(3):
+        (rt, rl), (pt, pl) = next(ref), next(port)
+        assert pt.dtype == rt.dtype == np.int32
+        np.testing.assert_array_equal(pt, rt)
+        np.testing.assert_array_equal(pl, rl)
+
+
+def test_file_batches_and_shards_equal(tmp_path):
+    path = str(tmp_path / "toks.bin")
+    np.random.default_rng(5).integers(0, 60000, 4096).astype(
+        np.uint16).tofile(path)
+    kw = dict(vocab_size=1000, seq_len=32, global_batch=4, source="file",
+              path=path, seed=3)
+    ref = jdata.batches(jdata.DataConfig(**kw))
+    port = pdata.batches(pdata.DataConfig(**kw))
+    for _ in range(3):
+        for r, p in zip(next(ref), next(port), strict=True):
+            np.testing.assert_array_equal(p, r)
+            for rank in range(2):
+                np.testing.assert_array_equal(pdata.shard_batch(p, rank, 2),
+                                              jdata.shard_batch(r, rank, 2))

@@ -22,6 +22,7 @@ narrow zamba2, card against CPU with a bfloat16 cache, at 2e-2.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -824,3 +825,151 @@ def test_failing_capture_raises_and_caches_nothing(cuda):
     assert ex._programs == {} and ex.compile_log == []
     assert sess.steps_done == {0: 0, 1: 0}
     torch.cuda.synchronize()
+
+
+# -- training: gradients through the kernels ---------------------------------
+
+def _grads(fn, inputs, dout):
+    """fn(*leaves) and the leaves' grads at ``dout`` (a tensor or a
+    tuple matching fn's outputs), on fresh leaf copies of ``inputs``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    douts = dout if isinstance(dout, tuple) else (dout,)
+    torch.autograd.backward(outs, douts)
+    return out, [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 2048), (8, 512, 2048),
+                                   (3, 16, 64), (2, 64, 2560)])
+def test_rmsnorm_function_grads_equal_plain_autograd(cuda, shape):
+    """Under grad the wrapper launches the kernel once through its
+    Function: forward within 2e-5 of the plain version, grads of x and
+    scale ``==`` autograd through the plain version (its backward)."""
+    x, s = _randn(shape, 1, cuda), _randn(shape[-1:], 2, cuda) + 1
+    dy = _randn(shape, 3, cuda)
+    before = rms_ops.launches
+    y, (dx, ds) = _grads(rms_ops.rmsnorm, (x, s), dy)
+    assert rms_ops.launches == before + 1 and y.grad_fn is not None
+    y_ref, (dx_ref, ds_ref) = _grads(rmsnorm_ref, (x, s), dy)
+    _close(y, y_ref, "float32")
+    assert torch.equal(dx, dx_ref) and torch.equal(ds, ds_ref)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (2, 128, 32, 4, 64, 0), (8, 512, 32, 4, 64, 0), (2, 128, 32, 4, 64, 48),
+    (2, 64, 32, 32, 80, 0)])
+def test_flash_attention_function_grads_equal_plain_autograd(cuda, B, S, H,
+                                                             KV, D, window):
+    q = _randn((B, S, H, D), 1, cuda)
+    k, v = _randn((B, S, KV, D), 2, cuda), _randn((B, S, KV, D), 3, cuda)
+    do = _randn((B, S, H, D), 4, cuda)
+    before = fa_ops.launches
+    o, grads = _grads(lambda *t: fa_ops.flash_attention(*t, window=window),
+                      (q, k, v), do)
+    assert fa_ops.launches == before + 1 and o.grad_fn is not None
+    o_ref, want = _grads(lambda *t: attention_ref(*t, window=window),
+                         (q, k, v), do)
+    _close(o, o_ref, "float32")
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 128, 4, 64, 16, 128),
+                                             (1, 256, 2, 64, 64, 128)])
+def test_ssd_scan_function_grads_equal_plain_autograd(cuda, B, S, H, P, N,
+                                                      chunk):
+    ins = _ssd_inputs(B, S, H, P, N, cuda, torch.float32)
+    dy, dh = _randn((B, S, H, P), 7, cuda), _randn((B, H, P, N), 8, cuda)
+    before = ssd_ops.launches
+    (y, h), grads = _grads(lambda *t: ssd_ops.ssd_scan(*t, chunk=chunk),
+                           ins, (dy, dh))
+    assert ssd_ops.launches == before + 1 and y.grad_fn is not None
+    (y_ref, h_ref), want = _grads(
+        lambda *t: ssd_scan_ref(*t, chunk=chunk), ins, (dy, dh))
+    torch.testing.assert_close(y, y_ref, atol=3e-5, rtol=3e-5)
+    torch.testing.assert_close(h, h_ref, atol=3e-5, rtol=3e-5)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+def test_gradless_kernels_raise_under_grad(cuda):
+    """decode_attention and groupnorm_silu have no backward: a CUDA input
+    that needs a gradient raises under grad mode, and launches as before
+    under ``torch.no_grad``."""
+    q, kc, vc = _dec_inputs(2, 64, 8, 1, 64, cuda)[:3]
+    q.requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        dec_ops.decode_attention(q, kc, vc, 10)
+    with torch.no_grad():
+        dec_ops.decode_attention(q, kc, vc, 10)
+    x = _randn((2, 8, 8, 32), 1, cuda).requires_grad_()
+    s, b = _randn(32, 2, cuda), _randn(32, 3, cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.groupnorm_silu(x, s, b, 8)
+    with torch.no_grad():
+        ops.groupnorm_silu(x, s, b, 8)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("remat", ["none", "block"])
+def test_full_width_train_step_leaves_no_grad_none(cuda, remat):
+    """Two layers of TinyLlama at full width (d 2048, 32/4 heads, vocab
+    32000), one AdamW step at B=2, S=128 on the card: every param leaf
+    gets a finite, non-zero gradient; launches 5 rmsnorm and 2 flash a
+    forward, and with remat="block" the recompute's 4 and 2 more."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train
+    from repro_torch.training.data import DataConfig, batches
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2)
+    sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
+                     else P(p.shape, scale=0.02),
+                     api.get_model(cfg).schema(cfg))
+    params = init_params(sch, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    toks, labels = next(batches(DataConfig(cfg.vocab_size, 128, 2)))
+    n = (rms_ops.launches, fa_ops.launches)
+    _, state, m = train.make_train_step(cfg, RunConfig(remat=remat))(
+        params, opt.init_state(params), torch.as_tensor(toks, device=cuda),
+        torch.as_tensor(labels, device=cuda))
+    torch.cuda.synchronize()
+    extra = (4, 2) if remat == "block" else (0, 0)
+    assert (rms_ops.launches - n[0], fa_ops.launches - n[1]) == \
+        (5 + extra[0], 2 + extra[1])
+    assert int(state["step"]) == 1 and math.isfinite(float(m["loss"]))
+    for p in opt.leaves(params):
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all())
+        assert float(p.grad.abs().max()) > 0
+
+
+def test_zamba2_train_step_through_ssd_scan(cuda):
+    """One AdamW step of the narrow zamba2 (D = 80, two groups) on the
+    card: launches per forward 4 ssd_scan, 2 flash and 13 rmsnorm, all
+    through their Functions; every param leaf gets a finite gradient,
+    and the loss and every gradient leaf agree with the CPU's (plain
+    versions) within 1e-3 x the leaf's largest |g|."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train
+    sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
+                     else P(p.shape, scale=0.05), zamba2.schema(D80))
+    params = init_params(sch, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, D80.vocab_size, (2, 65)), dtype=torch.int64)
+    grads = {}
+    for dev in ("cpu", cuda):
+        p = train.trainable(opt.tree_map(
+            lambda t: t.to(dev, copy=True), params))
+        n = (ssd_ops.launches, fa_ops.launches, rms_ops.launches)
+        loss, _ = train.make_loss_fn(D80, RunConfig())(
+            p, toks[:, :-1].to(dev), toks[:, 1:].to(dev))
+        loss.backward()
+        grads[str(dev)] = (float(loss.detach()),
+                           [q.grad.cpu() for q in opt.leaves(p)])
+        if dev == cuda:
+            assert (ssd_ops.launches - n[0], fa_ops.launches - n[1],
+                    rms_ops.launches - n[2]) == (4, 2, 13)
+    (lc, gc), (lg, gg) = grads["cpu"], grads[str(cuda)]
+    assert lg == pytest.approx(lc, rel=1e-4)
+    for a, b in zip(gg, gc, strict=True):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-3 * float(b.abs().max()))

@@ -212,3 +212,32 @@ def test_wrapper_rejects_bad_inputs():
         ops.flash_attention(q.transpose(1, 2), k, v)          # layout
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, window=-1)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", [
+    (2, 64, 64, 4, 2, 64),       # GQA
+    (1, 32, 128, 4, 1, 64),      # MQA, longer kv (ends aligned)
+    (1, 64, 64, 8, 1, 64),       # TinyLlama's head geometry (G=8, D=64)
+    (1, 64, 64, 4, 4, 80),       # zamba2's shared attention (G=1, D=80)
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 24)])
+def test_backward_matches_jax_vjp_of_the_reference(B, Sq, Skv, H, KV, D,
+                                                   causal, window):
+    """``flash_attention_backward`` (the card Function's backward)
+    against ``jax.vjp`` of the reference's plain version, float32,
+    2e-5; dk and dv come back in the GQA layout (B,Skv,KV,D)."""
+    import jax
+    arrays = _inputs(B, Sq, Skv, H, KV, D)
+    do = np.random.default_rng(1).standard_normal(
+        (B, Sq, H, D)).astype(np.float32)
+    got = ops.flash_attention_backward(
+        *(torch.tensor(a) for a in arrays), torch.tensor(do), causal=causal,
+        window=window)
+    _, vjp = jax.vjp(lambda q, k, v: jax_ref(q, k, v, causal=causal,
+                                             window=window),
+                     *(jnp.asarray(a) for a in arrays))
+    for g, want, a in zip(got, vjp(jnp.asarray(do)), arrays):
+        assert g.shape == a.shape == want.shape
+        np.testing.assert_allclose(_f32(g), _f32(want), atol=2e-5,
+                                   rtol=2e-5)

@@ -116,13 +116,17 @@ for name in names:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not bad, bad
-assert len(names) >= 51, names
+assert len(names) >= 58, names
 assert {"repro_torch.models.ssm", "repro_torch.models.zamba2",
         "repro_torch.kernels.ssd_scan.ops",
         "repro_torch.configs.zamba2_2_7b",
         "repro_torch.core.execution", "repro_torch.core.online",
         "repro_torch.diffusion.bucketed",
-        "repro_torch.api.execution"} <= set(names), names
+        "repro_torch.api.execution",
+        "repro_torch.training", "repro_torch.training.optimizer",
+        "repro_torch.training.data", "repro_torch.training.checkpoint",
+        "repro_torch.training.train", "repro_torch.launch",
+        "repro_torch.launch.train"} <= set(names), names
 print(len(names))
 """
     src = str(Path(__file__).resolve().parents[1] / "src")
@@ -140,4 +144,9 @@ def test_port_sources_name_no_jax_or_repro_import():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     bad = [f"{f.relative_to(root)}: {m.group(0).strip()}"
            for f in files for m in pattern.finditer(f.read_text())]
-    assert len(files) >= 53 and not bad, bad
+    assert len(files) >= 60 and not bad, bad
+    names = {f.relative_to(root).as_posix() for f in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "training/__init__", "training/optimizer", "training/data",
+        "training/checkpoint", "training/train", "launch/__init__",
+        "launch/train")} <= names, names

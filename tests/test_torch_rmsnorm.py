@@ -134,3 +134,20 @@ def test_plan_at_the_path_widths_has_no_idle_lane(elem_bytes, want):
         assert p.threads * p.nv * p.vec == d
         q = ops.plan(d, elem_bytes, aligned=False)       # scalar loads
         assert q.vec == 1 and q.chunks == 1 and q.threads * q.nv == d
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_matches_jax_vjp_of_the_reference(shape):
+    """``rmsnorm_backward`` (the card Function's backward) against
+    ``jax.vjp`` of the reference's plain version, float32, 2e-5."""
+    import jax
+    x, s = _inputs(shape)
+    dy = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    dx, ds = ops.rmsnorm_backward(torch.tensor(x), torch.tensor(s),
+                                  torch.tensor(dy))
+    _, vjp = jax.vjp(jax_ref, jnp.asarray(x), jnp.asarray(s))
+    want_dx, want_ds = vjp(jnp.asarray(dy))
+    for got, want in ((dx, want_dx), (ds, want_ds)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5,
+                                   rtol=2e-5)

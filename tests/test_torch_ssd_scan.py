@@ -266,3 +266,23 @@ def test_each_product_needs_the_split(product):
     got = _emulated(*arrays, 32, mm)
     assert not all(np.allclose(g, np.asarray(w), atol=TOL, rtol=TOL)
                    for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SHAPES)
+def test_backward_matches_jax_vjp_of_the_reference(B, S, H, P, N, chunk):
+    """``ssd_scan_backward`` (the card Function's backward) against
+    ``jax.vjp`` of the reference's sequential oracle, float32, 2e-5:
+    grads of x, a, B, C and h0 for cotangents of both y and h_final."""
+    import jax
+    arrays = _inputs(B, S, H, P, N)
+    rng = np.random.default_rng(1)
+    dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dh = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    got = ops.ssd_scan_backward(*(torch.tensor(a) for a in arrays),
+                                torch.tensor(dy), torch.tensor(dh),
+                                chunk=chunk)
+    _, vjp = jax.vjp(jax_seq, *(jnp.asarray(a) for a in arrays))
+    for g, want, a in zip(got, vjp((jnp.asarray(dy), jnp.asarray(dh))),
+                          arrays, strict=True):
+        assert g.shape == a.shape == want.shape
+        _close(g, want, 2e-5)

@@ -196,6 +196,10 @@ def test_prefill_logits_last_only(model):
     ("remat", "block"), ("fsdp", True), ("shard_kv_seq", True)])
 def test_unported_run_knobs_raise(knob, value):
     cfg, _ = configs("smoke")
+    if knob == "remat":
+        # the dense family runs remat="block" (tests/test_torch_training.py);
+        # the hybrid family still raises for it
+        cfg = smoke_variant(get_config("zamba2-2.7b"))
     run = RunConfig(**{knob: value})
     params = api.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match=knob):
