@@ -122,8 +122,6 @@ Then training, on full-width TinyLlama-1.1B (f32 weights, TF32 off):
                  with the port's checkpoint.restore.  The phase's
                  launches join the kernels line's rmsnorm and
                  flash_attention counts (``launches_by_path``).
-                 ``--only train`` runs phases 1, 2 and 11 alone and
-                 prints no result line.
 
 The last lines are the card (nvidia-smi), one JSON object with the
 kernels' numbers and, last, {"ok": true, "device": {...}}.  Details go
@@ -1966,7 +1964,7 @@ def _split_step(cfg, run, params, state, launches):
     _zero_llm_counts()
     toks, labels = (torch.as_tensor(a, device="cuda")
                     for a in next(_train_data(cfg, TRAIN_B, TRAIN_S)))
-    for p in opt.leaves(params):
+    for p in opt.leaves(train.trainable(params)):
         p.grad = None
     out, gib = {}, 2.0 ** 30
     torch.cuda.synchronize()
@@ -2005,17 +2003,16 @@ def train_bounds(cfg, params):
     F32_OPS_PER_S), and AdamW's (bytes, ms at HBM_BYTES_PER_S).  The
     products: 6 operations per matmul weight (every leaf of rank >= 2
     but the token embedding, which is gathered) and token.  Attention
-    per layer: the kernel's causal forward, 4 D per unmasked (q, k)
-    pair, and the plain backward's recompute and gradients over the
-    full S x S scores, 4 D + 8 D per pair.  AdamW reads p, g, m, v and
-    writes p, m, v once."""
+    per layer and unmasked (q, k) pair of the causal S x S scores: the
+    forward's 4 D (q.k and p.v) and the backward's 8 D (dv, dp, dq and
+    dk), the function's work, not the plain backward's recompute over
+    the full S x S.  AdamW reads p, g, m, v and writes p, m, v once."""
     n_mm = sum(p.numel() for k, p in _leaf_items(params)
                if p.dim() >= 2 and k != "embed/tok")
     n_all = sum(p.numel() for _, p in _leaf_items(params))
     tokens, S = TRAIN_B * TRAIN_S, TRAIN_S
     H, D = cfg.num_heads, cfg.resolved_head_dim
-    attn = cfg.num_layers * TRAIN_B * H * D * (
-        4 * S * (S + 1) // 2 + 12 * S * S)
+    attn = cfg.num_layers * TRAIN_B * H * D * 12 * (S * (S + 1) // 2)
     ops = 6 * n_mm * tokens + attn
     adamw_bytes = 7 * 4 * n_all
     return dict(step_ops=ops, step_bound_ms=ops / F32_OPS_PER_S * 1e3,
@@ -2275,14 +2272,8 @@ def phase_train(card):
                           seconds=secs)
 
 
-def main(argv=None) -> int:
-    import argparse
+def main() -> int:
     import torch
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["train"], default=None,
-                    help="run the device and build phases and this one, "
-                         "and print no result line")
-    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2294,15 +2285,6 @@ def main(argv=None) -> int:
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     phase_build()
-    if args.only == "train":
-        _, train = phase_train(card)
-        out = ROOT / "chiprun_out"
-        out.mkdir(exist_ok=True)
-        (out / "chip_smoke_train.json").write_text(json.dumps(dict(
-            card=card, train=train), indent=1, default=str))
-        log(f"[done] {time.perf_counter() - t_start:.1f} s (phase train "
-            f"only: no result line)")
-        return 0
     kernel, rows = phase_kernels(CONFIG)
     main_path, wl, (scn, g) = phase_main(CONFIG, card)
     trace = phase_trace(wl)

@@ -4,7 +4,7 @@ A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
 tensor launches the kernel of ``csrc/flash_attention.cu`` (which loads
 16-byte chunks, so q, k and v must be 16-byte aligned) or raises.
 Under grad mode, when q, k or v needs a gradient, the launch goes
-through ``FlashAttentionFunction``: the kernel's forward, and as
+through ``kernels.KernelFunction``: the kernel's forward, and as
 backward the plain version's autograd recomputed from the saved inputs
 (``flash_attention_backward``), since the TPU kernel has no backward to
 port.
@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, launch
+from repro_torch.kernels import build, launch, plain_backward, with_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
@@ -77,31 +77,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, do: torch.Tensor, *,
                              causal: bool = True, window: int = 0):
     """(dq, dk, dv), dk and dv in the GQA layout (B,Skv,KV,D): the
-    gradient of ``attention_ref`` at ``do``, by autograd through the
-    plain version re-run from q, k and v.  It holds the (B,H,Sq,Skv)
-    float32 scores while it runs."""
-    with torch.enable_grad():
-        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-        o = attention_ref(q, k, v, causal=causal, window=window)
-        return torch.autograd.grad(o, (q, k, v), do)
-
-
-class FlashAttentionFunction(torch.autograd.Function):
-    """The kernel's forward with ``flash_attention_backward`` as its
-    backward."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return _launch(q, k, v, causal, window)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        return (*flash_attention_backward(q, k, v, do, causal=ctx.causal,
-                                          window=ctx.window), None, None)
+    gradient of ``attention_ref`` at ``do``, the card path's backward.
+    It holds the (B,H,Sq,Skv) float32 scores while it runs."""
+    return plain_backward(attention_ref, (q, k, v), (do,), causal=causal,
+                          window=window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -113,10 +92,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return FlashAttentionFunction.apply(q, k, v, causal, window)
-    return _launch(q, k, v, causal, window)
+    return with_grad(_launch, attention_ref, (q, k, v), causal=causal,
+                     window=window)
 
 
 def _launch(q, k, v, causal, window):

@@ -3,8 +3,8 @@
 A CPU tensor goes to the plain version (``ref.rmsnorm_ref``); a CUDA
 tensor launches the kernel of ``csrc/rmsnorm.cu`` or raises.  Under grad
 mode, when x or scale needs a gradient, the launch goes through
-``RMSNormFunction``: the kernel's forward, and as backward the plain
-version's autograd recomputed from the saved inputs
+``kernels.KernelFunction``: the kernel's forward, and as backward the
+plain version's autograd recomputed from the saved inputs
 (``rmsnorm_backward``), since the TPU kernel has no backward to port.
 ``launches`` counts kernel launches, so a run can show that its path
 went through the kernel.  ``plan`` chooses the kernel's block for a row
@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, launch
+from repro_torch.kernels import build, launch, plain_backward, with_grad
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 launches = 0
@@ -120,29 +120,8 @@ def _check(x, scale) -> bool:
 def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor,
                      dy: torch.Tensor, eps: float = 1e-6):
     """(dx, dscale): the gradient of ``rmsnorm_ref(x, scale, eps)`` at
-    ``dy``, by autograd through the plain version re-run from x and
-    scale."""
-    with torch.enable_grad():
-        x = x.detach().requires_grad_()
-        scale = scale.detach().requires_grad_()
-        y = rmsnorm_ref(x, scale, eps)
-        return torch.autograd.grad(y, (x, scale), dy)
-
-
-class RMSNormFunction(torch.autograd.Function):
-    """The kernel's forward with ``rmsnorm_backward`` as its backward."""
-
-    @staticmethod
-    def forward(ctx, x, scale, eps):
-        ctx.save_for_backward(x, scale)
-        ctx.eps = eps
-        return _launch(x, scale, eps)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dy):
-        x, scale = ctx.saved_tensors
-        return (*rmsnorm_backward(x, scale, dy, ctx.eps), None)
+    ``dy``, the card path's backward."""
+    return plain_backward(rmsnorm_ref, (x, scale), (dy,), eps=eps)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -151,9 +130,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     output in x's type.  x: (..., d), scale: (d,)."""
     if not _check(x, scale):
         return rmsnorm_ref(x, scale, eps)
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-        return RMSNormFunction.apply(x, scale, eps)
-    return _launch(x, scale, eps)
+    return with_grad(_launch, rmsnorm_ref, (x, scale), eps=eps)
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float):

@@ -4,7 +4,7 @@ A CPU tensor goes to the plain version (``ref.ssd_scan_ref``); a CUDA
 tensor launches the kernel of ``csrc/ssd_scan.cu`` or raises.  The
 per-head (4-D B/C) form serves xLSTM only and is not ported.
 Under grad mode, when an input needs a gradient, the launch goes through
-``SSDScanFunction``: the kernel's forward, and as backward the plain
+``kernels.KernelFunction``: the kernel's forward, and as backward the plain
 version's autograd recomputed from the saved inputs
 (``ssd_scan_backward``), since the TPU kernel has no backward to port.
 ``launches`` counts kernel launches, so a run can show that its path
@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, launch
+from repro_torch.kernels import build, launch, plain_backward, with_grad
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 launches = 0
@@ -75,30 +75,9 @@ def ssd_scan_backward(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
                       cmat: torch.Tensor, h0: torch.Tensor, dy: torch.Tensor,
                       dh: torch.Tensor, *, chunk: int = 128):
     """(dx, da, dbmat, dcmat, dh0): the gradient of ``ssd_scan_ref`` at
-    (dy, dh) for its outputs (y, h_final), by autograd through the plain
-    version re-run from the inputs."""
-    with torch.enable_grad():
-        ins = tuple(t.detach().requires_grad_()
-                    for t in (x, a, bmat, cmat, h0))
-        y, h = ssd_scan_ref(*ins, chunk=chunk)
-        return torch.autograd.grad((y, h), ins, (dy, dh))
-
-
-class SSDScanFunction(torch.autograd.Function):
-    """The kernel's forward with ``ssd_scan_backward`` as its
-    backward."""
-
-    @staticmethod
-    def forward(ctx, x, a, bmat, cmat, h0, chunk):
-        ctx.save_for_backward(x, a, bmat, cmat, h0)
-        ctx.chunk = chunk
-        return _launch(x, a, bmat, cmat, h0, chunk)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dy, dh):
-        return (*ssd_scan_backward(*ctx.saved_tensors, dy, dh,
-                                   chunk=ctx.chunk), None)
+    (dy, dh) for its outputs (y, h_final), the card path's backward."""
+    return plain_backward(ssd_scan_ref, (x, a, bmat, cmat, h0), (dy, dh),
+                          chunk=chunk)
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
@@ -110,10 +89,8 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     _check(x, a, bmat, cmat, h0, chunk)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, a, bmat, cmat, h0, chunk=chunk)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, a, bmat, cmat, h0)):
-        return SSDScanFunction.apply(x, a, bmat, cmat, h0, chunk)
-    return _launch(x, a, bmat, cmat, h0, chunk)
+    return with_grad(_launch, ssd_scan_ref, (x, a, bmat, cmat, h0),
+                     chunk=chunk)
 
 
 def _launch(x, a, bmat, cmat, h0, chunk):

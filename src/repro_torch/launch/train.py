@@ -25,7 +25,7 @@ from repro_torch.config import RunConfig, get_config, smoke_variant
 from repro_torch.models import api
 from repro_torch.training import checkpoint, optimizer as opt
 from repro_torch.training.data import DataConfig, batches
-from repro_torch.training.train import make_train_step
+from repro_torch.training.train import make_train_step, release
 
 
 def card_line(dev: torch.device) -> str:
@@ -104,6 +104,7 @@ def main(argv=None):
     print(f"done: {args.steps} steps in {dt:.1f}s ({tok_s:.0f} tok/s); "
           f"peak device memory {peak}")
 
+    release(params)
     if args.ckpt:
         checkpoint.save(args.ckpt, {"params": params, "opt": opt_state})
         print(f"checkpoint -> {args.ckpt}")

@@ -3,11 +3,13 @@
 The port of ``repro.training.train``.  Params are leaf tensors that
 need a gradient (``train_step`` marks them); the backward fills their
 ``.grad``, which stays until the next step clears it, and AdamW updates
-them in place.  On the card the forward launches the rmsnorm and
-flash-attention kernels (and ssd_scan on zamba2) through their
-``torch.autograd.Function``s, whose backward is the plain version's
-autograd.  An explicit ``torch.Generator`` takes the place of the
-reference's PRNG key.
+them in place.  A leaf the backward did not reach raises, as JAX would
+fail to build its gradient tree; ``train_loop`` returns the params
+released (no ``.grad``, no need of one), ready to serve.  On the card
+the forward launches the rmsnorm and flash-attention kernels (and
+ssd_scan on zamba2) through ``kernels.KernelFunction``, whose backward
+is the plain version's autograd.  An explicit ``torch.Generator`` takes
+the place of the reference's PRNG key.
 """
 
 from __future__ import annotations
@@ -38,6 +40,29 @@ def trainable(params):
     return params
 
 
+def release(params):
+    """Drop every leaf's ``.grad`` and its need of a gradient, so trained
+    params serve as plain tensors (the serving path launches the kernels
+    directly, and decode_attention raises under grad)."""
+    for p in opt.leaves(params):
+        p.grad = None
+        p.requires_grad_(False)
+    return params
+
+
+def _grads(params, prefix=""):
+    """The tree of the leaves' ``.grad``; raises naming a leaf that got
+    none (a detached output on its path)."""
+    if isinstance(params, dict):
+        return {k: _grads(v, f"{prefix}{k}/") for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_grads(v, f"{prefix}{i}/") for i, v in enumerate(params)]
+    if params.grad is None:
+        raise ValueError(f"train: no gradient reached param "
+                         f"{prefix.rstrip('/')}")
+    return params.grad
+
+
 def make_train_step(cfg: ModelConfig, run: RunConfig,
                     ocfg: Optional[opt.AdamWConfig] = None):
     """``train_step(params, opt_state, tokens, labels, extras=None) ->
@@ -52,9 +77,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
             p.grad = None
         loss, nll = loss_fn(params, tokens, labels, extras)
         loss.backward()
-        grads = opt.tree_map(
-            lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
-            params)
+        grads = _grads(params)
         params, opt_state, metrics = opt.apply_updates(
             ocfg, params, grads, opt_state)
         metrics = dict(metrics, loss=loss.detach(), nll=nll.detach())
@@ -72,8 +95,9 @@ def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *,
     (tokens, labels); ``params`` None draws them with ``generator``
     (default: seed 0 on ``device``).  Every ``log_every`` steps and at
     the last, an entry of the metrics as floats (a host sync) goes to
-    the history and to ``callback``.  Returns (params, opt_state,
-    history).  Runs on the card unless ``device="cpu"``."""
+    the history and to ``callback``, where the step's ``.grad`` can
+    still be read.  Returns (params, opt_state, history), the params
+    released.  Runs on the card unless ``device="cpu"``."""
     dev = resolve_device(device)
     if params is None:
         if generator is None:
@@ -93,4 +117,4 @@ def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *,
             history.append(entry)
             if callback:
                 callback(entry)
-    return params, opt_state, history
+    return release(params), opt_state, history

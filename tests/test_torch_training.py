@@ -270,6 +270,8 @@ def test_train_loop_tracks_the_reference():
         log_every=1, ocfg=opt.AdamWConfig(**ocfg), callback=seen.append)
     assert seen == hist and [h["step"] for h in hist] == [0, 1, 2]
     assert int(state["step"]) == 3 and params is pp
+    assert all(p.grad is None and not p.requires_grad
+               for p in opt.leaves(params))
     for got, want in zip(hist, jhist, strict=True):
         for k in ("loss", "nll", "grad_norm"):
             assert got[k] == pytest.approx(want[k], rel=1e-4), k
@@ -332,6 +334,8 @@ def test_launcher_writes_a_checkpoint_the_reference_restores(tmp_path,
                                    "opt": jax_opt.init_state(jp)})
     g, w = _flat(back), _flat({"params": params, "opt": state})
     assert g.keys() == w.keys() and int(g["opt/step"]) == 2
+    assert all(p.grad is None and not p.requires_grad
+               for p in opt.leaves(params))
     for key in w:
         np.testing.assert_array_equal(g[key], w[key], err_msg=key)
 
@@ -360,20 +364,43 @@ def test_extra_inputs_and_trainable_params():
     assert train.trainable({"w": torch.ones(2)})["w"].requires_grad
 
 
+def test_train_step_raises_for_a_leaf_the_backward_missed(monkeypatch):
+    """A wrapper whose output is detached (the hazard of a kernel
+    launched outside its Function) leaves the leaves before it with no
+    ``.grad``: the step raises, naming one, and updates nothing."""
+    from repro_torch.models import layers
+    cfg = smoke_variant(get_config("tinyllama-1.1b"))
+    params = api.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    before = opt.tree_map(torch.clone, params)
+    norm = layers.rmsnorm
+    monkeypatch.setattr(layers, "rmsnorm",
+                        lambda *a, **kw: norm(*a, **kw).detach())
+    toks, labels = _batch(cfg.vocab_size)
+    step = train.make_train_step(cfg, RunConfig())
+    with pytest.raises(ValueError, match="no gradient reached param "
+                                         "(embed|layers)/"):
+        step(params, opt.init_state(params), torch.as_tensor(toks),
+             torch.as_tensor(labels))
+    for a, b in zip(opt.leaves(params), opt.leaves(before)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("arch,remat", [("tinyllama-1.1b", "none"),
                                         ("tinyllama-1.1b", "block"),
                                         ("zamba2-2.7b", "none")])
 def test_kernel_functions_give_the_plain_gradients(monkeypatch, arch,
                                                    remat):
     """The card's path on the CPU: every rmsnorm, flash-attention and
-    ssd_scan call goes through its ``torch.autograd.Function``, with the
-    kernel launch replaced by the plain version (no card here).  The loss
-    ``==`` plain autograd's, and every gradient leaf within 1e-5 x its
-    largest |g| (measured 8.0e-7): a Function adds the two paths of x's
-    gradient inside its own backward before autograd adds the sum to the
-    residual stream's, so float32 sums round in another order.  With
-    remat="block" the backward re-runs each layer's forwards (2 norms
-    and 1 attention)."""
+    ssd_scan call goes through ``kernels.with_grad`` into its
+    ``KernelFunction`` (the launch runs with grad mode off, as inside a
+    Function's forward), with the kernel launch replaced by the plain
+    version (no card here).  The loss ``==`` plain autograd's, and every
+    gradient leaf within 1e-5 x its largest |g| (measured 8.0e-7): a
+    Function adds the two paths of x's gradient inside its own backward
+    before autograd adds the sum to the residual stream's, so float32
+    sums round in another order.  With remat="block" the backward re-runs
+    each layer's forwards (2 norms and 1 attention)."""
+    from repro_torch.kernels import with_grad
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -390,27 +417,26 @@ def test_kernel_functions_give_the_plain_gradients(monkeypatch, arch,
     calls = {"rmsnorm": 0, "flash": 0, "ssd": 0}
 
     def counted(name, fn):
-        def launch(*args):
+        def launch(*args, **kw):
+            assert not torch.is_grad_enabled(), f"{name} outside a Function"
             calls[name] += 1
-            return fn(*args)
+            return fn(*args, **kw)
         return launch
     monkeypatch.setattr(rms_ops, "_launch", counted("rmsnorm", rmsnorm_ref))
-    monkeypatch.setattr(fa_ops, "_launch", counted(
-        "flash", lambda q, k, v, c, w: attention_ref(q, k, v, causal=c,
-                                                     window=w)))
-    monkeypatch.setattr(ssd_ops, "_launch", counted(
-        "ssd", lambda *a: ssd_scan_ref(*a[:5], chunk=a[5])))
+    monkeypatch.setattr(fa_ops, "_launch", counted("flash", attention_ref))
+    monkeypatch.setattr(ssd_ops, "_launch", counted("ssd", ssd_scan_ref))
 
     def norm(x, scale, eps=1e-6):
-        return rms_ops.RMSNormFunction.apply(x, scale, eps)
+        return with_grad(rms_ops._launch, rmsnorm_ref, (x, scale), eps=eps)
 
     def attend(q, k, v, *, causal, window=0):
-        return fa_ops.FlashAttentionFunction.apply(q, k, v, causal, window)
+        return with_grad(fa_ops._launch, attention_ref, (q, k, v),
+                         causal=causal, window=window)
     monkeypatch.setattr(layers, "rmsnorm", norm)
     monkeypatch.setattr(ssm, "rmsnorm", norm)
     monkeypatch.setattr(transformer, "chunked_attention", attend)
-    monkeypatch.setattr(ssd_ops, "ssd_scan", lambda *a, chunk: (
-        ssd_ops.SSDScanFunction.apply(*a, chunk)))
+    monkeypatch.setattr(ssd_ops, "ssd_scan", lambda *a, chunk: with_grad(
+        ssd_ops._launch, ssd_scan_ref, a, chunk=chunk))
     got = _port_loss_and_grads(cfg, params_from_numpy(schema, jp, "cpu"),
                                toks, labels, run)
     assert torch.equal(got[0], want[0])
