@@ -123,6 +123,25 @@ Then training, on full-width TinyLlama-1.1B (f32 weights, TF32 off):
                  launches join the kernels line's rmsnorm and
                  flash_attention counts (``launches_by_path``).
 
+Then the planner, which runs none of the kernels above:
+
+ 12. plan    -- the device planner engine (repro_torch.core.torchplan)
+                 in float64 on the card, each result within 1e-9 mean
+                 FID (PLAN_TOL) of the NumPy engines: stacking(engine=
+                 "torch") at K=1024 and 10^4 on make_scenario(K,
+                 seed=0) with tau' = deadline - 0.4 against vec, plans
+                 valid (first-call, warm and vec ms, device-to-host
+                 reads a call); the sweep at K=10^4 under the selection
+                 (sort, radix), rounds between loop checks (1, 4, 16)
+                 and 4-level chunks, counts equal; plan_many at S=1000,
+                 K=20 on default_rng(2).uniform(7, 20), every 10th
+                 scenario against vec stacking; replan_many at S=256,
+                 K=20 with offsets and doomed services against the vec
+                 residual replan; optimal_plan at K=8 against the scalar
+                 DP; Provisioner(scheduler="stacking_offset",
+                 engine="torch").run(execute="closed") on the simulated
+                 executor against engine="vec", with a replan.
+
 The last lines are the card (nvidia-smi), one JSON object with the
 kernels' numbers and, last, {"ok": true, "device": {...}}.  Details go
 to chiprun_out/chip_smoke.json.
@@ -2272,6 +2291,291 @@ def phase_train(card):
                           seconds=secs)
 
 
+PLAN_TOL = 1e-9            # mean FID, the planner engines' contract
+PLAN_SIZES = (1024, 10_000)  # single-scenario T* searches
+PLAN_MANY = dict(S=1000, K=20)
+REPLAN_MANY = dict(S=256, K=20)
+PLAN_OPTIMAL_K = 8
+
+
+def _ms(fn):
+    """Host milliseconds of one planner call (each ends in a host read,
+    so the device is done when it returns) and its result."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _plan_fid(quality, plan, ids):
+    return quality.mean_fid([plan.steps_completed[k] for k in ids])
+
+
+def _plan_services(taus):
+    from repro_torch.core.service import ServiceRequest
+    return ([ServiceRequest(id=i, deadline=float(t), spectral_eff=7.0)
+             for i, t in enumerate(taus)],
+            {i: float(t) for i, t in enumerate(taus)})
+
+
+def plan_search(D, Q, K):
+    """stacking(engine="torch") against vec on make_scenario(K, seed=0)
+    with tau' = deadline - 0.4 (the reference benchmark's instance)."""
+    from repro_torch.core.service import make_scenario
+    from repro_torch.core.stacking import stacking
+    from repro_torch.core.torchplan import kernels as pk
+    scn = make_scenario(K=K, seed=0)
+    tp = {s.id: s.deadline - 0.4 for s in scn.services}
+    ids = [s.id for s in scn.services]
+    vec_ms, pv = _ms(lambda: stacking(scn.services, tp, D, Q,
+                                      engine="vec"))
+    r0 = pk.READS["count"]
+    first_ms, pt = _ms(lambda: stacking(scn.services, tp, D, Q,
+                                        engine="torch"))
+    reads = pk.READS["count"] - r0
+    warm = [_ms(lambda: stacking(scn.services, tp, D, Q,
+                                 engine="torch"))[0]
+            for _ in range(3 if K <= 1024 else 1)]
+    err = abs(_plan_fid(Q, pv, ids) - _plan_fid(Q, pt, ids))
+    check(err < PLAN_TOL, f"stacking K={K}: torch vs vec mean FID "
+          f"differs by {err:.3g}")
+    pt.validate(gen_deadlines=tp)
+    L = max(D.max_steps(v) for v in tp.values())
+    log(f"[plan] stacking K={K} (L={L} levels): torch first call "
+        f"{first_ms:.2f} ms, warm {min(warm):.2f} ms (best of "
+        f"{len(warm)}), vec {vec_ms:.2f} ms on this host, {reads} "
+        f"device-to-host reads a call, |dFID| {err:.3g}, plan valid")
+    return dict(K=K, levels=L, first_ms=first_ms, warm_ms=min(warm),
+                warm_all_ms=warm, vec_ms=vec_ms, reads=reads,
+                fid_err=err, fid=_plan_fid(Q, pt, ids))
+
+
+def plan_variants(D, K):
+    """The clustered sweep of the K-service search under the design
+    choices left open by the reference: the selection (full sort vs
+    the radix passes), rounds between loop checks, and 4-level chunks
+    each with a loop of its own (the reference's ``_LEVEL_CHUNK``).
+    Every variant must give the same counts; the readings are host ms of
+    the sweep alone (best of 3) with the reads it made."""
+    import numpy as np
+    import torch
+    from repro_torch.core import arrays
+    from repro_torch.core.service import make_scenario
+    from repro_torch.core.torchplan import kernels as pk
+    scn = make_scenario(K=K, seed=0)
+    tp = {s.id: s.deadline - 0.4 for s in scn.services}
+    arr = arrays.ServiceArrays.build([s.id for s in scn.services], tp)
+    levels = np.arange(1, max(D.max_steps(v) for v in tp.values()) + 1)
+
+    def sweep():
+        Tc, t = pk.clustered_sweep(arr.tau_prime, arr.offsets, levels, D,
+                                   ids=arr.ids)
+        return pk._host(Tc)
+
+    def chunked():
+        # the same padded inputs as clustered_sweep, 4 level rows a loop
+        Kp, Lp = pk._bucket(arr.K), pk._bucket(levels.size)
+        taup = pk._pad_tail(arr.tau_prime, Kp, 0.0)
+        off = pk._pad_tail(arr.offsets, Kp, 0)
+        lv = pk._pad_tail(levels, Lp, int(levels[-1]))
+        ids = pk._pad_tail(arr.ids, Kp, int(arr.ids.max()) + 1)
+        shift = Kp.bit_length()
+        step = D.a + D.b
+        f_thr = pk._f_threshold(taup, off, lv, shift, step)
+        kb = pk._key_bits(taup, off, shift, step)
+        tp_t, off_t, lv_t, tie_t, f_t = pk._on(
+            "cuda", taup[None], off[None], lv, pk._tie_ranks(taup, ids)[None],
+            f_thr[None])
+        Tc = torch.cat([pk._clustered_core(tp_t, off_t, lv_t[c:c + 4], tie_t,
+                                           f_t[:, c:c + 4], shift, D.a, D.b,
+                                           kb)[0][0]
+                        for c in range(0, Lp, 4)])
+        return pk._host(Tc[:levels.size, :arr.K])
+
+    path = (pk._select, pk.ROUNDS_PER_CHECK)
+    variants = {"path": (sweep, path[0], path[1])}
+    variants["sort, check every round"] = (sweep, pk._sort_kth_key, 1)
+    for r in (4, 16):
+        variants[f"sort, {r} rounds a check"] = (sweep, pk._sort_kth_key, r)
+        variants[f"radix, {r} rounds a check"] = (sweep, pk._select_kth_key,
+                                                  r)
+    variants["path selection, 4-level chunks"] = (chunked, path[0], path[1])
+    rows, want = {}, None
+    try:
+        for name, (fn, select, rounds) in variants.items():
+            pk._select, pk.ROUNDS_PER_CHECK = select, rounds
+            fn()                                          # warm
+            r0 = pk.READS["count"]
+            times, got = [], None
+            for _ in range(3):
+                ms, got = _ms(fn)
+                times.append(ms)
+            reads = (pk.READS["count"] - r0) // 3
+            if want is None:
+                want = got
+            check(np.array_equal(got, want), f"sweep variant {name!r}: "
+                  f"counts differ from the path's")
+            rows[name] = dict(ms=min(times), reads=reads)
+            log(f"[plan] sweep K={K} {name}: {min(times):.2f} ms, {reads} "
+                f"reads (counts equal)")
+    finally:
+        pk._select, pk.ROUNDS_PER_CHECK = path
+    return rows
+
+
+def plan_many_check(D, Q):
+    """plan_many at S=1000, K=20 on default_rng(2).uniform(7, 20), every
+    10th scenario held to the port's vec stacking."""
+    import numpy as np
+    from repro_torch.core.stacking import stacking
+    from repro_torch.core.torchplan import kernels as pk
+    from repro_torch.core.torchplan import plan_many
+    S, K = PLAN_MANY["S"], PLAN_MANY["K"]
+    taus = np.random.default_rng(2).uniform(7, 20, size=(S, K))
+    r0 = pk.READS["count"]
+    first_ms, res = _ms(lambda: plan_many(taus, delay=D, quality=Q))
+    reads = pk.READS["count"] - r0
+    warm = [_ms(lambda: plan_many(taus, delay=D, quality=Q))[0]
+            for _ in range(3)]
+    errs, vec_ms = [], 0.0
+    for s in range(0, S, 10):
+        svcs, tp = _plan_services(taus[s])
+        ms, pv = _ms(lambda: stacking(svcs, tp, D, Q, engine="vec"))
+        vec_ms += ms
+        errs.append(abs(_plan_fid(Q, pv, range(K)) - res.mean_fid[s]))
+    check(max(errs) < PLAN_TOL, f"plan_many: scenario off vec by "
+          f"{max(errs):.3g}")
+    log(f"[plan] plan_many S={S} K={K}: first call {first_ms:.2f} ms, warm "
+        f"{min(warm):.2f} ms ({min(warm) / S * 1e3:.2f} us a scenario), "
+        f"{reads} reads a call; vec stacking over the {len(errs)} sampled "
+        f"scenarios {vec_ms:.2f} ms ({vec_ms / len(errs):.3f} ms a "
+        f"scenario); max |dFID| {max(errs):.3g}")
+    return dict(S=S, K=K, first_ms=first_ms, warm_ms=min(warm),
+                us_per_scenario=min(warm) / S * 1e3, reads=reads,
+                vec_sampled_ms=vec_ms, vec_sampled=len(errs),
+                fid_err=max(errs))
+
+
+def replan_many_check(D, Q):
+    """replan_many at S=256, K=20 with random offsets and doomed services
+    (offset > 0, tau' < 0), each scenario held to the vec residual
+    replan of core/online.py: stacking over the residual budgets scored
+    by _OffsetQuality."""
+    import numpy as np
+    from repro_torch.core.online import _OffsetQuality
+    from repro_torch.core.stacking import stacking
+    from repro_torch.core.torchplan import kernels as pk
+    from repro_torch.core.torchplan import replan_many
+    S, K = REPLAN_MANY["S"], REPLAN_MANY["K"]
+    rng = np.random.default_rng(3)
+    taus = rng.uniform(-1.0, 12.0, size=(S, K))
+    offs = rng.integers(0, 9, size=(S, K))
+    doomed = (offs > 0) & (taus < 0)
+    r0 = pk.READS["count"]
+    first_ms, res = _ms(lambda: replan_many(taus, delay=D, quality=Q,
+                                            offsets=offs, doomed=doomed))
+    reads = pk.READS["count"] - r0
+    warm = [_ms(lambda: replan_many(taus, delay=D, quality=Q, offsets=offs,
+                                    doomed=doomed))[0] for _ in range(3)]
+    errs, vec_ms = [], 0.0
+    for s in range(S):
+        svcs, tp = _plan_services(taus[s])
+        oq = _OffsetQuality(Q, offs[s].tolist())
+        oq.refresh_doomed(svcs, tp)
+        ms, pv = _ms(lambda: stacking(svcs, tp, D, oq, engine="vec"))
+        vec_ms += ms
+        errs.append(abs(_plan_fid(oq, pv, range(K)) - res.mean_fid[s]))
+    check(max(errs) < PLAN_TOL, f"replan_many: scenario off the vec "
+          f"residual replan by {max(errs):.3g}")
+    log(f"[plan] replan_many S={S} K={K} ({int(doomed.sum())} doomed): "
+        f"first call {first_ms:.2f} ms, warm {min(warm):.2f} ms, {reads} "
+        f"reads a call; vec residual replans {vec_ms:.2f} ms; max |dFID| "
+        f"{max(errs):.3g}")
+    return dict(S=S, K=K, first_ms=first_ms, warm_ms=min(warm), reads=reads,
+                vec_ms=vec_ms, doomed=int(doomed.sum()), fid_err=max(errs))
+
+
+def optimal_check(D, Q):
+    """optimal_plan(engine="torch") at K=8 against the scalar DP."""
+    import numpy as np
+    from repro_torch.core.optimal import optimal_plan
+    from repro_torch.core.torchplan import kernels as pk
+    K = PLAN_OPTIMAL_K
+    svcs, tp = _plan_services(np.random.default_rng(3).uniform(0.3, 4.0, K))
+    scalar_ms, ps = _ms(lambda: optimal_plan(svcs, tp, D, Q,
+                                             engine="scalar"))
+    r0 = pk.READS["count"]
+    torch_ms, pt = _ms(lambda: optimal_plan(svcs, tp, D, Q, engine="torch"))
+    reads = pk.READS["count"] - r0
+    err = abs(_plan_fid(Q, ps, range(K)) - _plan_fid(Q, pt, range(K)))
+    check(err < PLAN_TOL, f"optimal_plan K={K}: torch vs scalar DP mean "
+          f"FID differs by {err:.3g}")
+    pt.validate(gen_deadlines=tp)
+    log(f"[plan] optimal_plan K={K}: torch BFS {torch_ms:.2f} ms ({reads} "
+        f"reads), scalar DP {scalar_ms:.2f} ms, |dFID| {err:.3g}, plan "
+        f"valid")
+    return dict(K=K, torch_ms=torch_ms, scalar_ms=scalar_ms, reads=reads,
+                fid_err=err)
+
+
+def closed_loop_check(D, Q):
+    """Provisioner(make_scenario(K=8, seed=0), scheduler="stacking_offset",
+    engine=...).run(execute="closed") on the simulated executor, planned
+    with g x 0.5 so the loop replans: "torch" against "vec"."""
+    from repro_torch.api import Provisioner
+    from repro_torch.core.delay_model import DelayModel
+    from repro_torch.core.service import make_scenario
+    out = {}
+    for engine in ("vec", "torch"):
+        ms, rep = _ms(lambda: Provisioner(
+            make_scenario(K=8, seed=0), scheduler="stacking_offset",
+            allocator="inv_se", delay=DelayModel(D.a * 0.5, D.b * 0.5),
+            engine=engine, execute_kwargs=dict(
+                executor="simulated", min_batches=2, drift_tol=0.2,
+                executor_kwargs={"true_delay": D})).run(execute="closed"))
+        out[engine] = (ms, rep)
+    (vms, v), (tms, t) = out["vec"], out["torch"]
+    errs = [abs(v.mean_fid - t.mean_fid),
+            abs(v.execution.mean_fid - t.execution.mean_fid)]
+    check(max(errs) < PLAN_TOL, f"closed loop: torch vs vec FID differs "
+          f"by {max(errs):.3g}")
+    check(t.execution.replans == v.execution.replans
+          and t.execution.replans > 0,
+          f"closed loop replans torch {t.execution.replans} vec "
+          f"{v.execution.replans}")
+    same = t.plan.batches == v.plan.batches and \
+        t.execution.executed_log == v.execution.executed_log
+    log(f"[plan] Provisioner stacking_offset closed loop K=8: replans "
+        f"{t.execution.replans}, FID {t.execution.mean_fid:.6f} (torch) vs "
+        f"{v.execution.mean_fid:.6f} (vec), plans and executed logs "
+        f"{'equal' if same else 'differ within the tolerance'}; "
+        f"{tms:.1f} ms torch, {vms:.1f} ms vec")
+    return dict(replans=t.execution.replans, fid=t.execution.mean_fid,
+                fid_err=max(errs), same=same, torch_ms=tms, vec_ms=vms)
+
+
+def phase_plan(card):
+    """The planner's device engine on the card (see the module
+    docstring, phase 12)."""
+    from repro_torch.core.delay_model import DelayModel
+    from repro_torch.core.quality_model import PowerLawFID
+    t0 = time.perf_counter()
+    D, Q = DelayModel(), PowerLawFID()
+    search = [plan_search(D, Q, K) for K in PLAN_SIZES]
+    variants = plan_variants(D, PLAN_SIZES[-1])
+    many = plan_many_check(D, Q)
+    replan = replan_many_check(D, Q)
+    optimal = optimal_check(D, Q)
+    closed = closed_loop_check(D, Q)
+    secs = time.perf_counter() - t0
+    log(f"[done] phase plan {secs:.1f} s on {card}")
+    return dict(search=search, variants=variants, plan_many=many,
+                replan_many=replan, optimal=optimal, closed=closed,
+                seconds=secs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2313,6 +2617,7 @@ def main() -> int:
         per_model[cfg.name], llm[cfg.name] = phase_llm(card, cfg)
     llm_kernels = merge_kernel_summaries(per_model)
     train_launches, train = phase_train(card)
+    plan = phase_plan(card)
     for entry in llm_kernels:
         name = entry["name"]
         if name in train_launches:
@@ -2327,7 +2632,7 @@ def main() -> int:
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         kernel=kernel, kernel_rows=rows, main=main_path, trace=trace,
         parity=parity, bucketed=bucketed, closed=closed,
-        llm_kernels=llm_kernels, llm=llm, train=train,
+        llm_kernels=llm_kernels, llm=llm, train=train, plan=plan,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

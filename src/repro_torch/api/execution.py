@@ -102,8 +102,9 @@ def execute_plan(scenario, plan: BatchPlan, alloc, workload=None, *,
     ``min_batches``, ``max_replans``, ``headroom`` tune the loop).
     ``exec_engine`` picks the denoising session engine (``"dict"`` /
     ``"bucketed"``; ``None`` = the executor's default) and is recorded
-    in the result telemetry.  ``engine``: the planning engine, ``None``
-    or ``"scalar"``."""
+    in the result telemetry.  ``engine`` pins the planning engine of
+    every replan (``repro_torch.core.arrays``; ``"torch"`` runs on
+    ``torchplan.device_scope``'s device)."""
     from repro_torch.api.provisioner import ALLOCATORS, SCHEDULERS, _pick
     if exec_engine is not None:
         executor_kwargs = dict(executor_kwargs or {})

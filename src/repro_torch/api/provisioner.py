@@ -12,11 +12,15 @@ pipeline alone.  ``execute="open"``/``"closed"`` drives the plan through
 ``core/execution.py``'s ``ExecutionLoop`` (measure -> refit ->
 replan).  The port of ``repro.api.provisioner.Provisioner``'s static
 path; components are chosen by name from the plain dicts
-``SCHEDULERS`` and ``ALLOCATORS`` below, or passed as callables.
+``SCHEDULERS`` (``api/schedulers.py``) and ``ALLOCATORS`` below, or
+passed as callables.  ``engine=`` picks the planner engine
+(``repro_torch.core.arrays``) for the whole run; ``"torch"`` plans on
+the Provisioner's ``device``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -24,8 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch.api.execution import execute_plan, with_kwargs
+from repro_torch.api.schedulers import SCHEDULERS
 from repro_torch.api.workloads import (DecodeWorkload, DiffusionWorkload,
                                        WorkloadOutput)
+from repro_torch.core import arrays
 from repro_torch.core.bandwidth import (coordinate_refine, equal_allocate,
                                         inv_se_allocate, make_plan,
                                         pso_allocate)
@@ -35,7 +41,7 @@ from repro_torch.core.plan import BatchPlan
 from repro_torch.core.quality_model import PowerLawFID, QualityModel
 from repro_torch.core.service import Scenario
 from repro_torch.core.simulator import SimResult, simulate
-from repro_torch.core.stacking import stacking
+from repro_torch.core.torchplan import device_scope
 
 
 def _equal(scn, scheduler=None, delay=None, quality=None, **_):
@@ -58,7 +64,6 @@ def _coordinate(scn, scheduler, delay, quality, *, init="inv_se", **kw):
                              **kw).alloc
 
 
-SCHEDULERS = {"stacking": stacking}
 ALLOCATORS = {"equal": _equal, "inv_se": _inv_se, "pso": _pso,
               "coordinate": _coordinate}
 WORKLOADS = {"diffusion": DiffusionWorkload, "llm_decode": DecodeWorkload}
@@ -171,7 +176,10 @@ class Provisioner:
     tunes the loop (``window``, ``drift_tol``, ``min_batches``,
     ``max_replans``, ``headroom``, ``executor``, ``executor_kwargs``,
     plus ``exec_engine="bucketed"`` for the diffusion sessions'
-    pool engine)."""
+    pool engine).  ``engine`` pins the planner engine (``"vec"``,
+    ``"scalar"``, ``"torch"``; ``None`` = the process default) around
+    allocation, planning and every closed-loop replan; the ``"torch"``
+    engine runs on ``device``."""
 
     def __init__(self, scenario: Scenario, *, workload=None,
                  scheduler="stacking", allocator="pso",
@@ -179,7 +187,8 @@ class Provisioner:
                  quality: Optional[QualityModel] = None,
                  allocator_kwargs: Optional[dict] = None,
                  device="cuda", execute=None,
-                 execute_kwargs: Optional[dict] = None):
+                 execute_kwargs: Optional[dict] = None,
+                 engine: Optional[str] = None):
         self.scenario = scenario
         self.execute_default = _check_execute(execute)
         self.execute_kwargs = dict(execute_kwargs or {})
@@ -197,18 +206,28 @@ class Provisioner:
         self.quality = quality if quality is not None else (
             wl.default_quality() if wl else PowerLawFID())
         self.allocator_kwargs = dict(allocator_kwargs or {})
+        self.engine = engine
+        self.device = device
+
+    @contextlib.contextmanager
+    def _planning(self):
+        """The planner engine and its device, for one planning stage."""
+        with arrays.engine_scope(self.engine), device_scope(self.device):
+            yield
 
     # -- pipeline stages ------------------------------------------------
     def allocate(self) -> np.ndarray:
         """P1: bandwidth allocation under the current delay/quality."""
-        return np.asarray(self.allocator(
-            self.scenario, self.scheduler, self.delay, self.quality,
-            **self.allocator_kwargs))
+        with self._planning():
+            return np.asarray(self.allocator(
+                self.scenario, self.scheduler, self.delay, self.quality,
+                **self.allocator_kwargs))
 
     def plan(self, alloc: np.ndarray) -> Tuple[Dict[int, float], BatchPlan]:
         """P2: generation budgets + batch plan under an allocation."""
-        return make_plan(self.scenario, alloc, self.scheduler, self.delay,
-                         self.quality)
+        with self._planning():
+            return make_plan(self.scenario, alloc, self.scheduler,
+                             self.delay, self.quality)
 
     def calibrate(self, generator: Optional[torch.Generator] = None,
                   **kw) -> DelayModel:
@@ -270,13 +289,14 @@ class Provisioner:
             if latents is not None:
                 kw["executor_kwargs"] = dict(kw.get("executor_kwargs") or {},
                                              latents=latents)
-            execution = execute_plan(
-                self.scenario, plan, alloc, self.workload, mode=mode,
-                generator=generator, scheduler=self.scheduler,
-                allocator=with_kwargs(self.allocator,
-                                      self.allocator_kwargs),
-                delay=self.delay, quality=self.quality,
-                validate=validate, **kw)
+            with device_scope(self.device):
+                execution = execute_plan(
+                    self.scenario, plan, alloc, self.workload, mode=mode,
+                    generator=generator, scheduler=self.scheduler,
+                    allocator=with_kwargs(self.allocator,
+                                          self.allocator_kwargs),
+                    delay=self.delay, quality=self.quality,
+                    engine=self.engine, validate=validate, **kw)
             out = WorkloadOutput(content=execution.content,
                                  timings=execution.timings)
         report = ProvisionReport(

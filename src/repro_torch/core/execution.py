@@ -39,6 +39,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.core import arrays
 from repro_torch.core.bandwidth import make_plan
 from repro_torch.core.delay_model import DelayModel, RollingDelayFit
 from repro_torch.core.online import _ServiceState, offset_aware
@@ -46,7 +47,6 @@ from repro_torch.core.plan import BatchPlan
 from repro_torch.core.quality_model import PowerLawFID, QualityModel
 from repro_torch.core.service import Scenario
 from repro_torch.core.simulator import ServiceOutcome
-from repro_torch.core.stacking import check_engine
 
 _TIE = 1e-6   # deadline slack, matches core/simulator.py
 
@@ -231,8 +231,8 @@ class ExecutionLoop:
     relative error of the last ``min_batches`` batches exceeds
     ``drift_tol``; ``headroom`` inflates the refit model used for
     replanning so the new schedule keeps slack against timing noise.
-    ``engine`` is the planning engine: ``None`` or ``"scalar"``, the
-    only one ported (others raise ``NotImplementedError``).
+    ``engine`` pins the planning engine of every replan
+    (``repro_torch.core.arrays``); ``None`` keeps the process default.
     """
 
     def __init__(self, scenario: Scenario, plan: BatchPlan, alloc,
@@ -250,7 +250,6 @@ class ExecutionLoop:
         if mode == "closed" and (scheduler is None or allocator is None):
             raise ValueError("mode='closed' needs scheduler= and "
                              "allocator= to replan with")
-        check_engine(engine)
         self.scenario = scenario
         self.session = session
         self.scheduler = scheduler
@@ -363,10 +362,11 @@ class ExecutionLoop:
                    for s in res_scn.services]
         scheduler, quality = offset_aware(self.scheduler, self.quality,
                                           offsets)
-        alloc = np.asarray(self.allocator(
-            res_scn, scheduler, self.delay, quality))
-        tp, plan = make_plan(res_scn, alloc, scheduler, self.delay,
-                             quality)
+        with arrays.engine_scope(self.engine):
+            alloc = np.asarray(self.allocator(
+                res_scn, scheduler, self.delay, quality))
+            tp, plan = make_plan(res_scn, alloc, scheduler, self.delay,
+                                 quality)
         if self.validate:
             plan.validate(gen_deadlines=tp)
         self.replans += 1

@@ -46,13 +46,13 @@ from typing import Callable, Dict, List, Optional, Set
 
 import numpy as np
 
+from repro_torch.core import arrays
 from repro_torch.core.bandwidth import make_plan
 from repro_torch.core.delay_model import DelayModel
 from repro_torch.core.plan import BatchPlan
 from repro_torch.core.quality_model import PowerLawFID, QualityModel
 from repro_torch.core.service import Scenario, ServiceRequest
 from repro_torch.core.simulator import ServiceOutcome
-from repro_torch.core.stacking import check_engine
 
 # (residual_scenario, scheduler, delay, quality) -> B_k array: the
 # calling convention of the allocators in repro_torch.api.provisioner.
@@ -524,15 +524,16 @@ def simulate_online(scn: Scenario, scheduler, allocator: AllocatorFn,
 
     scheduler / allocator are plain callables with the signatures of
     ``repro_torch.api.provisioner``'s ``SCHEDULERS`` and ``ALLOCATORS``.
-    ``admission`` defaults to admit-all.  ``engine``: the planning
-    engine, ``None`` or ``"scalar"`` (the only one ported; others raise
-    ``NotImplementedError``).
+    ``admission`` defaults to admit-all.  ``engine`` pins the planning
+    engine (``"vec"``/``"scalar"``/``"torch"``, ``repro_torch.core.
+    arrays``) for every replan of this run; ``None`` keeps the process
+    default.
     """
-    check_engine(engine)
     if admission is None:
         admission = lambda svc, projected, states: True   # noqa: E731
     sim = OnlineSimulation(scn, scheduler, allocator,
                            delay if delay is not None else DelayModel(),
                            quality if quality is not None else PowerLawFID(),
                            admission, validate=validate)
-    return sim.run()
+    with arrays.engine_scope(engine):
+        return sim.run()

@@ -6,16 +6,20 @@ The two empirical insights it encodes (Sec. III-B):
   (ii) early denoising steps improve quality far more than later ones
        =>  step counts should be *balanced* across services.
 
-A copy of the scalar reference loop of ``repro.core.stacking`` (the
-original's default array engine returns bit-identical plans, which
-tests/test_arrays.py enforces there).
+T* is the expected per-service step count; services whose best-case final
+step count T'_k falls at or below T* form the priority cluster F.
+
+Quality-function-agnostic: the inner pass never evaluates FID; only the
+outer search does, through whatever QualityModel is supplied.  A copy of
+``repro.core.stacking``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
+from repro_torch.core import arrays
 from repro_torch.core.delay_model import DelayModel
 from repro_torch.core.plan import BatchPlan
 from repro_torch.core.quality_model import QualityModel
@@ -23,9 +27,18 @@ from repro_torch.core.service import ServiceRequest
 
 
 def stacking_pass(service_ids: Sequence[int], tau_prime: Dict[int, float],
-                  delay: DelayModel, t_star: int) -> BatchPlan:
-    """One clustering-packing-batching sweep for a fixed T* (Alg. 1 l.3-7)."""
+                  delay: DelayModel, t_star: int,
+                  offsets: Optional[Dict[int, int]] = None) -> BatchPlan:
+    """One clustering-packing-batching sweep for a fixed T* (Alg. 1 l.3-7).
+
+    ``offsets`` (steps a service already executed before this plan,
+    default zero) shift the projected counts ``Tp`` the priority
+    cluster is formed on, turning T* into a *total*-step water level —
+    the offset-native sweep of ``repro_torch.core.offset``.  With no offsets
+    this is the paper's Algorithm 1 inner pass exactly.
+    """
     a, b = delay.a, delay.b
+    off = offsets or {}
     taup = {k: float(tau_prime[k]) for k in service_ids}
     Tc = {k: 0 for k in service_ids}
     active = [k for k in service_ids if taup[k] >= delay.min_task_delay()]
@@ -35,9 +48,9 @@ def stacking_pass(service_ids: Sequence[int], tau_prime: Dict[int, float],
     t = 0.0
 
     while active:
-        # ---- clustering (Eqs. 15-18) -------------------------------------
+        # ---- clustering (Eqs. 15-18, offset-shifted) ---------------------
         Te = {k: delay.max_steps(taup[k]) for k in active}
-        Tp = {k: Tc[k] + Te[k] for k in active}
+        Tp = {k: off.get(k, 0) + Tc[k] + Te[k] for k in active}
         order = sorted(active, key=lambda k: (Tp[k], taup[k], k))
         F = [k for k in order if Tp[k] <= t_star]
 
@@ -55,7 +68,11 @@ def stacking_pass(service_ids: Sequence[int], tau_prime: Dict[int, float],
             cap = math.floor(((a + b) * tp_min - b * t_star) / (a * t_star)) \
                 if t_star > 0 else len(active)
             # an empty priority cluster forces tp_min > t_star, so cap
-            # >= 1 whenever t_star >= 1
+            # >= 1 whenever t_star >= 1 (the only levels the outer
+            # searches sweep).  The explicit clamp states that
+            # invariant here rather than leaving a degenerate negative
+            # cap to be absorbed — identically — by the generic
+            # max(1, ...) below, where the branch's reasoning is lost
             x_n = min(len(active), max(1, cap))
         x_n = max(1, min(x_n, len(active)))
 
@@ -90,8 +107,27 @@ def stacking_pass(service_ids: Sequence[int], tau_prime: Dict[int, float],
 
 def stacking(services: Sequence[ServiceRequest],
              tau_prime: Dict[int, float], delay: DelayModel,
-             quality: QualityModel, t_star_max: int = 0) -> BatchPlan:
-    """Algorithm 1: search T* in 1..T*max, keep the best mean quality."""
+             quality: QualityModel, t_star_max: int = 0,
+             engine: Optional[str] = None) -> BatchPlan:
+    """Algorithm 1: search T* in 1..T*max, keep the best mean quality.
+
+    ``engine`` selects the implementation: ``"vec"`` (the process
+    default — ``repro_torch.core.arrays``, all T* candidates swept as one
+    batched array kernel), ``"scalar"`` (this module's reference
+    loop), or any registered backend such as ``"torch"``
+    (``repro_torch.core.torchplan``, the T* sweep on the card).  vec and
+    scalar return bit-identical plans; registered backends match within
+    their documented tolerance, 1e-9 mean FID
+    (tests/test_torch_planner.py).
+    """
+    eng = arrays.resolve_engine(engine)
+    impl = arrays.engine_impl(eng)
+    if impl is not None:
+        return impl.stacking(services, tau_prime, delay, quality,
+                             t_star_max)
+    if eng == "vec":
+        return arrays.stacking_vec(services, tau_prime, delay, quality,
+                                   t_star_max)
     ids = [s.id for s in services]
     if t_star_max <= 0:
         t_star_max = max(1, max(delay.max_steps(tau_prime[k]) for k in ids))
@@ -105,14 +141,3 @@ def stacking(services: Sequence[ServiceRequest],
     if best_plan is None:
         raise ValueError("stacking: no T* candidate produced a plan")
     return best_plan
-
-
-def check_engine(engine) -> None:
-    """Raise for a planning engine this port does not have.  The
-    reference's ``repro.core.arrays`` picks a vectorised or jax engine;
-    the port has only the scalar loops above (``None`` = ``"scalar"``),
-    which give the reference's ``vec`` plans bit for bit."""
-    if engine not in (None, "scalar"):
-        raise NotImplementedError(
-            f"planning engine {engine!r} is not ported; only 'scalar' "
-            f"(ROADMAP.md, queue 1 item 8: the planner device engine)")

@@ -23,7 +23,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def alloc(batch: int, max_len: int, kv_heads: int, head_dim: int,
-          dtype_str: str = "bfloat16", device="cpu"):
+          dtype_str: str = "bfloat16", device="cuda"):
     """One unstacked (B, S, KV, D) buffer of zeros (a dict for int8);
     ``device="meta"`` gives shapes without storage."""
     shape = (batch, max_len, kv_heads, head_dim)

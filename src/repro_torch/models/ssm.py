@@ -148,7 +148,7 @@ def mamba2_step(cfg, p, u, state):
     return y @ p["out"], {"conv": conv_state, "ssm": h}
 
 
-def mamba2_init_state(cfg, batch: int, dtype=torch.float32, device="cpu"):
+def mamba2_init_state(cfg, batch: int, dtype=torch.float32, device="cuda"):
     d_in, H, N = ssm_dims(cfg)
     W = cfg.ssm_conv
     return {

@@ -180,7 +180,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
 # ---------------------------------------------------------------------------
 
 def stacked_kv(cfg: ModelConfig, n: int, batch: int, max_len: int,
-               run: RunConfig, device="cpu"):
+               run: RunConfig, device="cuda"):
     """One cache buffer (k or v) of zeros for n attention layers: (n, B,
     max_len, KV, D) in ``run.kv_cache_dtype`` (int8: a dict of q and
     scales, each stacked)."""
@@ -192,7 +192,7 @@ def stacked_kv(cfg: ModelConfig, n: int, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
-               device="cpu"):
+               device="cuda"):
     """{"pos": (B,) int32, "k"/"v": (L, B, max_len, KV, D)} of zeros
     (int8: dicts of q and scales).  ``device="meta"`` gives shapes
     only."""

@@ -132,7 +132,7 @@ def _stack_states(cfg: ModelConfig, states):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
-               device="cpu"):
+               device="cuda"):
     """A cache of zeros (see the module docstring); ``device="meta"``
     gives shapes only."""
     check_run(cfg, run)

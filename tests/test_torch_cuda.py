@@ -973,3 +973,31 @@ def test_zamba2_train_step_through_ssd_scan(cuda):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-3 * float(b.abs().max()))
+
+
+# -- the planner's device engine ---------------------------------------------
+
+def test_planner_engine_card_matches_cpu(cuda):
+    """``plan_many`` and ``stacking(engine="torch")`` on the card within
+    1e-9 mean FID of the same calls on the CPU (repro_torch.core.
+    torchplan; the card's float64 pow may differ in the last ulp)."""
+    from repro_torch.core.delay_model import DelayModel
+    from repro_torch.core.quality_model import PowerLawFID
+    from repro_torch.core.service import make_scenario
+    from repro_torch.core.stacking import stacking
+    from repro_torch.core.torchplan import device_scope, plan_many
+    D, Q = DelayModel(), PowerLawFID()
+    taus = np.random.default_rng(2).uniform(7, 20, size=(200, 20))
+    on_card = plan_many(taus, delay=D, quality=Q)
+    on_cpu = plan_many(taus, delay=D, quality=Q, device="cpu")
+    np.testing.assert_allclose(on_card.mean_fid, on_cpu.mean_fid, rtol=0,
+                               atol=1e-9)
+    scn = make_scenario(K=300, seed=0)
+    tp = {s.id: s.deadline - 0.4 for s in scn.services}
+    ids = [s.id for s in scn.services]
+    card = stacking(scn.services, tp, D, Q, engine="torch")
+    with device_scope("cpu"):
+        cpu = stacking(scn.services, tp, D, Q, engine="torch")
+    card.validate(gen_deadlines=tp)
+    assert abs(Q.mean_fid([card.steps_completed[k] for k in ids])
+               - Q.mean_fid([cpu.steps_completed[k] for k in ids])) < 1e-9

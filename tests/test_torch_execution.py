@@ -10,7 +10,7 @@ import dataclasses
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro.api import Provisioner as JaxProvisioner  # noqa: E402
 from repro.api import execute_report as jax_execute_report  # noqa: E402
@@ -35,6 +35,7 @@ from repro_torch.core import online as pon  # noqa: E402
 from repro_torch.core import service as ps  # noqa: E402
 from repro_torch.core.quality_model import PowerLawFID  # noqa: E402
 from repro_torch.core.stacking import stacking  # noqa: E402
+from repro_torch.core.torchplan import device_scope  # noqa: E402
 
 TRUE, HALF = (0.1, 0.2), (0.05, 0.1)   # the planner's 2x-fast misestimate
 NOISE = [{}, {"noise": 0.1, "seed": 7}]
@@ -238,17 +239,45 @@ class TestExecutionLoop:
             pex.ExecutionLoop(scn, None, [], None, mode="sideways")
 
     def test_engine_beyond_scalar_raises(self):
+        """Every engine the port has runs the loop and the online
+        simulator; an engine it lacks (``"jax"``) raises, and so does
+        ``"torch"`` with no card and no CPU request."""
         scn = ps.make_scenario(K=3, seed=0)
-        rep = Provisioner(scn, allocator="inv_se").run(execute=False)
-        for engine in ("vec", "jax"):
-            with pytest.raises(NotImplementedError, match="item 8"):
-                execute_plan(scn, rep.plan, rep.allocation,
-                             executor="simulated", engine=engine,
-                             executor_kwargs={
-                                 "true_delay": pd.DelayModel(*TRUE)})
-            with pytest.raises(NotImplementedError, match="item 8"):
-                pon.simulate_online(scn, stacking, ALLOCATORS["inv_se"],
-                                    engine=engine)
+        rep = Provisioner(scn, allocator="inv_se",
+                          delay=pd.DelayModel(*HALF)).run(execute=False)
+        runs = {}
+        for engine in ("scalar", "vec", "jax", "torch"):
+            def closed():
+                return execute_plan(scn, rep.plan, rep.allocation,
+                                    executor="simulated", engine=engine,
+                                    min_batches=2, drift_tol=0.2,
+                                    delay=pd.DelayModel(*HALF),
+                                    executor_kwargs={
+                                        "true_delay": pd.DelayModel(*TRUE)})
+
+            def online():
+                return pon.simulate_online(scn, stacking,
+                                           ALLOCATORS["inv_se"],
+                                           engine=engine)
+            if engine == "jax":
+                with pytest.raises(ValueError, match="planner engine"):
+                    closed()
+                with pytest.raises(ValueError, match="planner engine"):
+                    online()
+                continue
+            if engine == "torch" and not torch.cuda.is_available():
+                with pytest.raises(RuntimeError, match="cuda"):
+                    closed()
+                with pytest.raises(RuntimeError, match="cuda"):
+                    online()
+                with device_scope("cpu"):
+                    runs[engine] = (closed(), online())
+                continue
+            runs[engine] = (closed(), online())
+        assert runs["scalar"][0].replans > 0
+        for engine, tol in (("vec", 0.0), ("torch", 1e-9)):
+            for got, want in zip(runs[engine], runs["scalar"]):
+                assert abs(got.mean_fid - want.mean_fid) <= tol
         pex.ExecutionLoop(scn, rep.plan, rep.allocation,
                           pex.SimulatedSession(rep.plan, pd.DelayModel()),
                           mode="open", engine="scalar")

@@ -40,8 +40,8 @@ def _equal(got, want):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_alloc_matches(dtype):
-    got, want = kv_cache.alloc(B, S, KV, D, dtype), jkv.alloc(B, S, KV, D,
-                                                              dtype)
+    got = kv_cache.alloc(B, S, KV, D, dtype, "cpu")
+    want = jkv.alloc(B, S, KV, D, dtype)
     _equal(got, want)
     dt = (got["q"] if dtype == "int8" else got).dtype
     assert str(dt).endswith({"bfloat16": "bfloat16", "float32": "float32",
@@ -62,7 +62,7 @@ def test_write_and_read_match(dtype, pos, n):
     base = rng.standard_normal((B, S, KV, D)).astype(np.float32)
     jc = jkv.write(jkv.alloc(B, S, KV, D, dtype),
                    jnp.asarray(base), jnp.zeros(B, jnp.int32))
-    tc = kv_cache.write(kv_cache.alloc(B, S, KV, D, dtype),
+    tc = kv_cache.write(kv_cache.alloc(B, S, KV, D, dtype, "cpu"),
                         torch.tensor(base), torch.zeros(B, dtype=torch.int32))
     _equal(tc, jc)
     p = np.asarray(pos, np.int32)
@@ -83,9 +83,10 @@ def test_write_with_shared_index_matches_write(dtype):
     rng = np.random.default_rng(3)
     new = torch.tensor(rng.standard_normal((B, 1, KV, D)).astype(np.float32))
     pos = torch.tensor([1, 15, -1], dtype=torch.int32)
-    want = kv_cache.write(kv_cache.alloc(B, S, KV, D, dtype), new, pos)
-    got = kv_cache.write_(kv_cache.alloc(B, S, KV, D, dtype), new, pos,
-                          kv_cache.write_index(pos, 1, S))
+    want = kv_cache.write(kv_cache.alloc(B, S, KV, D, dtype, "cpu"), new,
+                          pos)
+    got = kv_cache.write_(kv_cache.alloc(B, S, KV, D, dtype, "cpu"), new,
+                          pos, kv_cache.write_index(pos, 1, S))
     _equal(got, want)
 
 

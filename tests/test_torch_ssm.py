@@ -120,7 +120,7 @@ def test_mamba2_step_matches_reference(block, conv_dtype):
 
 def test_init_state_matches_reference(block):
     cfg, jcfg, _, _, _ = block
-    mine = ssm.mamba2_init_state(cfg, 3, torch.bfloat16)
+    mine = ssm.mamba2_init_state(cfg, 3, torch.bfloat16, "cpu")
     ref = jax_ssm.mamba2_init_state(jcfg, 3, jnp.bfloat16)
     assert mine["conv"].dtype == torch.bfloat16
     assert mine["ssm"].dtype == torch.float32
