@@ -2498,26 +2498,36 @@ def replan_many_check(D, Q):
 
 
 def optimal_check(D, Q):
-    """optimal_plan(engine="torch") at K=8 against the scalar DP."""
+    """optimal_plan(engine="torch") at K=8 against the scalar DP: each
+    timed at its first call and warm (best of 3)."""
     import numpy as np
     from repro_torch.core.optimal import optimal_plan
     from repro_torch.core.torchplan import kernels as pk
     K = PLAN_OPTIMAL_K
     svcs, tp = _plan_services(np.random.default_rng(3).uniform(0.3, 4.0, K))
-    scalar_ms, ps = _ms(lambda: optimal_plan(svcs, tp, D, Q,
-                                             engine="scalar"))
+    scalar_first, ps = _ms(lambda: optimal_plan(svcs, tp, D, Q,
+                                                engine="scalar"))
+    scalar_ms = min(_ms(lambda: optimal_plan(svcs, tp, D, Q,
+                                             engine="scalar"))[0]
+                    for _ in range(3))
     r0 = pk.READS["count"]
-    torch_ms, pt = _ms(lambda: optimal_plan(svcs, tp, D, Q, engine="torch"))
+    torch_first, pt = _ms(lambda: optimal_plan(svcs, tp, D, Q,
+                                               engine="torch"))
     reads = pk.READS["count"] - r0
+    torch_ms = min(_ms(lambda: optimal_plan(svcs, tp, D, Q,
+                                            engine="torch"))[0]
+                   for _ in range(3))
     err = abs(_plan_fid(Q, ps, range(K)) - _plan_fid(Q, pt, range(K)))
     check(err < PLAN_TOL, f"optimal_plan K={K}: torch vs scalar DP mean "
           f"FID differs by {err:.3g}")
     pt.validate(gen_deadlines=tp)
-    log(f"[plan] optimal_plan K={K}: torch BFS {torch_ms:.2f} ms ({reads} "
-        f"reads), scalar DP {scalar_ms:.2f} ms, |dFID| {err:.3g}, plan "
-        f"valid")
-    return dict(K=K, torch_ms=torch_ms, scalar_ms=scalar_ms, reads=reads,
-                fid_err=err)
+    log(f"[plan] optimal_plan K={K}: torch BFS warm {torch_ms:.2f} ms "
+        f"(first {torch_first:.2f}, {reads} reads), scalar DP warm "
+        f"{scalar_ms:.2f} ms (first {scalar_first:.2f}), |dFID| "
+        f"{err:.3g}, plan valid")
+    return dict(K=K, torch_ms=torch_ms, torch_first_ms=torch_first,
+                scalar_ms=scalar_ms, scalar_first_ms=scalar_first,
+                reads=reads, fid_err=err)
 
 
 def closed_loop_check(D, Q):
@@ -2547,10 +2557,11 @@ def closed_loop_check(D, Q):
           f"{v.execution.replans}")
     same = t.plan.batches == v.plan.batches and \
         t.execution.executed_log == v.execution.executed_log
+    check(same, "closed loop: torch's plan or executed log differs from "
+          "vec's")
     log(f"[plan] Provisioner stacking_offset closed loop K=8: replans "
         f"{t.execution.replans}, FID {t.execution.mean_fid:.6f} (torch) vs "
-        f"{v.execution.mean_fid:.6f} (vec), plans and executed logs "
-        f"{'equal' if same else 'differ within the tolerance'}; "
+        f"{v.execution.mean_fid:.6f} (vec), plans and executed logs equal; "
         f"{tms:.1f} ms torch, {vms:.1f} ms vec")
     return dict(replans=t.execution.replans, fid=t.execution.mean_fid,
                 fid_err=max(errs), same=same, torch_ms=tms, vec_ms=vms)

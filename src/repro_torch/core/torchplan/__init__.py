@@ -8,10 +8,9 @@ Importing this package registers ``engine="torch"`` with
 here.  ``arrays`` probes this package on the first request for an
 engine it does not know.
 
-The engine runs on the card.  ``device_scope("cpu")`` (or ``device=``
-on ``plan_many``, ``replan_many``, ``optimal_plan`` and the sweeps of
-``kernels``) asks for the CPU; ``Provisioner(device=...)`` sets the
-scope around its planning.  Without a card and without that request it
+The engine runs on the card.  ``with device_scope("cpu"):`` asks for
+the CPU, around any call; ``Provisioner(device=...)`` sets the scope
+around its planning.  Without a card and without that request it
 raises: it never carries on on the CPU.
 
 Layout:

@@ -48,8 +48,8 @@ def _no_sharding(devices) -> None:
     if devices is not None:
         raise NotImplementedError(
             "devices= shards the scenario axis across cards, which the "
-            "port does not have yet (ROADMAP.md queue 1 item 9); use "
-            "device= for the one card")
+            "port does not have yet (ROADMAP.md queue 1 item 9); it runs "
+            "on the one card")
 
 
 def _check_inputs(tau_prime: np.ndarray, quality,
@@ -119,7 +119,7 @@ def plan_many(tau_prime: np.ndarray, *, delay: DelayModel,
               offsets: Optional[np.ndarray] = None,
               valid: Optional[np.ndarray] = None,
               t_star_max: int = 0,
-              devices=None, device=None) -> PlanManyResult:
+              devices=None) -> PlanManyResult:
     """Plan S stacked scenarios in a single call on the device.
 
     ``tau_prime`` is ``(S, K)`` denoising budgets, K padded to the
@@ -128,11 +128,11 @@ def plan_many(tau_prime: np.ndarray, *, delay: DelayModel,
     steps for replanning sweeps.  ``quality`` must be a ``PowerLawFID``
     (the paper's objective) — scoring runs on the device.
     ``t_star_max=0`` sizes the candidate grid from the loosest budget.
-    ``device`` defaults to ``kernels.device_scope``'s (``"cuda"``);
+    It runs on ``kernels.device_scope``'s device (``"cuda"``);
     ``devices`` (sharding across cards) is not ported and raises.
     """
     _no_sharding(devices)
-    dev = kernels.plan_device(device)
+    dev = kernels.plan_device()
     taup0, off, vd, S, K = _check_inputs(tau_prime, quality, offsets,
                                          valid)
     taup_p, off_p, vd_p, tie, f_thr, lv_p, shift, kb = _pad_stack(
@@ -179,7 +179,7 @@ def replan_many(tau_prime: np.ndarray, *, delay: DelayModel,
                 doomed: Optional[np.ndarray] = None,
                 valid: Optional[np.ndarray] = None,
                 t_star_max: int = 0,
-                devices=None, device=None) -> PlanManyResult:
+                devices=None) -> PlanManyResult:
     """Batched *residual* replans: S concurrent shared-horizon replans
     (the ``repro_torch.core.online`` semantics) in one call.
 
@@ -189,10 +189,11 @@ def replan_many(tau_prime: np.ndarray, *, delay: DelayModel,
     progress-aware as ``fid(offsets + counts)`` with ``doomed`` services
     pinned at ``fid(0)`` (pass ``doomed[s, k] = offsets[s, k] > 0 and
     tau_prime[s, k] < 0``), and each scenario's candidate grid is capped
-    at its own t_star_max.  ``device``/``devices`` as in ``plan_many``.
+    at its own t_star_max.  The device and ``devices`` as in
+    ``plan_many``.
     """
     _no_sharding(devices)
-    dev = kernels.plan_device(device)
+    dev = kernels.plan_device()
     taup0, soff, vd, S, K = _check_inputs(tau_prime, quality, offsets,
                                           valid)
     dm = np.zeros((S, K), dtype=bool) if doomed is None \

@@ -28,8 +28,8 @@ already afforded the larger batch, so a second pass drops nothing
 counts every read.
 
 The engine runs on ``device_scope``'s device, ``"cuda"`` unless the
-caller asks for another (``with device_scope("cpu"):``, or ``device=``
-on a public function here); without a card, ``"cuda"`` raises.  Shapes
+caller asks for another (``with device_scope("cpu"):``); without a
+card, ``"cuda"`` raises.  Shapes
 are padded to ``_bucket`` sizes as in the reference, and results do not
 depend on the padding.
 """
@@ -65,9 +65,8 @@ _DEVICE = ["cuda"]
 @contextlib.contextmanager
 def device_scope(device):
     """Run the torch planner engine on ``device`` inside the block (the
-    engine's one device setting, ``"cuda"`` by default).  The engine
-    entry points that ``arrays``' dispatch calls take no device, so this
-    is how a caller asks for the CPU: ``with device_scope("cpu"): ...``.
+    engine's one device setting, ``"cuda"`` by default): the way a
+    caller asks for the CPU, ``with device_scope("cpu"): ...``.
     ``Provisioner(device=...)`` sets it around its planning."""
     prev = _DEVICE[0]
     _DEVICE[0] = device
@@ -77,9 +76,9 @@ def device_scope(device):
         _DEVICE[0] = prev
 
 
-def plan_device(device=None) -> torch.device:
-    """``device``, or the scope's; raises for ``"cuda"`` with no card."""
-    return resolve_device(_DEVICE[0] if device is None else device)
+def plan_device() -> torch.device:
+    """The scope's device; raises for ``"cuda"`` with no card."""
+    return resolve_device(_DEVICE[0])
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -407,14 +406,14 @@ def _on(dev, *arrays):
 # -------------------------------------------------------------------------
 
 def clustered_sweep(taup0: np.ndarray, off: np.ndarray, levels: np.ndarray,
-                    delay: DelayModel, ids: Optional[np.ndarray] = None,
-                    device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    delay: DelayModel, ids: Optional[np.ndarray] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Algorithm-1 sweep of one scenario on the device: completed
     counts ``(L, K)`` and makespans ``(L,)`` for every candidate level,
     as tensors on the device.  Shapes are bucket-padded (extra services
     inactive at tau'=0, extra levels repeating the last real level) and
     the padding sliced off."""
-    dev = plan_device(device)
+    dev = plan_device()
     taup0 = np.asarray(taup0, dtype=np.float64)
     off = np.asarray(off, dtype=np.int64)
     levels = np.asarray(levels, dtype=np.int64)
@@ -439,12 +438,12 @@ def clustered_sweep(taup0: np.ndarray, off: np.ndarray, levels: np.ndarray,
 
 
 def lockstep_sweep(taup0: np.ndarray, targets: np.ndarray,
-                   delay: DelayModel, device=None
+                   delay: DelayModel
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The lockstep sweep of one scenario on the device: counts and
     makespans for every ``(L, K)`` additional-step target row (padded
     services carry target 0, so they never join a batch)."""
-    dev = plan_device(device)
+    dev = plan_device()
     taup0 = np.asarray(taup0, dtype=np.float64)
     targets = np.asarray(targets, dtype=np.int64)
     L, K = targets.shape
@@ -476,30 +475,29 @@ def powerlaw_rows(Tc: torch.Tensor, quality,
 
 def clustered_counts(taup0: np.ndarray, off: np.ndarray,
                      levels: np.ndarray, delay: DelayModel,
-                     ids: Optional[np.ndarray] = None, device=None
+                     ids: Optional[np.ndarray] = None
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """``clustered_sweep`` with NumPy results: completed counts
     ``(L, K)`` and makespans ``(L,)`` for every candidate level."""
-    Tc, t = clustered_sweep(taup0, off, levels, delay, ids, device)
+    Tc, t = clustered_sweep(taup0, off, levels, delay, ids)
     return _host(Tc), _host(t)
 
 
 def lockstep_counts(taup0: np.ndarray, targets: np.ndarray,
-                    delay: DelayModel, device=None
+                    delay: DelayModel
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """``lockstep_sweep`` with NumPy results."""
-    Tc, t = lockstep_sweep(taup0, targets, delay, device)
+    Tc, t = lockstep_sweep(taup0, targets, delay)
     return _host(Tc), _host(t)
 
 
 def powerlaw_scores(Tc: np.ndarray, quality, offsets: Optional[np.ndarray],
                     doomed: Optional[np.ndarray] = None,
-                    valid: Optional[np.ndarray] = None,
-                    device=None) -> np.ndarray:
+                    valid: Optional[np.ndarray] = None) -> np.ndarray:
     """Row scores of a NumPy count matrix for a PowerLawFID-based
     objective, computed on the device; callers fall back to
     ``arrays.score_rows`` for arbitrary quality models."""
-    Tc_t, = _on(plan_device(device), np.asarray(Tc, dtype=np.int64))
+    Tc_t, = _on(plan_device(), np.asarray(Tc, dtype=np.int64))
     return _host(powerlaw_rows(Tc_t, quality, offsets, doomed, valid))
 
 

@@ -132,20 +132,20 @@ def _batch_sizes(parents, depth: int, idx: int) -> List[int]:
 
 def optimal_mean_fid(tau_prime: Sequence[float], delay: DelayModel,
                      quality: QualityModel, max_steps: int = 60,
-                     grid: float = 1e-3, device=None) -> float:
+                     grid: float = 1e-3) -> float:
     """Exact minimum mean FID, the BFS variant of
     ``repro_torch.core.optimal.optimal_mean_fid`` (same unused legacy
-    args); ``device`` as in ``kernels.plan_device``."""
+    args)."""
     taus = np.sort(np.asarray([float(t) for t in tau_prime],
                               dtype=np.float64))
     best_v, _, _, _ = _search(taus, delay, quality,
-                              kernels.plan_device(device))
+                              kernels.plan_device())
     return best_v / max(1, taus.size)
 
 
 def optimal_plan(services, tau_prime: Dict[int, float], delay: DelayModel,
                  quality: QualityModel, *,
-                 max_services: int = 8, device=None) -> BatchPlan:
+                 max_services: int = 8) -> BatchPlan:
     """Exact-search scheduler, the BFS variant of
     ``repro_torch.core.optimal.optimal_plan``: the same objective
     (within float tolerance) and the same member rule when replaying the
@@ -159,7 +159,7 @@ def optimal_plan(services, tau_prime: Dict[int, float], delay: DelayModel,
     taus = np.sort(np.asarray([float(tau_prime[k]) for k in ids],
                               dtype=np.float64))
     _, parents, best_d, best_i = _search(taus, delay, quality,
-                                         kernels.plan_device(device))
+                                         kernels.plan_device())
     ms = _batch_sizes(parents, best_d, best_i)
 
     a, b = delay.a, delay.b

@@ -989,7 +989,8 @@ def test_planner_engine_card_matches_cpu(cuda):
     D, Q = DelayModel(), PowerLawFID()
     taus = np.random.default_rng(2).uniform(7, 20, size=(200, 20))
     on_card = plan_many(taus, delay=D, quality=Q)
-    on_cpu = plan_many(taus, delay=D, quality=Q, device="cpu")
+    with device_scope("cpu"):
+        on_cpu = plan_many(taus, delay=D, quality=Q)
     np.testing.assert_allclose(on_card.mean_fid, on_cpu.mean_fid, rtol=0,
                                atol=1e-9)
     scn = make_scenario(K=300, seed=0)

@@ -475,6 +475,8 @@ class TestTorchEngine:
                         execute="closed"))
         v, t = out
         assert t.execution.replans == v.execution.replans > 0
+        assert t.plan.batches == v.plan.batches
+        assert t.execution.executed_log == v.execution.executed_log
         assert abs(v.mean_fid - t.mean_fid) < TOL
         assert abs(v.execution.mean_fid - t.execution.mean_fid) < TOL
 
@@ -495,11 +497,13 @@ def test_torch_engine_needs_a_card_or_a_cpu_request():
     with pytest.raises(RuntimeError, match="cuda"):
         simulate_online(psvc.make_scenario(K=3, seed=0), pstacking.stacking,
                         ALLOCATORS["inv_se"], engine="torch")
-    res = torchplan.plan_many(np.ones((2, 3)), delay=DELAY, quality=QUALITY,
-                              device="cpu")
+    with device_scope("cpu"):
+        res = torchplan.plan_many(np.ones((2, 3)), delay=DELAY,
+                                  quality=QUALITY)
     assert res.num_scenarios == 2
 
 
+@pytest.mark.usefixtures("on_cpu")
 def test_sweeps_equal_the_vec_sweeps_exactly():
     """The device sweeps do the vec sweeps' float64 operations in the
     same order, so counts and makespans come out equal, on the paper's
@@ -515,13 +519,11 @@ def test_sweeps_equal_the_vec_sweeps_exactly():
             levels = np.arange(1, 40)
             want = arrays.sweep_clustered(arr, delay, levels)
             got = kernels.clustered_counts(arr.tau_prime, arr.offsets,
-                                           levels, delay, ids=arr.ids,
-                                           device="cpu")
+                                           levels, delay, ids=arr.ids)
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g, w)
             targets = np.maximum(levels[:, None] - arr.offsets, 0)
             want = arrays.sweep_lockstep(arr, delay, targets)
-            got = kernels.lockstep_counts(arr.tau_prime, targets, delay,
-                                          device="cpu")
+            got = kernels.lockstep_counts(arr.tau_prime, targets, delay)
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g, w)

@@ -130,10 +130,9 @@ def test_surplus_rounds_change_nothing(taus, data):
     try:
         for rounds in (1, 3, 16):
             kernels.ROUNDS_PER_CHECK = rounds
-            out.append(kernels.clustered_counts(tp, offs, levels, DELAY,
-                                                device="cpu")
-                       + kernels.lockstep_counts(tp, targets, DELAY,
-                                                 device="cpu"))
+            with device_scope("cpu"):
+                out.append(kernels.clustered_counts(tp, offs, levels, DELAY)
+                           + kernels.lockstep_counts(tp, targets, DELAY))
     finally:
         kernels.ROUNDS_PER_CHECK = prev
     for other in out[1:]:
@@ -151,33 +150,33 @@ def test_float_state_is_float64_under_any_default_dtype(default):
     prev = torch.get_default_dtype()
     torch.set_default_dtype(default)
     try:
-        for seed in range(20):
-            rng = np.random.default_rng(seed)
-            K = 60
-            tp = rng.uniform(0.3, 12.0, size=K)
-            off = rng.integers(0, 6, size=K)
-            arr = arrays.ServiceArrays.build(
-                list(range(K)), dict(enumerate(tp)), dict(enumerate(off)))
-            levels = np.arange(1, 40)
-            Tc, t = kernels.clustered_sweep(arr.tau_prime, arr.offsets,
-                                            levels, DELAY, ids=arr.ids,
-                                            device="cpu")
-            want = arrays.sweep_clustered(arr, DELAY, levels)
-            assert t.dtype == torch.float64
-            np.testing.assert_array_equal(Tc.numpy(), want[0])
-            np.testing.assert_array_equal(t.numpy(), want[1])
-            targets = np.maximum(levels[:, None] - off[None, :], 0)
-            got = kernels.lockstep_counts(tp, targets, DELAY, device="cpu")
-            want = arrays.sweep_lockstep(arr, DELAY, targets)
-            for g, w in zip(got, want):
-                np.testing.assert_array_equal(g, w)
-            q = kernels.powerlaw_rows(Tc, QUALITY, off)
-            assert q.dtype == torch.float64
-            np.testing.assert_allclose(
-                q.numpy(), arrays.score_rows(Tc.numpy() + off, QUALITY),
-                rtol=0, atol=TOL)
-        res = plan_many(rng.uniform(0.3, 12.0, size=(16, 20)), delay=DELAY,
-                        quality=QUALITY, device="cpu")
+        with device_scope("cpu"):
+            for seed in range(20):
+                rng = np.random.default_rng(seed)
+                K = 60
+                tp = rng.uniform(0.3, 12.0, size=K)
+                off = rng.integers(0, 6, size=K)
+                arr = arrays.ServiceArrays.build(
+                    list(range(K)), dict(enumerate(tp)), dict(enumerate(off)))
+                levels = np.arange(1, 40)
+                Tc, t = kernels.clustered_sweep(arr.tau_prime, arr.offsets,
+                                                levels, DELAY, ids=arr.ids)
+                want = arrays.sweep_clustered(arr, DELAY, levels)
+                assert t.dtype == torch.float64
+                np.testing.assert_array_equal(Tc.numpy(), want[0])
+                np.testing.assert_array_equal(t.numpy(), want[1])
+                targets = np.maximum(levels[:, None] - off[None, :], 0)
+                got = kernels.lockstep_counts(tp, targets, DELAY)
+                want = arrays.sweep_lockstep(arr, DELAY, targets)
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g, w)
+                q = kernels.powerlaw_rows(Tc, QUALITY, off)
+                assert q.dtype == torch.float64
+                np.testing.assert_allclose(
+                    q.numpy(), arrays.score_rows(Tc.numpy() + off, QUALITY),
+                    rtol=0, atol=TOL)
+            res = plan_many(rng.uniform(0.3, 12.0, size=(16, 20)), delay=DELAY,
+                            quality=QUALITY)
     finally:
         torch.set_default_dtype(prev)
     assert res.mean_fid.dtype == np.float64
@@ -212,8 +211,8 @@ def test_plan_many_matches_per_scenario_vec(scenarios):
     for s, row in enumerate(scenarios):
         taus[s, :len(row)] = row
         valid[s, :len(row)] = True
-    res = plan_many(taus, delay=DELAY, quality=QUALITY, valid=valid,
-                    device="cpu")
+    with device_scope("cpu"):
+        res = plan_many(taus, delay=DELAY, quality=QUALITY, valid=valid)
     for s, row in enumerate(scenarios):
         svcs, tp = _svcs(row)
         pv = arrays.stacking_vec(svcs, tp, DELAY, QUALITY)
