@@ -55,6 +55,34 @@ when it does not hold:
                  predicted_wall(), FID, outage, per bucket; executed log
                  monotone, no resurrection, images finite, one dispatch
                  per batch, launches exact.
+  6d. fleet   -- many edge servers (api/{online,multiserver,fleet}.py,
+                 core/{fleet,multiserver,traffic}.py).  On the same
+                 U-Net planned with phase main's g:
+                 OnlineProvisioner(make_scenario(K=8, arrival_rate=...),
+                 engine="torch", execute=True, seed=0) replays exactly
+                 its simulated batches; a 2-cell speed-1
+                 MultiServerProvisioner(engine="torch") runs each cell
+                 through execute_report(mode="open",
+                 exec_engine="bucketed"); images finite, groupnorm_silu
+                 launches exact (45 a forward, replays counted).  Then
+                 the fleet in epoch mode at benchmarks/fleet.py's reduced
+                 scale (128 cells, ~10^5 arrivals, 64 epochs, inv_se) on
+                 engine="torch" (every epoch's replans in one
+                 torchplan.replan_many call on the card) and "vec":
+                 mean FID within 1e-9, counts and peak_live_rows equal,
+                 64 planner calls against 8192; at paper scale (512
+                 cells, >= 10^6 arrivals) on torch; event mode on the
+                 reference's 3-cell equivalence fleet against
+                 simulate_online_multi within 1e-9; event mode on two
+                 one-speed 10-cell fleets (tests/test_fleet.py's, and a
+                 lightly loaded one) on torch against vec, so that
+                 rounds batch several cells into one replan_many call;
+                 and
+                 MultiServerProvisioner on make_scenario(K=12,
+                 n_servers=3, server_speed_range=(0.7, 1.3)) for every
+                 placement (alternating at K=6) and both online
+                 routers, torch against vec: assignments equal, mean
+                 FID within 1e-9.
 
 Then phases 7-10 run for each model of the llm_decode path, at full
 width and depth with f32 weights drawn on the card from a seed:
@@ -2587,6 +2615,324 @@ def phase_plan(card):
                 seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# Many edge servers: the fleet, the multi-server and the online facades
+# ---------------------------------------------------------------------------
+
+FLEET_TOL = 1e-9           # mean FID, the planner engines' contract
+FLEET_COUNTS = ("arrivals", "admitted", "rejected", "completed", "replans",
+                "peak_live_rows")
+FLEET_REDUCED = dict(cells=128, services=100_000)   # benchmarks/fleet.py
+# one-speed 10-cell fleets for event mode, (bandwidth Hz, Poisson rate):
+# tests/test_fleet.py's TestEngineParity fleet, and one loaded lightly
+# enough that most plans meet their deadlines
+FLEET_EVENT_ONE_SPEED = ((2.0e6, 5.0), (8.0e6, 1.0))
+FLEET_FULL = dict(cells=512, services=1_000_000)    # FLEET_FULL=1 sizes
+PLACEMENT_K = dict(round_robin=12, least_loaded=12, greedy_fid=12,
+                   alternating=6)   # alternating re-plans cells per move
+
+
+def scale_fleet(cells, services):
+    """``benchmarks/fleet.py:_scale``'s fleet: ``cells`` cells of 8 MHz,
+    Poisson rate 2, the horizon sized 2.5% above ``services``, seed 0;
+    epochs of horizon / 64."""
+    from repro_torch.core.fleet import FleetCell, FleetScenario
+    from repro_torch.core.traffic import PoissonProcess
+    rate = 2.0
+    horizon = 1.025 * services / (cells * rate)
+    return FleetScenario(
+        cells=tuple(FleetCell(bandwidth_hz=8.0e6,
+                              process=PoissonProcess(rate))
+                    for _ in range(cells)), horizon=horizon, seed=0)
+
+
+def _fleet_run(fleet, engine, **kw):
+    """One ``simulate_fleet`` run, its host seconds (synchronised before
+    and after), device-to-host reads and the peak device memory above
+    what was allocated before it."""
+    import torch
+    from repro_torch.core.fleet import simulate_fleet
+    from repro_torch.core.torchplan import kernels as pk
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    r0 = pk.READS["count"]
+    t0 = time.perf_counter()
+    res = simulate_fleet(fleet, engine=engine, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    row = dict(dataclasses.asdict(res), seconds=secs,
+               services_per_s=res.arrivals / secs,
+               reads=pk.READS["count"] - r0,
+               peak_bytes=torch.cuda.max_memory_allocated() - base)
+    check(res.admitted + res.rejected == res.arrivals
+          and res.completed == res.admitted,
+          f"fleet {engine}: arrivals not accounted for: {res}")
+    return res, row
+
+
+def _fleet_line(tag, row):
+    log(f"[fleet] {tag} {row['engine']}: {row['arrivals']} arrivals, "
+        f"{row['seconds']:.2f} s, {row['services_per_s']:.0f} services/s, "
+        f"planner_calls {row['planner_calls']} (replans "
+        f"{row['replans']}), {row['reads']} reads, peak_live_rows "
+        f"{row['peak_live_rows']}, mean FID {row['mean_fid']:.9f}, outage "
+        f"{row['outage_rate']:.4f}, peak device memory "
+        f"{row['peak_bytes'] / 2**20:.1f} MiB")
+
+
+def fleet_scale_check():
+    """Epoch mode at the reference's reduced scale on torch and vec (the
+    same accounting, mean FID within 1e-9, 64 planner calls against
+    8192), then the paper scale on torch alone."""
+    fleet = scale_fleet(**FLEET_REDUCED)
+    kw = dict(allocator="inv_se", mode="epoch", epoch=fleet.horizon / 64.0)
+    out = {}
+    for engine in ("torch", "vec"):
+        res, out[engine] = _fleet_run(fleet, engine, **kw)
+        _fleet_line(f"epoch x{fleet.n_cells}", out[engine])
+    t, v = out["torch"], out["vec"]
+    err = abs(t["mean_fid"] - v["mean_fid"])
+    check(err < FLEET_TOL, f"fleet epoch: torch vs vec mean FID differs by "
+          f"{err:.3g}")
+    check(all(t[k] == v[k] for k in FLEET_COUNTS),
+          f"fleet epoch: counts differ: " + ", ".join(
+              f"{k} {t[k]}/{v[k]}" for k in FLEET_COUNTS))
+    check(t["planner_calls"] == 64 and v["planner_calls"] == v["replans"],
+          f"fleet epoch: planner calls torch {t['planner_calls']}, vec "
+          f"{v['planner_calls']}")
+    log(f"[fleet] epoch x{fleet.n_cells}: |dFID| {err:.3g}, counts equal, "
+        f"torch / vec wall {t['seconds'] / v['seconds']:.3f}")
+    full = scale_fleet(**FLEET_FULL)
+    res, out["full"] = _fleet_run(full, "torch", allocator="inv_se",
+                                  mode="epoch", epoch=full.horizon / 64.0)
+    check(res.arrivals >= FLEET_FULL["services"],
+          f"fleet full: {res.arrivals} arrivals")
+    _fleet_line(f"epoch x{full.n_cells} (paper scale)", out["full"])
+    out["fid_err"] = err
+    return out
+
+
+def fleet_event_check():
+    """Event mode on ``benchmarks/fleet.py:_equivalence``'s fleet (3 cells
+    at speeds 1.0, 1.25, 1.5, seed 11) on torch against the object-graph
+    simulator ``simulate_online_multi`` with the placement pinned, for
+    each closed-form allocator; vec's planner calls beside torch's."""
+    from repro_torch.core.bandwidth import equal_allocate, inv_se_allocate
+    from repro_torch.core.fleet import (FleetCell, FleetScenario,
+                                        fleet_to_scenario)
+    from repro_torch.core.multiserver import simulate_online_multi
+    from repro_torch.core.stacking import stacking
+    from repro_torch.core.traffic import PoissonProcess
+    fleet = FleetScenario(cells=[FleetCell(bandwidth_hz=1.2e6 * (c + 1),
+                                           speed=1.0 + 0.25 * c,
+                                           process=PoissonProcess(2.0))
+                                 for c in range(3)], horizon=8.0, seed=11)
+    scn, assignment = fleet_to_scenario(fleet)
+    cell_of = {s.id: assignment[i] for i, s in enumerate(scn.services)}
+    out = {}
+    for name, core in (("equal", lambda s, *a, **k: equal_allocate(s)),
+                       ("inv_se", lambda s, *a, **k: inv_se_allocate(s))):
+        _, t = _fleet_run(fleet, "torch", allocator=name, mode="event")
+        _, v = _fleet_run(fleet, "vec", allocator=name, mode="event")
+        ref = simulate_online_multi(
+            scn, stacking, core, placement=lambda svc, sim: cell_of[svc.id],
+            engine="vec")
+        err = abs(t["mean_fid"] - ref.mean_fid)
+        check(err < FLEET_TOL and t["admitted"] == len(ref.outcomes),
+              f"fleet event {name}: |dFID| {err:.3g} against "
+              f"simulate_online_multi, admitted {t['admitted']} / "
+              f"{len(ref.outcomes)}")
+        log(f"[fleet] event x3 {name}: {t['arrivals']} arrivals, |dFID| "
+            f"{err:.3g} against simulate_online_multi, admitted equal; "
+            f"planner_calls torch {t['planner_calls']} vec "
+            f"{v['planner_calls']}; {t['seconds']:.3f} s torch, "
+            f"{v['seconds']:.3f} s vec")
+        out[name] = dict(torch=t, vec=v, fid_err=err, K=len(scn.services))
+    return out
+
+
+def fleet_event_batched_check():
+    """Event mode on one-speed 10-cell fleets (FLEET_EVENT_ONE_SPEED,
+    horizon 30 s, seed 1, inv_se) on torch against vec: mean FID within
+    1e-9, counts equal, and fewer torch planner calls than replans, so
+    that rounds of several cells ran as one replan_many call."""
+    from repro_torch.core.fleet import FleetCell, FleetScenario
+    from repro_torch.core.traffic import PoissonProcess
+    out = {}
+    for bw, rate in FLEET_EVENT_ONE_SPEED:
+        fleet = FleetScenario(cells=[FleetCell(bandwidth_hz=bw,
+                                               process=PoissonProcess(rate))
+                                     for _ in range(10)],
+                              horizon=30.0, seed=1)
+        _, t = _fleet_run(fleet, "torch", allocator="inv_se", mode="event")
+        _, v = _fleet_run(fleet, "vec", allocator="inv_se", mode="event")
+        tag = f"event x10 {bw / 1e6:g} MHz rate {rate:g}"
+        err = abs(t["mean_fid"] - v["mean_fid"])
+        check(err < FLEET_TOL, f"fleet {tag}: torch vs vec mean FID "
+              f"differs by {err:.3g}")
+        check(all(t[k] == v[k] for k in FLEET_COUNTS),
+              f"fleet {tag}: counts differ: " + ", ".join(
+                  f"{k} {t[k]}/{v[k]}" for k in FLEET_COUNTS))
+        check(t["planner_calls"] < t["replans"]
+              and v["planner_calls"] == v["replans"],
+              f"fleet {tag}: planner calls torch {t['planner_calls']}, vec "
+              f"{v['planner_calls']}, replans {t['replans']}")
+        _fleet_line(tag, t)
+        _fleet_line(tag, v)
+        log(f"[fleet] {tag}: |dFID| {err:.3g}, counts equal, "
+            f"{t['replans'] / t['planner_calls']:.2f} cells a torch call")
+        out[f"{bw:g}/{rate:g}"] = dict(torch=t, vec=v, fid_err=err)
+    return out
+
+
+def multiserver_check():
+    """``MultiServerProvisioner`` on make_scenario(K, n_servers=3,
+    server_speed_range=(0.7, 1.3), seed=0): every static placement's
+    run(), and run_online() under each online router on the same
+    scenario with arrival_rate=2, on torch against vec: assignments
+    equal, mean FID within 1e-9."""
+    from repro_torch.api import MultiServerProvisioner
+    from repro_torch.core import multiserver
+    from repro_torch.core.service import make_scenario
+    from repro_torch.core.torchplan import kernels as pk
+    kw = dict(n_servers=3, server_speed_range=(0.7, 1.3), seed=0)
+    cases = [(p, "run", dict(K=K, **kw), {}) for p, K in PLACEMENT_K.items()]
+    cases += [(r, "run_online", dict(K=12, arrival_rate=2.0, **kw),
+               dict(online_placement=getattr(multiserver, r)))
+              for r in ("earliest_free", "best_projection")]
+    out = {}
+    for name, method, scn_kw, run_kw in cases:
+        scn = make_scenario(**scn_kw)
+        reps, row = {}, {}
+        for engine in ("torch", "vec"):
+            ms = MultiServerProvisioner(
+                scn, placement=name if method == "run" else "least_loaded",
+                allocator="inv_se", engine=engine)
+            r0 = pk.READS["count"]
+            row[f"{engine}_ms"], reps[engine] = _ms(
+                lambda: getattr(ms, method)(**run_kw))
+            row[f"{engine}_reads"] = pk.READS["count"] - r0
+        t, v = reps["torch"], reps["vec"]
+        same = (t.assignment == v.assignment if method == "run_online"
+                else list(t.assignment) == list(v.assignment))
+        err = abs(t.mean_fid - v.mean_fid)
+        check(same and err < FLEET_TOL, f"multi-server {name} {method}: "
+              f"assignments equal {same}, |dFID| {err:.3g}")
+        row.update(K=scn.K, fid_err=err, mean_fid=t.mean_fid)
+        out[f"{method} {name}"] = row
+        log(f"[fleet] multi-server {method} {name} K={scn.K}: assignments "
+            f"equal, |dFID| {err:.3g}; torch {row['torch_ms']:.1f} ms "
+            f"({row['torch_reads']} reads), vec {row['vec_ms']:.1f} ms")
+    return out
+
+
+def fleet_execution_check(wl, g, card):
+    """The facades on the full-width U-Net, planned with the card's
+    calibrated g: OnlineProvisioner(execute=True) replays its committed
+    batches, and a 2-cell speed-1 multi-server run executes each cell
+    through execute_report(mode="open", exec_engine="bucketed").
+    groupnorm_silu's launches are counted exactly (graph replays
+    included) and returned."""
+    import numpy as np
+    import torch
+    from repro_torch.api import (MultiServerProvisioner, OnlineProvisioner,
+                                 execute_report)
+    from repro_torch.core.service import make_scenario
+    from repro_torch.diffusion import unet
+    ex = wl._ex()
+    cfg = ex.cfg
+    calls = unet.gn_silu_calls(cfg)
+    step = g.g(8)
+    scn_kw = dict(tau_min=20.0 * step, tau_max=80.0 * step,
+                  content_bits=512.0)
+    scn = make_scenario(K=8, arrival_rate=1.0 / (10.0 * step), seed=0,
+                        **scn_kw)
+    d0 = ex.dispatches
+    t0 = time.perf_counter()
+    rep, acc = _gn_run(ex, calls, "online replay", lambda: OnlineProvisioner(
+        scn, workload=wl, scheduler="stacking", allocator="inv_se",
+        delay=g, engine="torch", device="cuda", execute=True,
+        seed=0).run())
+    wall = time.perf_counter() - t0
+    batches = rep.result.executed_batches
+    check(ex.dispatches - d0 == len(batches) == acc["eager_forwards"]
+          and [x for x, _ in rep.timings] == [len(ids) for _, ids in batches],
+          f"online replay: {ex.dispatches - d0} dispatches, {acc}, for "
+          f"{len(batches)} simulated batches")
+    ran = sorted(o.id for o in rep.result.outcomes if o.steps > 0)
+    check(sorted(rep.content) == ran and ran
+          and all(bool(np.isfinite(v).all()) for v in rep.content.values()),
+          f"online replay: images of {sorted(rep.content)}, services with "
+          f"steps {ran}, or not finite")
+    measured = sum(s for _, s in rep.timings)
+    predicted = sum(g.g(len(ids)) for _, ids in batches)
+    log(f"[fleet] OnlineProvisioner(execute=True) K={scn.K}, arrivals every "
+        f"~{10 * step * 1e3:.1f} ms: {len(batches)} batches replayed = "
+        f"simulated, mean FID {rep.mean_fid:.4f}, outage "
+        f"{rep.outage_rate:.1%}, reject {rep.reject_rate:.1%}; timed "
+        f"batches {measured:.4f} s against g's {predicted:.4f} s "
+        f"({measured / predicted:.4f}); groupnorm_silu {acc['executed']} = "
+        f"{calls} x {acc['eager_forwards']}; whole run {wall:.3f} s on "
+        f"{card}")
+    online = dict(K=scn.K, batches=len(batches), mean_fid=rep.mean_fid,
+                  outage_rate=rep.outage_rate, reject_rate=rep.reject_rate,
+                  measured_s=measured, predicted_s=predicted, wall_s=wall,
+                  accounting=acc)
+    executed = acc["executed"]
+
+    mscn = make_scenario(K=8, n_servers=2, seed=1, **scn_kw)
+    multi = MultiServerProvisioner(mscn, allocator="inv_se", delay=g,
+                                   engine="torch").run()
+    cells = []
+    for sid, cell in zip(multi.server_ids, multi.reports):
+        check(cell.delay == g, f"cell {sid} plans with {cell.delay}, not g")
+        res, acc = _gn_run(ex, calls, f"cell {sid}", lambda: execute_report(
+            cell, wl, mode="open", exec_engine="bucketed",
+            generator=torch.Generator().manual_seed(sid)))
+        n = cell.plan.num_batches
+        check(len(res.records) == n == acc["graph_forwards"]
+              and acc["eager_forwards"] <= acc["captures"]
+              and res.session_telemetry["dispatches"] == n,
+              f"cell {sid}: {len(res.records)} records, {acc}, for {n} "
+              f"planned batches")
+        check(all(bool(np.isfinite(res.content[o.id]).all())
+                  for o in res.outcomes), f"cell {sid}: image not finite")
+        ratio = res.wall_clock / res.predicted_wall()
+        executed += acc["executed"]
+        log(f"[fleet] cell {sid} of 2 (speed 1, K={cell.scenario.K}): "
+            f"execute_report(open, bucketed) {n} batches, delivered FID "
+            f"{res.delivered_fid:.4f}, outage {res.outage_rate:.1%}, "
+            f"wall_clock / predicted_wall() {ratio:.4f}; groupnorm_silu "
+            f"{acc['executed']} = {calls} x "
+            f"{acc['eager_forwards'] + acc['graph_forwards']}")
+        cells.append(dict(server=sid, K=cell.scenario.K, batches=n,
+                          delivered_fid=res.delivered_fid,
+                          outage_rate=res.outage_rate,
+                          wall_clock=res.wall_clock,
+                          predicted_wall=res.predicted_wall(), ratio=ratio,
+                          accounting=acc))
+    torch.cuda.synchronize()
+    return dict(online=online, cells=cells, launches=executed)
+
+
+def phase_fleet(wl, g, card):
+    """Many edge servers on the card (see the module docstring, phase
+    6d).  Returns the phase's details, ``launches`` its groupnorm_silu
+    launches."""
+    t0 = time.perf_counter()
+    execution = fleet_execution_check(wl, g, card)
+    scale = fleet_scale_check()
+    event = fleet_event_check()
+    event_batched = fleet_event_batched_check()
+    multi = multiserver_check()
+    secs = time.perf_counter() - t0
+    log(f"[done] phase fleet {secs:.1f} s on {card}")
+    return dict(execution=execution, scale=scale, event=event,
+                event_batched=event_batched, multi=multi,
+                launches=execution["launches"], seconds=secs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2613,13 +2959,15 @@ def main() -> int:
     closed["seconds"] = time.perf_counter() - t0
     log(f"[done] phase bucketed {bucketed['seconds']:.1f} s, phase closed "
         f"{closed['seconds']:.1f} s")
+    fleet = phase_fleet(wl, g, card)
     # launches executed on the paths: main, the bucketed graphs (replays
-    # counted) and the closed loop
+    # counted), the closed loop and the facades of phase fleet
     kernel["launches"] = main_path["launches"] + bucketed["launches"] + \
-        closed["launches"]
+        closed["launches"] + fleet["launches"]
     kernel["launches_by_path"] = dict(main=main_path["launches"],
                                       bucketed=bucketed["launches"],
-                                      closed=closed["launches"])
+                                      closed=closed["launches"],
+                                      fleet=fleet["launches"])
     del wl
     from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA
     from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2
@@ -2642,7 +2990,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         kernel=kernel, kernel_rows=rows, main=main_path, trace=trace,
-        parity=parity, bucketed=bucketed, closed=closed,
+        parity=parity, bucketed=bucketed, closed=closed, fleet=fleet,
         llm_kernels=llm_kernels, llm=llm, train=train, plan=plan,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

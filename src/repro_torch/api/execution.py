@@ -105,7 +105,8 @@ def execute_plan(scenario, plan: BatchPlan, alloc, workload=None, *,
     in the result telemetry.  ``engine`` pins the planning engine of
     every replan (``repro_torch.core.arrays``; ``"torch"`` runs on
     ``torchplan.device_scope``'s device)."""
-    from repro_torch.api.provisioner import ALLOCATORS, SCHEDULERS, _pick
+    from repro_torch.api.base import resolve
+    from repro_torch.api.provisioner import ALLOCATORS, SCHEDULERS
     if exec_engine is not None:
         executor_kwargs = dict(executor_kwargs or {})
         executor_kwargs.setdefault("exec_engine", exec_engine)
@@ -113,8 +114,8 @@ def execute_plan(scenario, plan: BatchPlan, alloc, workload=None, *,
                            executor_kwargs=executor_kwargs)
     loop = ExecutionLoop(
         scenario, plan, alloc, session, delay=delay, quality=quality,
-        scheduler=_pick(SCHEDULERS, scheduler, "scheduler"),
-        allocator=_pick(ALLOCATORS, allocator, "allocator"),
+        scheduler=resolve(SCHEDULERS, scheduler, "scheduler"),
+        allocator=resolve(ALLOCATORS, allocator, "allocator"),
         mode=mode, window=window, drift_tol=drift_tol,
         min_batches=min_batches, max_replans=max_replans,
         headroom=headroom, validate=validate, engine=engine,
@@ -130,14 +131,9 @@ def execute_report(report, workload=None, *, mode: str = "closed",
     instance (``None`` works with ``executor="simulated"``); remaining
     keywords are ``execute_plan``'s (``device=`` reaches a workload
     built from its name)."""
-    from repro_torch.api.provisioner import ALLOCATORS, SCHEDULERS, WORKLOADS
-    device = kwargs.pop("device", "cuda")
-    wl = workload
-    if isinstance(wl, str):
-        if wl not in WORKLOADS:
-            raise ValueError(f"unknown workload {wl!r}; expected one of "
-                             f"{sorted(WORKLOADS)}")
-        wl = WORKLOADS[wl](device=device)
+    from repro_torch.api.provisioner import (ALLOCATORS, SCHEDULERS,
+                                             make_workload)
+    wl = make_workload(workload, kwargs.pop("device", "cuda"))
     scheduler = kwargs.pop("scheduler", None)
     if scheduler is None:
         name = getattr(report, "scheduler_name", "")

@@ -15,23 +15,23 @@ path; components are chosen by name from the plain dicts
 ``SCHEDULERS`` (``api/schedulers.py``) and ``ALLOCATORS`` below, or
 passed as callables.  ``engine=`` picks the planner engine
 (``repro_torch.core.arrays``) for the whole run; ``"torch"`` plans on
-the Provisioner's ``device``.
+the Provisioner's ``device``.  The shared facade kwargs (``seed=``,
+``execute=``) come from ``api/base.py``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.api.base import BaseProvisioner, display_name, resolve
 from repro_torch.api.execution import execute_plan, with_kwargs
 from repro_torch.api.schedulers import SCHEDULERS
 from repro_torch.api.workloads import (DecodeWorkload, DiffusionWorkload,
                                        WorkloadOutput)
-from repro_torch.core import arrays
 from repro_torch.core.bandwidth import (coordinate_refine, equal_allocate,
                                         inv_se_allocate, make_plan,
                                         pso_allocate)
@@ -52,8 +52,10 @@ def _inv_se(scn, scheduler=None, delay=None, quality=None, **_):
     return inv_se_allocate(scn)
 
 
-def _pso(scn, scheduler, delay, quality, **kw):
-    return pso_allocate(scn, scheduler, delay, quality, **kw).alloc
+def _pso(scn, scheduler, delay, quality, *, seed: int = 0, **kw):
+    # seed is explicit so a facade's seed= finds it by signature
+    return pso_allocate(scn, scheduler, delay, quality, seed=seed,
+                        **kw).alloc
 
 
 def _coordinate(scn, scheduler, delay, quality, *, init="inv_se", **kw):
@@ -67,24 +69,14 @@ def _coordinate(scn, scheduler, delay, quality, *, init="inv_se", **kw):
 ALLOCATORS = {"equal": _equal, "inv_se": _inv_se, "pso": _pso,
               "coordinate": _coordinate}
 WORKLOADS = {"diffusion": DiffusionWorkload, "llm_decode": DecodeWorkload}
-EXECUTE_MODES = (None, False, True, "open", "closed")
 
 
-def _pick(table: dict, choice, kind: str):
-    if not isinstance(choice, str):
-        return choice
-    if choice not in table:
-        raise ValueError(f"unknown {kind} {choice!r}; expected one of "
-                         f"{sorted(table)}")
-    return table[choice]
-
-
-def _check_execute(execute):
-    if execute not in EXECUTE_MODES:
-        raise ValueError(f"execute must be one of {EXECUTE_MODES}, got "
-                         f"{execute!r}")
-    return execute
-
+def make_workload(workload, device):
+    """A workload instance: a ``WORKLOADS`` name built on ``device``, or
+    the given instance (``None`` for the analytic pipeline)."""
+    if isinstance(workload, str):
+        return resolve(WORKLOADS, workload, "workload")(device=device)
+    return workload
 
 
 @dataclasses.dataclass
@@ -164,7 +156,7 @@ class ProvisionReport:
         return d
 
 
-class Provisioner:
+class Provisioner(BaseProvisioner):
     """Binds a scenario to one (workload, scheduler, allocator) choice.
 
     workload: ``None`` (analytic only), ``"diffusion"`` (a
@@ -179,7 +171,8 @@ class Provisioner:
     pool engine).  ``engine`` pins the planner engine (``"vec"``,
     ``"scalar"``, ``"torch"``; ``None`` = the process default) around
     allocation, planning and every closed-loop replan; the ``"torch"``
-    engine runs on ``device``."""
+    engine runs on ``device``.  ``seed`` reaches a seeded allocator
+    (``pso``) and is the default generator of ``run``."""
 
     def __init__(self, scenario: Scenario, *, workload=None,
                  scheduler="stacking", allocator="pso",
@@ -188,32 +181,24 @@ class Provisioner:
                  allocator_kwargs: Optional[dict] = None,
                  device="cuda", execute=None,
                  execute_kwargs: Optional[dict] = None,
-                 engine: Optional[str] = None):
-        self.scenario = scenario
-        self.execute_default = _check_execute(execute)
-        self.execute_kwargs = dict(execute_kwargs or {})
-        self.scheduler_name = getattr(scheduler, "__name__", str(scheduler))
-        self.allocator_name = getattr(allocator, "__name__", str(allocator))
-        self.scheduler = _pick(SCHEDULERS, scheduler, "scheduler")
-        self.allocator = _pick(ALLOCATORS, allocator, "allocator")
-        wl = workload
-        if isinstance(wl, str):
-            wl = _pick(WORKLOADS, wl, "workload")(device=device)
+                 engine: Optional[str] = None,
+                 seed: Optional[int] = None):
+        super().__init__(scenario, engine=engine, device=device,
+                         seed=seed, execute=execute,
+                         execute_kwargs=execute_kwargs)
+        self.scheduler_name = display_name(scheduler)
+        self.allocator_name = display_name(allocator)
+        self.scheduler = resolve(SCHEDULERS, scheduler, "scheduler")
+        self.allocator = resolve(ALLOCATORS, allocator, "allocator")
+        wl = make_workload(workload, device)
         self.workload = wl
         self.workload_name = getattr(wl, "name", "") if wl else ""
         self.delay = delay if delay is not None else (
             wl.default_delay() if wl else DelayModel())
         self.quality = quality if quality is not None else (
             wl.default_quality() if wl else PowerLawFID())
-        self.allocator_kwargs = dict(allocator_kwargs or {})
-        self.engine = engine
-        self.device = device
-
-    @contextlib.contextmanager
-    def _planning(self):
-        """The planner engine and its device, for one planning stage."""
-        with arrays.engine_scope(self.engine), device_scope(self.device):
-            yield
+        self.allocator_kwargs = self._seeded_kwargs(self.allocator,
+                                                    allocator_kwargs)
 
     # -- pipeline stages ------------------------------------------------
     def allocate(self) -> np.ndarray:
@@ -260,10 +245,11 @@ class Provisioner:
             so the *next* ``run`` plans with them; implies
             ``timed=True`` and needs an executing workload.
         latents: initial noise per service id (default: drawn from
-            ``generator``), in the one-shot and the loop paths alike.
+            ``generator``, itself seeded from ``seed=`` when not given),
+            in the one-shot and the loop paths alike.
         """
-        mode = self.execute_default if execute is None \
-            else _check_execute(execute)
+        mode = self._resolve_execute(execute)
+        generator = self._resolve_generator(generator)
         if mode is None:
             mode = True                    # default: one-shot execution
         if refit:

@@ -6,11 +6,13 @@ B = 40 kHz, content size S identical across services (one generated
 image; default 3 KiB ~= a 32x32 PNG), or per service when
 ``content_bits_range`` is given.
 
-A copy of ``repro.core.service``'s single-server setting; a given seed
-draws the same scenario as the original.  ``arrival`` is the request's
-submission time (0 = the paper's static batch; ``arrival_rate`` draws a
-Poisson process for ``core/online.py``).  Multi-server cells are not
-part of this port yet.
+A copy of ``repro.core.service``; a given seed draws the same scenario
+as the original.  ``arrival`` is the request's submission time (0 = the
+paper's static batch; ``arrival_rate`` draws a Poisson process for
+``core/online.py``).  ``servers`` is an optional list of ``EdgeServer``
+cells (compute speed, bandwidth budget, capacity) for the multi-server
+pipeline (``core/multiserver.py``); ``None`` is the paper's one server
+owning the whole budget.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.core.delay_model import DelayModel
 
 DEFAULT_BANDWIDTH_HZ = 40_000.0
 DEFAULT_CONTENT_BITS = 3 * 1024 * 8.0
@@ -43,14 +47,56 @@ class ServiceRequest:
 
 
 @dataclasses.dataclass(frozen=True)
+class EdgeServer:
+    """One edge cell: its own compute speed, bandwidth budget and
+    (optional) cap on how many services it may host.
+
+    ``speed`` is relative throughput (1.0 = the calibrated baseline
+    hardware): a server twice as fast halves every per-batch delay, so
+    its delay model scales both ``a`` and ``b`` by 1/speed.
+    """
+    id: int
+    bandwidth_hz: float = DEFAULT_BANDWIDTH_HZ   # the cell's own budget
+    speed: float = 1.0                           # relative compute speed
+    capacity: Optional[int] = None               # max services (None = inf)
+
+    def delay_model(self, base: DelayModel) -> DelayModel:
+        """The base delay model as seen on this server's hardware."""
+        if self.speed == 1.0:
+            return base
+        return DelayModel(a=base.a / self.speed, b=base.b / self.speed)
+
+    def has_room(self, n_assigned: int) -> bool:
+        return self.capacity is None or n_assigned < self.capacity
+
+
+@dataclasses.dataclass(frozen=True)
 class Scenario:
     services: List[ServiceRequest]
     total_bandwidth_hz: float = DEFAULT_BANDWIDTH_HZ
     content_bits: float = DEFAULT_CONTENT_BITS
+    servers: Optional[List[EdgeServer]] = None   # None = one implicit server
 
     @property
     def K(self) -> int:
         return len(self.services)
+
+    @property
+    def is_static(self) -> bool:
+        """True when every request is present at t=0 (the paper's setting)."""
+        return all(s.arrival == 0.0 for s in self.services)
+
+    @property
+    def n_servers(self) -> int:
+        return len(self.servers) if self.servers else 1
+
+    @property
+    def server_list(self) -> List[EdgeServer]:
+        """The effective cells: ``servers``, or the paper's single
+        implicit server owning the whole bandwidth budget."""
+        if self.servers:
+            return list(self.servers)
+        return [EdgeServer(id=0, bandwidth_hz=self.total_bandwidth_hz)]
 
 
 def make_scenario(K: int = 20, tau_min: float = 7.0, tau_max: float = 20.0,
@@ -59,6 +105,9 @@ def make_scenario(K: int = 20, tau_min: float = 7.0, tau_max: float = 20.0,
                   content_bits: float = DEFAULT_CONTENT_BITS,
                   arrival_rate: Optional[float] = None,
                   content_bits_range: Optional[Tuple[float, float]] = None,
+                  n_servers: int = 1,
+                  server_speed_range: Optional[Tuple[float, float]] = None,
+                  server_capacity: Optional[int] = None,
                   seed: int = 0) -> Scenario:
     """Sample a K-service scenario (Sec. IV constants by default).
 
@@ -66,9 +115,17 @@ def make_scenario(K: int = 20, tau_min: float = 7.0, tau_max: float = 20.0,
         arrives at the k-th arrival epoch.  ``None`` keeps every
         arrival at t=0.
     content_bits_range: (lo, hi) uniform per-service content sizes.
+    n_servers: number of edge cells, the total bandwidth split equally
+        across them.  ``1`` keeps ``servers=None`` (the paper's single
+        server) unless a speed range or capacity is given.
+    server_speed_range: (lo, hi) uniform per-server relative speeds;
+        ``None`` makes every server baseline speed (1.0).
+    server_capacity: per-server cap on hosted services (``None`` = no
+        cap).
 
-    Both are drawn after the base loop, in this order, so a seed's
-    deadlines and spectral efficiencies do not change with them.
+    The optional draws come after the base loop, in this order, so a
+    seed's deadlines and spectral efficiencies do not change with them.
+    Speeds and capacities are read by the multi-server pipeline only.
     """
     rng = np.random.default_rng(seed)
     services = [
@@ -90,6 +147,21 @@ def make_scenario(K: int = 20, tau_min: float = 7.0, tau_max: float = 20.0,
         bits = rng.uniform(lo, hi, size=K)
         services = [dataclasses.replace(s, content_bits=float(b))
                     for s, b in zip(services, bits)]
+    if n_servers < 1:
+        raise ValueError(f"n_servers must be >= 1, got {n_servers}")
+    servers = None
+    if n_servers > 1 or server_speed_range is not None \
+            or server_capacity is not None:
+        speeds = np.ones(n_servers)
+        if server_speed_range is not None:
+            lo, hi = server_speed_range
+            speeds = rng.uniform(lo, hi, size=n_servers)
+        servers = [EdgeServer(id=m,
+                              bandwidth_hz=total_bandwidth_hz / n_servers,
+                              speed=float(speeds[m]),
+                              capacity=server_capacity)
+                   for m in range(n_servers)]
     return Scenario(services=services,
                     total_bandwidth_hz=total_bandwidth_hz,
-                    content_bits=content_bits)
+                    content_bits=content_bits,
+                    servers=servers)

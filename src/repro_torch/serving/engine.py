@@ -95,14 +95,15 @@ class ServingEngine:
                  quality: Optional[QualityModel] = None,
                  extras=None, scheduler="stacking", device="cuda"):
         # lazy import: api.provisioner -> api.workloads -> serving
-        from repro_torch.api.provisioner import SCHEDULERS, _pick
+        from repro_torch.api.base import resolve
+        from repro_torch.api.provisioner import SCHEDULERS
         self.cfg, self.run = cfg, run
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.max_len = max_len
         self.delay = delay or DelayModel(a=0.002, b=0.02)
         self.quality = quality or TokenQuality()
-        self.scheduler = _pick(SCHEDULERS, scheduler, "scheduler")
+        self.scheduler = resolve(SCHEDULERS, scheduler, "scheduler")
         self.extras = extras
         self.requests: Dict[int, Request] = {}
         self.last_timings: List[tuple] = []

@@ -1002,3 +1002,57 @@ def test_planner_engine_card_matches_cpu(cuda):
     card.validate(gen_deadlines=tp)
     assert abs(Q.mean_fid([card.steps_completed[k] for k in ids])
                - Q.mean_fid([cpu.steps_completed[k] for k in ids])) < 1e-9
+
+
+# -- many edge servers: the fleet and the online facade ----------------------
+
+def test_fleet_epoch_on_card_matches_vec(cuda):
+    """``simulate_fleet(engine="torch")`` with every epoch's replans in
+    one ``torchplan.replan_many`` call on the card: within 1e-9 mean FID
+    of the vec engine, counts equal, one planner call an epoch."""
+    from repro_torch.core import fleet, traffic
+    from repro_torch.core.torchplan import kernels as pk
+    cells = [fleet.FleetCell(bandwidth_hz=2e6,
+                             process=traffic.PoissonProcess(5.0))
+             for _ in range(24)]
+    scn = fleet.FleetScenario(cells=cells, horizon=30.0, seed=1)
+    vec = fleet.simulate_fleet(scn, engine="vec", allocator="inv_se")
+    r0 = pk.READS["count"]
+    got = fleet.simulate_fleet(scn, engine="torch", allocator="inv_se")
+    assert pk.READS["count"] > r0               # it ran on the engine
+    assert abs(got.mean_fid - vec.mean_fid) < 1e-9
+    for k in ("arrivals", "admitted", "rejected", "completed", "replans",
+              "peak_live_rows"):
+        assert getattr(got, k) == getattr(vec, k), k
+    assert got.planner_calls == 64 < vec.planner_calls
+
+
+def test_online_execute_on_card_replays_the_simulated_batches(cuda):
+    """``OnlineProvisioner(execute=True)`` on SMOKE on the card: the
+    replayed batches are the simulated ones, images finite and within
+    1e-3 of the same replay on the CPU (the parity phase's tolerance),
+    ``unet.gn_silu_calls(SMOKE)`` groupnorm_silu launches a forward."""
+    from repro_torch.api import DiffusionWorkload, OnlineProvisioner
+    from repro_torch.core.service import make_scenario
+    params = _smoke_executor("cpu").params
+    scn = make_scenario(K=3, tau_min=1.5, tau_max=3.0, arrival_rate=2.0,
+                        seed=2)
+    lat = _latents({k: 1 for k in range(3)})
+    reps = {}
+    for dev in ("cuda", "cpu"):
+        wl = DiffusionWorkload(cfg=SMOKE, params=params, device=dev)
+        ops.launches = 0
+        reps[dev] = OnlineProvisioner(
+            scn, workload=wl, scheduler="stacking", allocator="inv_se",
+            engine="torch", device=dev, execute=True).run(latents=lat)
+        if dev == "cuda":
+            launches = ops.launches
+    card, cpu = reps["cuda"], reps["cpu"]
+    batches = card.result.executed_batches
+    assert batches == cpu.result.executed_batches and len(batches) > 1
+    assert [x for x, _ in card.timings] == [len(ids) for _, ids in batches]
+    assert launches == unet.gn_silu_calls(SMOKE) * len(batches)
+    for k, img in cpu.content.items():
+        assert np.isfinite(card.content[k]).all()
+        np.testing.assert_allclose(card.content[k], img, rtol=0,
+                                   atol=1e-3)

@@ -116,7 +116,7 @@ for name in names:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not bad, bad
-assert len(names) >= 68, names
+assert len(names) >= 76, names
 assert {"repro_torch.models.ssm", "repro_torch.models.zamba2",
         "repro_torch.kernels.ssd_scan.ops",
         "repro_torch.configs.zamba2_2_7b",
@@ -132,7 +132,12 @@ assert {"repro_torch.models.ssm", "repro_torch.models.zamba2",
         "repro_torch.core.torchplan", "repro_torch.core.torchplan.kernels",
         "repro_torch.core.torchplan.backend",
         "repro_torch.core.torchplan.batched",
-        "repro_torch.core.torchplan.optimal"} <= set(names), names
+        "repro_torch.core.torchplan.optimal",
+        "repro_torch.core.traffic", "repro_torch.core.multiserver",
+        "repro_torch.core.fleet", "repro_torch.api.base",
+        "repro_torch.api.online", "repro_torch.api.placements",
+        "repro_torch.api.multiserver",
+        "repro_torch.api.fleet"} <= set(names), names
 from repro_torch.core import arrays
 assert arrays.engine_impl("torch").name == "torch"
 print(len(names))
@@ -152,7 +157,7 @@ def test_port_sources_name_no_jax_or_repro_import():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     bad = [f"{f.relative_to(root)}: {m.group(0).strip()}"
            for f in files for m in pattern.finditer(f.read_text())]
-    assert len(files) >= 70 and not bad, bad
+    assert len(files) >= 78 and not bad, bad
     names = {f.relative_to(root).as_posix() for f in files}
     assert {f"src/repro_torch/{m}.py" for m in (
         "training/__init__", "training/optimizer", "training/data",
@@ -160,4 +165,7 @@ def test_port_sources_name_no_jax_or_repro_import():
         "launch/train", "core/arrays", "core/baselines", "core/offset",
         "core/optimal", "api/schedulers", "core/torchplan/__init__",
         "core/torchplan/kernels", "core/torchplan/backend",
-        "core/torchplan/batched", "core/torchplan/optimal")} <= names, names
+        "core/torchplan/batched", "core/torchplan/optimal",
+        "core/traffic", "core/multiserver", "core/fleet", "api/base",
+        "api/online", "api/placements", "api/multiserver",
+        "api/fleet")} <= names, names
