@@ -123,6 +123,30 @@ groups, one weight-shared attention block per group, 2.42B params):
                  card with kernels, the card with plain versions, the
                  CPU, and the CPU with the embedding moved by one ulp.
 
+Then the MoE family, f32 weights drawn on the card from a seed, bf16
+KV cache, TF32 off:
+
+ 10b. moe   -- (a) deepseek-moe-16b at full width and all 28 layers
+                 (16.9B params, 62.9 GiB) through phases 7-9
+                 (``llm_path``): the Provisioner with K=8, launches exact
+                 (57 rmsnorm a forward, 28 flash a prefill, 28 decode a
+                 step), init seconds, peak memory, one decode step at
+                 batch 8 under the profiler; (c) qwen3-moe-30b-a3b at full
+                 width and 8 of its 48 layers (the full depth is 122 GB in
+                 f32), K=2, 4L+1 = 33 rmsnorm a forward (per-head q/k norm
+                 over rows of 128), G=8 at D=128; (b) phase 8 on every
+                 shape (a) and (c) gave the kernels; (d) phase 10 on
+                 deepseek at 2 layers, full width, with the (b, s, k)
+                 expert choices that differ between card and CPU and the
+                 smallest top-K margin reported (ungated; the logits are
+                 gated where no choice flipped); (e) ``python -m
+                 repro_torch.launch.serve --arch deepseek-moe-16b
+                 --requests 6`` in a child process on the released card:
+                 exit 0, every request's tokens, both quality penalties.
+                 The card is released (and its memory logged) before
+                 deepseek is drawn.  The phase's launches join the
+                 kernels line under ``launches_by_path["moe"]``.
+
 Then training, on full-width TinyLlama-1.1B (f32 weights, TF32 off):
 
  11. train   -- (a) a 2-layer full-width model on std-0.02 weights, one
@@ -1063,18 +1087,21 @@ def _plain_llm():
 
 def expected_launches(cfg, prefills: int, decodes: int):
     """Kernel launches of ``prefills`` prefills and ``decodes`` decode
-    steps of ``cfg``: the dense transformer has 2 RMSNorms per layer and
-    the final one per forward, an attention layer per layer; zamba2 has
-    2 RMSNorms per Mamba2 layer, 2 per shared-block application and the
-    final one, one ssd_scan per Mamba2 layer at prefill and the shared
-    block's attention once per group."""
+    steps of ``cfg``: the transformer (dense and MoE: routing and the
+    experts launch none of these kernels) has 2 RMSNorms per layer, 2
+    more with per-head q/k norm (qwen3), and the final one per forward,
+    an attention layer per layer; zamba2 has 2 RMSNorms per Mamba2
+    layer, 2 per shared-block application and the final one, one
+    ssd_scan per Mamba2 layer at prefill and the shared block's
+    attention once per group."""
     L, n = cfg.num_layers, prefills + decodes
     if cfg.family == "hybrid":
         G = L // cfg.shared_attn_every
         return {"rmsnorm": (2 * L + 2 * G + 1) * n,
                 "flash_attention": G * prefills,
                 "decode_attention": G * decodes, "ssd_scan": L * prefills}
-    return {"rmsnorm": (2 * L + 1) * n, "flash_attention": L * prefills,
+    norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
+    return {"rmsnorm": norms * n, "flash_attention": L * prefills,
             "decode_attention": L * decodes, "ssd_scan": 0}
 
 
@@ -1385,7 +1412,7 @@ def _fmt_us(ms):
     return "      n/a" if ms is None else f"{ms * 1e3:9.2f}"
 
 
-def phase_llm_kernels(cfg, shapes, seen):
+def phase_llm_kernels(cfg, shapes, seen, card):
     """Each kernel of ``cfg``'s path against its plain version at every
     call shape the main path gave it (``seen``: calibration at batch
     1..16 and prompt min(32, max_len - 2), provisioning at prompt
@@ -1422,9 +1449,9 @@ def phase_llm_kernels(cfg, shapes, seen):
     rows = [dict(_time_llm_kernel(name, sig, calls, randn, rng),
                  model=cfg.name)
             for (name, sig), calls in shapes.items()]
-    log(f"{tag} B=8, device time per call (CUDA graph, L2-warm); library: "
-        "F.rms_norm, F.scaled_dot_product_attention (decode: bf16 q, "
-        "boolean cur_len mask), none for ssd_scan")
+    log(f"{tag} B=8, device time per call (CUDA graph, L2-warm) on {card}; "
+        "library: F.rms_norm, F.scaled_dot_product_attention (decode: bf16 "
+        "q, boolean cur_len mask), none for ssd_scan")
     for r in rows:
         log(f"{tag} {r['kernel']:>16} {str(tuple(r['shape'])):>18} "
             f"x{r['calls']:<2} kernel {_fmt_us(r['ms'])} us  plain "
@@ -1496,9 +1523,9 @@ def merge_kernel_summaries(per_model):
     return out
 
 
-def phase_llm_main(cfg, params, card):
+def phase_llm_main(cfg, params, card, K: int = 8):
     """Full-width ``cfg`` through the port's Provisioner: calibrate
-    g(X), a K=8 scenario, inv_se -> stacking -> validate -> simulate ->
+    g(X), a K-request scenario, inv_se -> stacking -> validate -> simulate ->
     timed execute.  Kernel counts are zeroed before and read after, and
     every wrapper call is recorded by its shapes and types (a Counter
     update per call, against ~40 us of host time per wrapper call), so
@@ -1539,7 +1566,6 @@ def phase_llm_main(cfg, params, card):
     log(f"{tag} fitted g(X) = {raw.a * 1e3:.4f} ms * X + "
         f"{raw.b * 1e3:.4f} ms on {card}; planning with a = "
         f"{g.a * 1e3:.4f} ms, b = {g.b * 1e3:.4f} ms")
-    K = 8
     multiples = np.linspace(10.0, 40.0, K)
     scn = Scenario(services=[
         ServiceRequest(id=k, deadline=float(multiples[k] * g.g(K) + 0.05),
@@ -1627,7 +1653,7 @@ def phase_llm_main(cfg, params, card):
                           for k in launches}), wl, seen
 
 
-def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
+def phase_llm_trace(wl, card, batch: int = 8, steps: int = 5):
     """Where one decode step's time goes at ``batch`` (prompt
     LLM_PROMPT): torch.profiler for device time by kernel, the same steps
     unprofiled for wall time; host time of one call of each wrapper."""
@@ -1667,7 +1693,7 @@ def phase_llm_trace(wl, batch: int = 8, steps: int = 5):
     ours = {"rmsnorm": share("rmsnorm_kernel"),
             "decode_attention": share("decode_split_kernel")
             + share("decode_combine_kernel")}
-    log(f"{tag} one decode step at batch {batch}, cache "
+    log(f"{tag} on {card}, one decode step at batch {batch}, cache "
         f"{LLM_MAX_LEN}, position {LLM_PROMPT}: wall {wall_us:.0f} us "
         f"(unprofiled), device busy {device_us:.0f} us = {busy:.1%} of "
         f"wall, idle {1 - busy:.1%}; {launches:.0f} kernels per step; "
@@ -1786,12 +1812,18 @@ def logit_witness(cfg, params, cpu_params, label):
     return dict(label=label, scale=scale, gaps=gaps, argmax=argmax)
 
 
-def phase_llm_parity(cfg):
+def phase_llm_parity(cfg, layers=None):
     """K=2, prompt 16, 4 tokens each, through DecodeWorkload on the card
     (kernels) and on the CPU (plain versions), same params
     (``parity_params``): the greedy tokens and the first decode step's
-    logits; then ``logit_witness`` on these params."""
+    logits; then ``logit_witness`` on these params.  ``layers``: cut the
+    depth (full width) so that the CPU holds the model.  MoE: the routing
+    flips of the first decode step's forwards are reported, and its
+    logits are gated only where no expert choice flipped (one flip moves
+    a token's output by far more than the tolerance)."""
     import torch
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     from repro_torch.api import DecodeWorkload
     from repro_torch.core.delay_model import DelayModel
     from repro_torch.core.plan import BatchPlan
@@ -1820,9 +1852,22 @@ def phase_llm_parity(cfg):
     err = float((first["cuda"] - first["cpu"]).abs().max())
     scale = float(first["cpu"].abs().max())
     tol = LLM_PARITY_TOL * scale
-    check(err <= tol, f"first decode step logits, card vs CPU: max abs "
-          f"err {err:.3g} over {tol:.3g} = {LLM_PARITY_TOL} x the largest "
-          f"|logit| {scale:.3g}")
+    routing = None
+    if cfg.is_moe:
+        flips, total, margin = routing_flips(cfg, params, cpu_params,
+                                             prompts[0])
+        routing = dict(flips=flips, choices=total, min_top_k_margin=margin)
+        log(f"{tag} routing of request 0's prefill and first decode step "
+            f"over {cfg.num_layers} layers: {flips} of {total} (b, s, k) "
+            f"expert choices differ, card vs CPU; smallest margin between "
+            f"the K-th and (K+1)-th probability on the CPU {margin:.3g}")
+    if routing is None or routing["flips"] == 0:
+        check(err <= tol, f"first decode step logits, card vs CPU: max "
+              f"abs err {err:.3g} over {tol:.3g} = {LLM_PARITY_TOL} x the "
+              f"largest |logit| {scale:.3g}")
+    else:
+        log(f"{tag} first decode step logits not gated: a routing choice "
+            f"flipped (max abs err {err:.3g}, tolerance {tol:.3g})")
     margins = []
     for k in (0, 1):
         a, b = out["cuda"][k], out["cpu"][k]
@@ -1850,7 +1895,7 @@ def phase_llm_parity(cfg):
     return dict(tokens_card=out["cuda"], tokens_cpu=out["cpu"],
                 logits_max_abs_err=err, logits_scale=scale,
                 tol=tol, margins=margins, weight_std=LLM_PARITY_STD,
-                witness=witness)
+                witness=witness, layers=cfg.num_layers, routing=routing)
 
 
 def _tree_to(tree, device):
@@ -1859,18 +1904,25 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_llm(card, cfg):
-    """The llm_decode path on full-width ``cfg``: its kernels' {name:
-    summary with launches} and the phase's details."""
+def llm_path(card, cfg, K: int = 8, trace: bool = True):
+    """The llm_decode path on full-width ``cfg`` with f32 weights drawn
+    on the card: the calls of one request, phase llm-main with K
+    requests, llm-kernels and (``trace``) llm-trace.  Returns its
+    kernels' {name: summary with launches}, the details (with the init
+    seconds and the peak device memory from the draw on) and the
+    params."""
     import torch
     from repro_torch.models import api
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init_model(cfg,
                             torch.Generator(device="cuda").manual_seed(0),
                             "cuda")
     torch.cuda.synchronize()
-    log(f"[llm {cfg.name}] params drawn on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
+    init_s = time.perf_counter() - t0
+    log(f"[llm {cfg.name}] {cfg.num_layers} layers, params drawn on the "
+        f"card in {init_s:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     shapes = llm_shapes(cfg, params)
     per = collections.Counter()
     for (name, _), n in shapes.items():
@@ -1879,21 +1931,163 @@ def phase_llm(card, cfg):
     check(dict(per) == want,
           f"one prefill + one decode step made {dict(per)} kernel calls, "
           f"expected {want}")
-    main_path, wl, seen = phase_llm_main(cfg, params, card)
-    summaries, rows = phase_llm_kernels(cfg, shapes, seen)
+    main_path, wl, seen = phase_llm_main(cfg, params, card, K=K)
+    summaries, rows = phase_llm_kernels(cfg, shapes, seen, card)
     for name, s in summaries.items():
         s["launches"] = main_path["launches"][name]
-    trace = phase_llm_trace(wl)
+    details = dict(kernel_rows=rows, main=main_path, layers=cfg.num_layers,
+                   init_s=init_s)
+    if trace:
+        details["trace"] = phase_llm_trace(wl, card)
     del wl
+    details["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[llm {cfg.name}] peak device memory {details['peak_gib']:.2f} "
+        f"GiB (max_memory_allocated from the draw on) on {card}")
+    return summaries, details, params
+
+
+def phase_llm(card, cfg):
+    """The llm_decode path on full-width ``cfg`` (``llm_path``), then
+    the witness on the reference's init and phase llm-parity: its
+    kernels' {name: summary with launches} and the phase's details."""
+    import torch
+    summaries, details, params = llm_path(card, cfg)
     chaos = logit_witness(cfg, params, _tree_to(params, "cpu"),
                           "reference init")
     del params
     torch.cuda.empty_cache()
-    parity = phase_llm_parity(cfg)
-    parity["reference_init_witness"] = chaos
+    details["parity"] = phase_llm_parity(cfg)
+    details["parity"]["reference_init_witness"] = chaos
     torch.cuda.empty_cache()
-    return summaries, dict(kernel_rows=rows, main=main_path, trace=trace,
-                           parity=parity)
+    return summaries, details
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: deepseek-moe-16b and qwen3-moe-30b-a3b at full width
+# ---------------------------------------------------------------------------
+
+MOE_QWEN3_LAYERS = 8               # of 48: the full depth is 122 GB in f32
+MOE_PARITY_LAYERS = 2
+MOE_LAUNCHER = ("--arch", "deepseek-moe-16b", "--requests", "6")
+MOE_LAUNCHER_TIMEOUT = 600
+
+
+def _moe_probs(cfg, params, prompt, device):
+    """The router probabilities (float32, on the CPU) of every MoE call
+    in a prefill of ``prompt`` and the first decode step, in call
+    order."""
+    import torch
+    from repro_torch.models import transformer
+    real, rec = transformer.apply_moe, []
+
+    def spy(cfg_, p, x, **kw):
+        rec.append(torch.softmax(x.float() @ p["router"].float(),
+                                 dim=-1).cpu())
+        return real(cfg_, p, x, **kw)
+    transformer.apply_moe = spy
+    try:
+        _greedy_logits(cfg, params, prompt, [0], device)
+    finally:
+        transformer.apply_moe = real
+    return rec
+
+
+def routing_flips(cfg, params, cpu_params, prompt):
+    """Expert choices of the card against the CPU over every MoE call of
+    a prefill of ``prompt`` and the first decode step, each device
+    ranking its own probabilities (top-K, ties to the lower index):
+    (flipped (b, s, k) choices, all choices, the smallest margin between
+    the K-th and the (K+1)-th probability on the CPU)."""
+    import torch
+    K = cfg.experts_per_token
+    card = _moe_probs(cfg, params, prompt, "cuda")
+    cpu = _moe_probs(cfg, cpu_params, prompt, "cpu")
+    check(len(card) == len(cpu) == 2 * cfg.num_layers,
+          f"{len(card)} / {len(cpu)} MoE calls")
+    flips = total = 0
+    margin = math.inf
+    for a, b in zip(card, cpu):
+        ia = torch.sort(a, dim=-1, descending=True, stable=True)[1][..., :K]
+        vb, ib = torch.sort(b, dim=-1, descending=True, stable=True)
+        flips += int((ia != ib[..., :K]).sum())
+        total += ia.numel()
+        margin = min(margin, float((vb[..., K - 1] - vb[..., K]).min()))
+    return flips, total, margin
+
+
+def phase_moe(card):
+    """Phase moe: (a) full-width, full-depth deepseek-moe-16b through
+    the Provisioner (``llm_path``, K=8, traced); (c) qwen3-moe-30b-a3b at
+    full width and MOE_QWEN3_LAYERS layers (K=2), q/k norm over rows of
+    128 and G=8 at D=128; (b) every kernel at every shape (a) and (c)
+    gave it, inside ``llm_path``; (d) phase llm-parity on deepseek at
+    MOE_PARITY_LAYERS layers with routing flips reported; (e) the serve
+    launcher on full-width deepseek in a child process.  Returns the
+    kernels' {model: {name: summary with launches}} and the details."""
+    import torch
+    from repro_torch.configs.deepseek_moe_16b import CONFIG as DEEPSEEK
+    from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as QWEN3
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[moe] before deepseek-moe-16b: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved on {card}")
+    per_model, details = {}, {}
+    qwen3 = dataclasses.replace(QWEN3, num_layers=MOE_QWEN3_LAYERS)
+    for cfg, K, trace in ((DEEPSEEK, 8, True), (qwen3, 2, False)):
+        label = f"{cfg.name} ({cfg.num_layers} layers)"
+        per_model[label], details[label], params = llm_path(
+            card, cfg, K=K, trace=trace)
+        del params
+        torch.cuda.empty_cache()
+    details["parity"] = phase_llm_parity(DEEPSEEK, layers=MOE_PARITY_LAYERS)
+    torch.cuda.empty_cache()
+    details["launcher"] = moe_launcher(card)
+    details["seconds"] = time.perf_counter() - t_phase
+    log(f"[done] phase moe {details['seconds']:.1f} s on {card}")
+    return per_model, details
+
+
+def moe_launcher(card):
+    """``python -m repro_torch.launch.serve`` with MOE_LAUNCHER in a
+    child process on the card this process has released: exit 0, a
+    line per request with its tokens, both quality penalties."""
+    import re
+    import torch
+    torch.cuda.empty_cache()
+    log(f"[moe-launcher] this process holds "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *MOE_LAUNCHER]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=MOE_LAUNCHER_TIMEOUT)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.strip():
+            log(f"[moe-launcher] | {line}")
+    check(proc.returncode == 0, f"{' '.join(cmd[1:])} exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    rows = [m.groups() for m in re.finditer(
+        r"^ *(\d+) +([\d.]+) +(\d+)  \[([\d, ]*)\]$", proc.stdout, re.M)]
+    pen = re.search(r"mean quality penalty: stacking=([\d.]+) "
+                    r"greedy=([\d.]+)", proc.stdout)
+    n = int(MOE_LAUNCHER[MOE_LAUNCHER.index("--requests") + 1])
+    check(len(rows) == n and pen is not None,
+          f"the launcher printed {len(rows)} request rows of {n} and "
+          f"{'no' if pen is None else 'its'} quality penalties")
+    for rid, _, count, toks in rows:
+        check(len([t for t in toks.split(",") if t.strip()]) == int(count),
+              f"request {rid}: {count} tokens, printed {toks!r}")
+    log(f"[moe-launcher] {' '.join(cmd[1:])}: exit 0 in {secs:.1f} s on "
+        f"{card}; tokens per request {[int(r[2]) for r in rows]}; mean "
+        f"quality penalty stacking {pen.group(1)}, greedy {pen.group(2)}")
+    return dict(cmd=cmd[1:], seconds=secs,
+                tokens=[int(r[2]) for r in rows],
+                penalty_stacking=float(pen.group(1)),
+                penalty_greedy=float(pen.group(2)))
 
 
 # ---------------------------------------------------------------------------
@@ -2974,14 +3168,19 @@ def main() -> int:
     per_model, llm = {}, {}
     for cfg in (TINYLLAMA, ZAMBA2):
         per_model[cfg.name], llm[cfg.name] = phase_llm(card, cfg)
-    llm_kernels = merge_kernel_summaries(per_model)
+    moe_models, moe = phase_moe(card)
+    llm_kernels = merge_kernel_summaries({**per_model, **moe_models})
     train_launches, train = phase_train(card)
     plan = phase_plan(card)
     for entry in llm_kernels:
         name = entry["name"]
+        entry["launches_by_path"] = {
+            path: sum(k[name]["launches"] for k in models.values()
+                      if name in k)
+            for path, models in (("llm_decode", per_model),
+                                 ("moe", moe_models))}
         if name in train_launches:
-            entry["launches_by_path"] = dict(llm_decode=entry["launches"],
-                                             train=train_launches[name])
+            entry["launches_by_path"]["train"] = train_launches[name]
             entry["launches"] += train_launches[name]
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        train["kernels"]["max_abs_err"][name])
@@ -2991,7 +3190,7 @@ def main() -> int:
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         kernel=kernel, kernel_rows=rows, main=main_path, trace=trace,
         parity=parity, bucketed=bucketed, closed=closed, fleet=fleet,
-        llm_kernels=llm_kernels, llm=llm, train=train, plan=plan,
+        llm_kernels=llm_kernels, llm=llm, moe=moe, train=train, plan=plan,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -1,8 +1,8 @@
 """Model API: model lookup, step factories and initialisation.
 
 The port of ``repro.models.api`` for the families the port runs: the
-dense transformer and the hybrid Mamba2 + shared-attention model
-(zamba2).  Each model module exposes ``schema``, ``forward``,
+transformer (dense and MoE) and the hybrid Mamba2 + shared-attention
+model (zamba2).  Each model module exposes ``schema``, ``forward``,
 ``prefill``, ``decode_step`` and ``init_cache``.  ``make_train_step``
 builds the training loss (the reference's name for it: it returns the
 loss function, not a step).
@@ -18,12 +18,12 @@ from repro_torch.models.params import init_params
 
 
 def get_model(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return transformer
     if cfg.family == "hybrid":
         return zamba2
     raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
-                              f"ported (the port runs 'dense' and "
+                              f"ported (the port runs 'dense', 'moe' and "
                               f"'hybrid')")
 
 

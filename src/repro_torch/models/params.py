@@ -63,8 +63,10 @@ def init_params(schema, generator: torch.Generator, device,
                 dtype: torch.dtype = torch.float32):
     """Random params: normal(0, 1/sqrt(fan_in)) unless the leaf pins a
     scale, normal(0, scale or 0.02) for ``embed`` leaves, ones/zeros
-    where the leaf says so.  Drawn on the generator's device, then moved
-    to ``device``."""
+    where the leaf says so.  Drawn in float32 on the generator's device
+    and scaled in place, then moved to ``device`` and cast where either
+    differs, so drawing a leaf holds one float32 copy of it (init's peak
+    is the sum of the leaves when the generator is on ``device``)."""
     def make(p: P, _path):
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dtype, device=device)
@@ -77,7 +79,7 @@ def init_params(schema, generator: torch.Generator, device,
         else:
             scale = 1.0 / np.sqrt(max(p.fan_in, 1))
         w = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device) * scale
+                        device=generator.device).mul_(scale)
         return w.to(device=device, dtype=dtype)
 
     return map_schema(make, schema)

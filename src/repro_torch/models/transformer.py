@@ -1,14 +1,19 @@
-"""Decoder-only transformer LM, dense family, in PyTorch.
+"""Decoder-only transformer LM, dense and MoE families, in PyTorch.
 
 The port of ``repro.models.transformer`` for the dense family
-(``tinyllama-1.1b``): ``schema``, ``forward``, ``init_cache``,
-``prefill`` and ``decode_step``.  Layer weights stay *stacked* (each
-leaf ``(L, ...)``, as the reference keeps them), and a Python loop over
-layer views takes the place of the reference's ``lax.scan``.
+(``tinyllama-1.1b``) and the MoE family (``deepseek-moe-16b``,
+``qwen3-moe-30b-a3b``: each layer's MLP is ``models/moe.py``'s routed
+experts): ``schema``, ``forward``, ``init_cache``, ``prefill`` and
+``decode_step``.  Layer weights stay *stacked* (each leaf ``(L, ...)``,
+as the reference keeps them), and a Python loop over layer views takes
+the place of the reference's ``lax.scan``.
 
 Per forward: 2 RMSNorms per layer plus the final one (45 at 22 layers),
-one flash-attention call per layer at prefill and one flash-decode call
-per layer at each decode step.
+2 more per layer with per-head q/k norm (qwen3: 4L+1), one
+flash-attention call per layer at prefill and one flash-decode call per
+layer at each decode step.  ``forward`` returns the MoE load-balance
+loss summed over layers, as the reference's scan carry does; ``prefill``
+and ``decode_step`` drop it.
 
 The default decode path is the reference's non-in-place one: each step
 returns a new cache and leaves the caller's as it was.  ``forward`` is
@@ -17,7 +22,7 @@ recomputes each layer in the backward (``torch.utils.checkpoint``, as
 the reference's ``jax.checkpoint`` of its scan body), and ``"full"`` and
 ``"group"`` do what they do in the reference's dense transformer without
 cross-attention: nothing.  ``RunConfig`` knobs this port does not
-implement raise ``NotImplementedError`` (``check_run``); MoE and
+implement raise ``NotImplementedError`` (``check_run``);
 cross-attention configs raise too.
 """
 
@@ -34,6 +39,7 @@ from repro_torch.models.layers import (
     apply_mlp, apply_norm, attn_schema, chunked_attention, decode_attention,
     embed, embed_schema, mlp_schema, norm_schema, out_project, qkv_project,
     rope_tables, unembed)
+from repro_torch.models.moe import apply_moe, moe_schema
 from repro_torch.models.params import P, map_schema
 
 # RunConfig fields the port does not implement, with the value that
@@ -45,8 +51,6 @@ _UNPORTED_KNOBS = {"decode_inplace_cache": False, "decode_slice_reads": False,
 
 def check_run(cfg: ModelConfig, run: RunConfig) -> None:
     """Raise for what this port of the transformer does not implement."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported")
     if cfg.cross_attn_every:
         raise NotImplementedError(
             f"{cfg.name}: cross-attention layers are not ported")
@@ -70,8 +74,13 @@ def stack_schema(sub, n: int):
 
 
 def _layer_schema(cfg: ModelConfig):
-    return {"ln1": norm_schema(cfg), "attn": attn_schema(cfg),
-            "ln2": norm_schema(cfg), "mlp": mlp_schema(cfg)}
+    s = {"ln1": norm_schema(cfg), "attn": attn_schema(cfg),
+         "ln2": norm_schema(cfg)}
+    if cfg.is_moe:
+        s["moe"] = moe_schema(cfg)
+    else:
+        s["mlp"] = mlp_schema(cfg)
+    return s
 
 
 def schema(cfg: ModelConfig):
@@ -102,22 +111,30 @@ def unstack(stacked):
 # Blocks
 # ---------------------------------------------------------------------------
 
-def block_seq(cfg, lp, x, positions, rope_tab, window: int = 0,
-              causal: bool = True):
-    """One layer over a full sequence; returns (x, (k, v))."""
+def _ffn(cfg, lp, h, run: RunConfig):
+    """The layer's MLP, or its routed experts: (out, aux)."""
+    if cfg.is_moe:
+        return apply_moe(cfg, lp["moe"], h,
+                         capacity_factor=run.moe_capacity_factor)
+    return apply_mlp(cfg, lp["mlp"], h), 0.0
+
+
+def block_seq(cfg, lp, x, positions, rope_tab, run: RunConfig,
+              window: int = 0, causal: bool = True):
+    """One layer over a full sequence; returns (x, aux, (k, v))."""
     q, k, v = qkv_project(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x),
                           positions=positions, rope_tab=rope_tab)
     o = chunked_attention(q, k, v, causal=causal, window=window)
     x = x + out_project(lp["attn"], o)
-    h = apply_norm(cfg, lp["ln2"], x)
-    return x + apply_mlp(cfg, lp["mlp"], h), (k, v)
+    h, aux = _ffn(cfg, lp, apply_norm(cfg, lp["ln2"], x), run)
+    return x + h, aux, (k, v)
 
 
 def block_decode(cfg, lp, x, pos, kc, vc, run: RunConfig, rope_tab, index):
     """Single-token decode for one layer.  x: (B,1,d); pos: (B,) write
     index; kc/vc: this layer's cache buffers, written in place at
     ``index`` (``kv_cache.write_index``); rope_tab: the rotary tables
-    of ``pos``."""
+    of ``pos``.  Returns (x, aux)."""
     h = apply_norm(cfg, lp["ln1"], x)
     q, k, v = qkv_project(cfg, lp["attn"], h, positions=pos[:, None],
                           rope_tab=rope_tab)
@@ -125,8 +142,8 @@ def block_decode(cfg, lp, x, pos, kc, vc, run: RunConfig, rope_tab, index):
     kv_cache.write_(vc, v, pos, index)
     o = _decode_attend(q, kc, vc, pos, run)
     x = x + out_project(lp["attn"], o)
-    h = apply_norm(cfg, lp["ln2"], x)
-    return x + apply_mlp(cfg, lp["mlp"], h)
+    h, aux = _ffn(cfg, lp, apply_norm(cfg, lp["ln2"], x), run)
+    return x + h, aux
 
 
 def _decode_attend(q, kc, vc, pos, run: RunConfig):
@@ -143,9 +160,10 @@ def _decode_attend(q, kc, vc, pos, run: RunConfig):
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
             extras: Optional[dict] = None, collect_kv: bool = False,
             last_only: bool = False):
-    """tokens: (B, S) -> (logits, aux, kvs or None).  aux is 0.0 (no MoE
-    load-balance loss in the dense family); kvs (when collect_kv) are
-    stacked per-layer (L, B, S, KV, D) pairs, the prefill cache."""
+    """tokens: (B, S) -> (logits, aux, kvs or None).  aux is the MoE
+    load-balance loss summed over layers (0.0 in the dense family); kvs
+    (when collect_kv) are stacked per-layer (L, B, S, KV, D) pairs, the
+    prefill cache."""
     check_run(cfg, run)
     S = tokens.shape[1]
     x = embed(params["embed"], tokens)
@@ -153,17 +171,19 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
                              device=tokens.device)[None]
     window = run.decode_window or 0
     tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    ks, vs = [], []
+    ks, vs, aux = [], [], 0.0
     for lp in unstack(params["layers"]):
         if run.remat == "block":
             # recomputed in the backward; the blocks draw no random
             # numbers, so no RNG state is kept
-            x, (k, v) = checkpoint(block_seq, cfg, lp, x, positions, tab,
-                                   window=window, use_reentrant=False,
-                                   preserve_rng_state=False)
+            x, a, (k, v) = checkpoint(block_seq, cfg, lp, x, positions,
+                                      tab, run, window=window,
+                                      use_reentrant=False,
+                                      preserve_rng_state=False)
         else:
-            x, (k, v) = block_seq(cfg, lp, x, positions, tab,
-                                  window=window)
+            x, a, (k, v) = block_seq(cfg, lp, x, positions, tab, run,
+                                     window=window)
+        aux = aux + a
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -172,7 +192,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return logits, 0.0, kvs
+    return logits, aux, kvs
 
 
 # ---------------------------------------------------------------------------
@@ -249,9 +269,9 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[2]
     index = kv_cache.write_index(pos, 1, S)
     for i in range(cfg.num_layers):
-        x = block_decode(cfg, layer_params(params["layers"], i), x, pos,
-                          layer_params(kc_all, i), layer_params(vc_all, i),
-                          run, tab, index)
+        x, _ = block_decode(cfg, layer_params(params["layers"], i), x, pos,
+                            layer_params(kc_all, i),
+                            layer_params(vc_all, i), run, tab, index)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
     return logits, dict(cache, k=kc_all, v=vc_all, pos=pos + 1)

@@ -94,8 +94,8 @@ def _backbone(cfg: ModelConfig, params, tokens: torch.Tensor,
     window = run.decode_window or 0
     kvs, states = [], []
     for group in unstack(params["groups"]):
-        x, kv = block_seq(cfg, params["shared"], x, positions, tab,
-                          window=window)
+        x, _, kv = block_seq(cfg, params["shared"], x, positions, tab,
+                             run, window=window)
         kvs.append(kv)
         for lp in unstack(group):
             h, st = mamba2_forward(cfg, lp["mamba"],
@@ -184,9 +184,9 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     index = kv_cache.write_index(pos, 1, S)
     states = []
     for g in range(_groups(cfg)):
-        x = block_decode(cfg, params["shared"], x, pos,
-                         layer_params(kc_all, g), layer_params(vc_all, g),
-                         run, tab, index)
+        x, _ = block_decode(cfg, params["shared"], x, pos,
+                            layer_params(kc_all, g),
+                            layer_params(vc_all, g), run, tab, index)
         for i in range(cfg.shared_attn_every):
             lp = _mamba_params(params, g, i)
             st = {key: val[g, i] for key, val in cache["ssm"].items()}

@@ -1056,3 +1056,102 @@ def test_online_execute_on_card_replays_the_simulated_batches(cuda):
         assert np.isfinite(card.content[k]).all()
         np.testing.assert_allclose(card.content[k], img, rtol=0,
                                    atol=1e-3)
+
+
+# -- the MoE path: deepseek-moe-16b and qwen3-moe-30b-a3b at head dim 128 --
+
+# (B, S, H, KV): prefill at prompt 128 and the calibration's prompt 32 at
+# B = 16; deepseek G = 1, qwen3 G = 8
+MOE_ATTN = [(8, 128, 16, 16), (16, 32, 16, 16), (8, 128, 32, 4),
+            (16, 32, 32, 4)]
+# the decode steps' (B, cache, H, KV) against a 512-token cache
+MOE_DEC = [(8, 512, 16, 16), (16, 512, 16, 16), (8, 512, 32, 4),
+           (16, 512, 32, 4)]
+# rmsnorm rows: the layers' d = 2048, qwen3's per-head q/k norm over 128
+MOE_RMS = [(16, 128, 2048), (8, 1, 2048), (8, 128, 32, 128),
+           (8, 128, 4, 128), (16, 1, 32, 128), (16, 1, 4, 128)]
+
+
+@pytest.mark.parametrize("B,S,H,KV", MOE_ATTN)
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_at_the_moe_shapes(cuda, B, S, H, KV, window,
+                                           dtype):
+    dt = DTYPES[dtype][0]
+    q = _randn((B, S, H, 128), 11, cuda, dt)
+    k = _randn((B, S, KV, 128), 12, cuda, dt)
+    v = _randn((B, S, KV, 128), 13, cuda, dt)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    _close(got, attention_ref(q, k, v, causal=True, window=window), dtype)
+
+
+@pytest.mark.parametrize("B,S,H,KV", MOE_DEC)
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("q_dtype,c_dtype", [("float32", "float32"),
+                                             ("bfloat16", "bfloat16"),
+                                             ("float32", "bfloat16")])
+def test_decode_attention_at_the_moe_shapes(cuda, B, S, H, KV, window,
+                                            q_dtype, c_dtype):
+    q = _randn((B, 1, H, 128), 14, cuda, DTYPES[q_dtype][0])
+    kc = _randn((B, S, KV, 128), 15, cuda, DTYPES[c_dtype][0])
+    vc = _randn((B, S, KV, 128), 16, cuda, DTYPES[c_dtype][0])
+    cur = torch.tensor(np.random.default_rng(B + H).integers(1, S + 1, B),
+                       dtype=torch.int32, device=cuda)
+    before = dec_ops.launches
+    got = dec_ops.decode_attention(q, kc, vc, cur, window=window)
+    torch.cuda.synchronize()
+    assert dec_ops.launches == before + 1
+    _close(got, decode_attention_ref(q, kc, vc, cur, window=window),
+           "bfloat16" if "bfloat16" in (q_dtype, c_dtype) else "float32")
+
+
+@pytest.mark.parametrize("shape", MOE_RMS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rmsnorm_at_the_moe_shapes(cuda, shape, dtype):
+    x = _randn(shape, 17, cuda, DTYPES[dtype][0])
+    s = _randn(shape[-1:], 18, cuda)
+    before = rms_ops.launches
+    got = rms_ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rms_ops.launches == before + 1
+    _close(got, rmsnorm_ref(x, s), dtype)
+
+
+QWEN3_D128 = dataclasses.replace(
+    smoke_variant(get_config("qwen3-moe-30b-a3b")), head_dim=128)
+
+
+def test_moe_decode_step_on_card_matches_cpu(cuda):
+    """Prefill and one decode step of qwen3's smoke variant at head dim
+    128 (routed experts, q/k norm; float32 cache): the kernels on the
+    card, the plain versions on the CPU, 4L+1 rmsnorm a forward; the
+    first layer's routing of the prompt equal on both."""
+    from repro_torch.models import moe
+    cfg, run = QWEN3_D128, RunConfig(kv_cache_dtype="float32")
+    params = api.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 16)), dtype=torch.int64)
+    x = torch.randn((3, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = _tree_to(params, dev)
+        n = (fa_ops.launches, dec_ops.launches, rms_ops.launches)
+        logits, cache = api.make_prefill_step(cfg, run, 32)(p, toks.to(dev))
+        step, cache = api.make_decode_step(cfg, run)(
+            p, toks[:, -1:].to(dev), cache)
+        tok, gate, _ = moe.route(cfg, x.to(dev),
+                                 p["layers"]["moe"]["router"][0])
+        outs[str(dev)] = (logits.cpu(), step.cpu(), tok.cpu(), gate.cpu())
+        if dev == cuda:
+            L = cfg.num_layers
+            assert (fa_ops.launches - n[0], dec_ops.launches - n[1],
+                    rms_ops.launches - n[2]) == (L, L, 2 * (4 * L + 1))
+    (lc, sc, tc, gc), (lg, sg, tg, gg) = outs["cpu"], outs[str(cuda)]
+    assert torch.equal(tg, tc)
+    torch.testing.assert_close(gg, gc, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lg, lc, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(sg, sc, atol=1e-3, rtol=1e-3)

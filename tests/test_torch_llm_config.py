@@ -74,7 +74,8 @@ def test_default_run_config_matches():
 
 
 def test_registry_lists_ported_and_raises_for_others():
-    assert config.list_archs() == ["tinyllama-1.1b", "zamba2-2.7b"]
+    assert config.list_archs() == ["deepseek-moe-16b", "qwen3-moe-30b-a3b",
+                                   "tinyllama-1.1b", "zamba2-2.7b"]
     with pytest.raises(KeyError, match="whisper-tiny"):
         config.get_config("whisper-tiny")
 
