@@ -147,6 +147,33 @@ KV cache, TF32 off:
                  deepseek is drawn.  The phase's launches join the
                  kernels line under ``launches_by_path["moe"]``.
 
+Then the remaining model families, f32 weights drawn on the card from a
+seed, bf16 KV cache, TF32 off, each served against the reference's stub
+modality inputs (batch 1, which the engine expands to a prefill's rows):
+
+ 10c. families -- whisper-tiny (4 encoder + 4 decoder layers, 1500
+                 frames) and xlstm-125m (6 mLSTM + 6 sLSTM blocks) at
+                 full width and depth, llama-3.2-vision-90b at full width
+                 and 10 of its 100 layers (2 groups of 4 self layers and
+                 a cross layer over 1601 vision tokens).  For each: the
+                 calls of one request; g(X) at batch 1, 2, 4, 8 and a
+                 K=8 plan executed timed through ServingEngine
+                 (tokens/s, peak memory), launches exact (whisper: 4 +
+                 2L flash a prefill, 2L decode a step, no rmsnorm;
+                 xLSTM: one rmsnorm a block a forward; the VLM: 2L+1
+                 rmsnorm, L flash, L decode); every kernel against its
+                 plain version at every shape the run gave it (flash
+                 unmasked over 1500 and 1601 keys and at Sq > Skv,
+                 decode over whole cross caches of 1500 and 1601 rows,
+                 rmsnorm on rows of 8192, 1536 and 768) and timed at
+                 B=8; one decode step traced; a 2-layer full-width
+                 variant on the card and on the CPU (std-0.02 weights,
+                 the VLM's gates drawn in [0.5, 1], extras drawn
+                 normal(0, 1)): logits within 2e-2 of the largest
+                 |logit|, greedy tokens equal; and the serve launcher in
+                 a child process.  The phase's launches join the kernels
+                 line under ``launches_by_path["families"]``.
+
 Then training, on full-width TinyLlama-1.1B (f32 weights, TF32 off):
 
  11. train   -- (a) a 2-layer full-width model on std-0.02 weights, one
@@ -1093,8 +1120,21 @@ def expected_launches(cfg, prefills: int, decodes: int):
     an attention layer per layer; zamba2 has 2 RMSNorms per Mamba2
     layer, 2 per shared-block application and the final one, one
     ssd_scan per Mamba2 layer at prefill and the shared block's
-    attention once per group."""
+    attention once per group; whisper (layernorms only) one flash call
+    per encoder layer and two per decoder layer at prefill, two decode
+    calls per decoder layer a step (self and cross); xLSTM one RMSNorm
+    per block (its inner norm) a forward and nothing else; the VLM
+    counts a cross layer as a layer."""
     L, n = cfg.num_layers, prefills + decodes
+    if cfg.family == "audio":
+        return {"rmsnorm": 0,
+                "flash_attention": (cfg.encoder_layers + 2 * L) * prefills,
+                "decode_attention": 2 * L * decodes, "ssd_scan": 0}
+    if cfg.family == "ssm":
+        return {"rmsnorm": L * n, "flash_attention": 0,
+                "decode_attention": 0, "ssd_scan": 0}
+    if cfg.cross_attn_every:
+        L -= L % cfg.cross_attn_every   # layers past the last group drop
     if cfg.family == "hybrid":
         G = L // cfg.shared_attn_every
         return {"rmsnorm": (2 * L + 2 * G + 1) * n,
@@ -1151,6 +1191,39 @@ def _recording(seen, drop_batch=False):
     return _swapped(make)
 
 
+def _recording_flagged(seen, memory_len, drop_batch=False):
+    """``_recording`` with a third key element: flash_attention's
+    ``causal`` flag, and "full" for a decode_attention call over a cache
+    of ``memory_len`` rows (a cross cache: cur_len is the whole cache),
+    None otherwise.  The flag is read from the call's shapes and
+    keywords, never from device values, so recording adds no sync."""
+    import torch
+    lo = 1 if drop_batch else 0
+
+    def make(name, fn):
+        def record(*args, **kw):
+            sig = tuple((tuple(a.shape[lo:]), _dt(a)) for a in args
+                        if isinstance(a, torch.Tensor) and a.dim() > 1)
+            flag = None
+            if name == "flash_attention":
+                flag = bool(kw.get("causal", True))
+            elif name == "decode_attention" and \
+                    args[1].shape[1] == memory_len:
+                flag = "full"
+            seen[(name, sig, flag)] += 1
+            return fn(*args, **kw)
+        return record
+    return _swapped(make)
+
+
+def _key_parts(key):
+    """(name, sig, causal, full) of a kernel-call key of phase
+    llm-kernels: (name, sig) or (name, sig, flag) with the flag of
+    ``_recording_flagged``."""
+    flag = key[2] if len(key) > 2 else None
+    return key[0], key[1], flag is not False, flag == "full"
+
+
 def llm_shapes(cfg, params):
     """(kernel, per-row shapes and types) -> calls in one prefill of a
     LLM_PROMPT-token prompt plus one decode step against a LLM_MAX_LEN
@@ -1188,6 +1261,19 @@ def flash_bound(q, k):
     TF32_OPS_PER_S.  Returns (ms, "bytes" or "operations", f32 ops)."""
     B, S, H, D = q.shape
     flops = 4 * D * (S * (S + 1) // 2) * B * H
+    bound, by = _bound(_nbytes(q, q, k, k), TF32_PER_F32_OP * flops,
+                       TF32_OPS_PER_S)
+    return bound, by, flops
+
+
+def flash_bound_full(q, k):
+    """Bound of one flash_attention call without a mask (cross or
+    encoder attention), q (B,Sq,H,D) over k, v (B,Skv,KV,D): q, o, k and
+    v moved once against 4 D f32 operations per (query, key) pair, each
+    TF32_PER_F32_OP tensor-core operations.  Returns (ms, "bytes" or
+    "operations", f32 ops)."""
+    B, Sq, H, D = q.shape
+    flops = 4 * D * Sq * k.shape[1] * B * H
     bound, by = _bound(_nbytes(q, q, k, k), TF32_PER_F32_OP * flops,
                        TF32_OPS_PER_S)
     return bound, by, flops
@@ -1253,12 +1339,16 @@ def _ssd_f64(x, a, b, c, h0):
     return torch.stack(ys, dim=1), h
 
 
-def _check_llm_kernel(name, sig, randn, rng, err):
+def _check_llm_kernel(name, sig, randn, rng, err, causal=True,
+                      full_rows=False):
     """The wrapper of ``name`` against its plain version at one call
     shape ``sig`` (batch included), fresh random inputs: float32,
     bfloat16 and (decode) f32 q over a bf16 cache; the attention kernels
-    causal, at window 0 (the path's) and LLM_WINDOW; the SSD scan with
-    h0 in float32 (SSD_TOL)."""
+    causal, at window 0 (the path's) and LLM_WINDOW, or (``causal``
+    False: cross and encoder attention) unmasked; decode with random
+    cur_len, and with every row's cur_len the whole cache too
+    (``full_rows``: a cross cache); the SSD scan with h0 in float32
+    (SSD_TOL)."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     run, plain = getattr(_llm_ops()[name], name), _plain_llm()[name]
@@ -1300,33 +1390,41 @@ def _check_llm_kernel(name, sig, randn, rng, err):
     elif name == "flash_attention":
         (qs, _), (ks, _), _ = sig
         q32, k32, v32 = randn(qs), randn(ks), randn(ks)
-        for window in (0, LLM_WINDOW):
+        for window in ((0, LLM_WINDOW) if causal else (0,)):
             for dt in (f32, bf16):
                 q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
-                _check_close(f"flash_attention {qs} {dt} w={window}",
-                             run(q, k, v, window=window),
-                             plain(q, k, v, window=window),
+                _check_close(f"flash_attention {qs} over {ks} {dt} "
+                             f"causal={causal} w={window}",
+                             run(q, k, v, causal=causal, window=window),
+                             plain(q, k, v, causal=causal, window=window),
                              "bfloat16" if dt == bf16 else "float32", err)
     else:
         (qs, _), (cs, _), _ = sig
         q32, k32, v32 = randn(qs), randn(cs), randn(cs)
-        cur = torch.tensor(rng.integers(1, cs[1] + 1, cs[0]),
-                           dtype=torch.int32, device="cuda")
-        for window in (0, LLM_WINDOW):
-            for qd, cd in ((f32, f32), (bf16, bf16), (f32, bf16)):
-                q, k, v = q32.to(qd), k32.to(cd), v32.to(cd)
-                _check_close(f"decode_attention {qs} over {cs} {qd}/{cd} "
-                             f"w={window}",
-                             run(q, k, v, cur, window=window),
-                             plain(q, k, v, cur, window=window),
-                             "bfloat16" if bf16 in (qd, cd) else "float32",
-                             err)
+        curs = [torch.tensor(rng.integers(1, cs[1] + 1, cs[0]),
+                             dtype=torch.int32, device="cuda")]
+        if full_rows:
+            curs.append(torch.full((cs[0],), cs[1], dtype=torch.int32,
+                                   device="cuda"))
+        for cur in curs:
+            for window in (0, LLM_WINDOW):
+                for qd, cd in ((f32, f32), (bf16, bf16), (f32, bf16)):
+                    q, k, v = q32.to(qd), k32.to(cd), v32.to(cd)
+                    _check_close(f"decode_attention {qs} over {cs} "
+                                 f"{qd}/{cd} w={window}",
+                                 run(q, k, v, cur, window=window),
+                                 plain(q, k, v, cur, window=window),
+                                 "bfloat16" if bf16 in (qd, cd)
+                                 else "float32", err)
 
 
-def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
+def _time_llm_kernel(name, sig, calls, randn, rng, B=8, causal=True,
+                     full_rows=False):
     """Device time of one call of ``name`` at per-row shape ``sig`` and
     batch B, in the path's types (f32 activations, bf16 cache): kernel,
-    plain version, library yardstick, and the bound."""
+    plain version, library yardstick, and the bound.  ``causal`` False:
+    an unmasked flash call (cross or encoder attention); ``full_rows``:
+    a decode over whole caches (every cur_len = S, a cross cache)."""
     import torch
     import torch.nn.functional as F
     run, plain = getattr(_llm_ops()[name], name), _plain_llm()[name]
@@ -1360,17 +1458,20 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
     if name == "flash_attention":
         (qs, _), (ks, _), _ = sig
         q, k, v = randn((B,) + qs), randn((B,) + ks), randn((B,) + ks)
-        bound, by, flops = flash_bound(q, k)
+        bound, by, flops = flash_bound(q, k) if causal \
+            else flash_bound_full(q, k)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         return dict(kernel=name, shape=[B, *qs], kv_shape=[B, *ks],
-                    types="float32", calls=calls, bound_ms=bound,
-                    bound_by=by, peak=TC_PEAK,
+                    types="float32", causal=causal, calls=calls,
+                    bound_ms=bound, bound_by=by, peak=TC_PEAK,
                     bytes=_nbytes(q, q, k, v), flops=flops,
-                    ms=device_time_ms(lambda: run(q, k, v)),
-                    plain_ms=device_time_ms(lambda: plain(q, k, v)),
+                    ms=device_time_ms(lambda: run(q, k, v, causal=causal)),
+                    plain_ms=device_time_ms(
+                        lambda: plain(q, k, v, causal=causal)),
                     library_ms=device_time_ms(
                         lambda: F.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True, enable_gqa=True)))
+                            qt, kt, vt, is_causal=causal,
+                            enable_gqa=True)))
     (qs, _), (cs, _), _ = sig
     S, KV, D = cs
     H = qs[1]
@@ -1379,6 +1480,8 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8):
     vb = randn((B,) + cs).to(torch.bfloat16)
     cur = torch.tensor(rng.integers(1, S + 1, B), dtype=torch.int32,
                        device="cuda")
+    if full_rows:
+        cur = torch.full((B,), S, dtype=torch.int32, device="cuda")
     valid = int(cur.clamp(max=S).sum())
     nb = _nbytes(q, q, cur) + 2 * valid * KV * D * kb.element_size()
     bound, by = _bound(nb, 4 * D * H * valid)
@@ -1412,14 +1515,16 @@ def _fmt_us(ms):
     return "      n/a" if ms is None else f"{ms * 1e3:9.2f}"
 
 
-def phase_llm_kernels(cfg, shapes, seen, card):
+def phase_llm_kernels(cfg, shapes, seen, card, extra=()):
     """Each kernel of ``cfg``'s path against its plain version at every
     call shape the main path gave it (``seen``: calibration at batch
     1..16 and prompt min(32, max_len - 2), provisioning at prompt
-    LLM_PROMPT), and at the one-request shapes (``shapes``) with B in
-    {1, 8}; then times at B=8 per one-request shape: kernel, plain
-    version, library yardstick, bound.  Returns {kernel: summary} and
-    the timed rows."""
+    LLM_PROMPT), at the one-request shapes (``shapes``) with B in
+    {1, 8}, and at the keys in ``extra``; then times at B=8 per
+    one-request shape: kernel, plain version, library yardstick, bound.
+    A key is (name, sig) or (name, sig, flag), the flag of
+    ``_recording_flagged``.  Returns {kernel: summary} and the timed
+    rows."""
     import numpy as np
     import torch
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -1428,13 +1533,18 @@ def phase_llm_kernels(cfg, shapes, seen, card):
 
     def randn(shape):
         return torch.randn(shape, generator=gen, device="cuda")
-    todo = set(seen) | {(name, tuple(((B,) + s, t) for s, t in sig))
-                        for name, sig in shapes for B in (1, 8)}
-    names = sorted({name for name, _ in shapes})
+    todo = set(seen) | {(key[0], tuple(((B,) + s, t) for s, t in key[1]))
+                        + tuple(key[2:]) for key in shapes for B in (1, 8)}
+    todo |= set(extra)
+    names = sorted({key[0] for key in shapes})
     errs = {name: {} for name in names}
     done = collections.defaultdict(list)
-    for name, sig in sorted(todo):
-        _check_llm_kernel(name, sig, randn, rng, errs[name])
+    # (name, sig) first, as before flags; a flag orders by its repr
+    for key in sorted(todo,
+                      key=lambda k: k[:2] + tuple(map(repr, k[2:]))):
+        name, sig, causal, full = _key_parts(key)
+        _check_llm_kernel(name, sig, randn, rng, errs[name], causal=causal,
+                          full_rows=full)
         done[name].append(sig[0][0])
     torch.cuda.synchronize()
     check(set(done) == set(errs), f"kernels checked: {sorted(done)}")
@@ -1446,9 +1556,12 @@ def phase_llm_kernels(cfg, shapes, seen, card):
             f"{batches}, per row {rows}) match the plain version: max abs "
             f"err " + ", ".join(f"{k} {v:.3g} (tol {tols.get(k, 'none')})"
                                 for k, v in sorted(e.items())))
-    rows = [dict(_time_llm_kernel(name, sig, calls, randn, rng),
-                 model=cfg.name)
-            for (name, sig), calls in shapes.items()]
+    rows = []
+    for key, calls in shapes.items():
+        name, sig, causal, full = _key_parts(key)
+        rows.append(dict(_time_llm_kernel(name, sig, calls, randn, rng,
+                                          causal=causal, full_rows=full),
+                         model=cfg.name))
     log(f"{tag} B=8, device time per call (CUDA graph, L2-warm) on {card}; "
         "library: F.rms_norm, F.scaled_dot_product_attention (decode: bf16 "
         "q, boolean cur_len mask), none for ssd_scan")
@@ -2088,6 +2201,403 @@ def moe_launcher(card):
                 tokens=[int(r[2]) for r in rows],
                 penalty_stacking=float(pen.group(1)),
                 penalty_greedy=float(pen.group(2)))
+
+
+# ---------------------------------------------------------------------------
+# The remaining families: whisper-tiny, xlstm-125m, llama-3.2-vision-90b
+# ---------------------------------------------------------------------------
+
+FAMILY_VLM_LAYERS = 10         # of 100: the full depth is 337.8 GiB in f32
+FAMILY_SIZES = (1, 2, 4, 8)    # the calibration's batch sizes
+FAMILY_REPS = 5
+FAMILY_K = 8
+FAMILY_PARITY = dict(prompt=16, tokens=4)
+FAMILY_GATES = (0.5, 1.0)      # cross-layer gates of the VLM parity run
+FAMILY_LAUNCHER_REQUESTS = 6
+# flash_attention at the VLM's smoke shape, where Sq = 32 > Skv = 16
+# (B=2, 4 heads of 64): no path of the card reaches it, so it is checked
+# on its own
+FAMILY_SQ_OVER_SKV = ("flash_attention",
+                      (((2, 32, 4, 64), "float32"),
+                       ((2, 16, 4, 64), "float32"),
+                       ((2, 16, 4, 64), "float32")), False)
+
+
+def family_configs():
+    """The three models of phase families, at full width: whisper-tiny
+    and xlstm-125m at full depth, the VLM at FAMILY_VLM_LAYERS layers."""
+    from repro_torch.configs.llama_3_2_vision_90b import CONFIG as VLM
+    from repro_torch.configs.whisper_tiny import CONFIG as WHISPER
+    from repro_torch.configs.xlstm_125m import CONFIG as XLSTM
+    return [WHISPER, XLSTM,
+            dataclasses.replace(VLM, num_layers=FAMILY_VLM_LAYERS)]
+
+
+def memory_len(cfg):
+    """Rows of the model's cross memory: whisper's frames, the VLM's
+    vision tokens; 0 without one."""
+    return cfg.num_audio_frames or cfg.num_vision_tokens
+
+
+def drawn_extras(cfg, device, seed=7):
+    """Modality inputs drawn normal(0, 1) from ``seed`` (batch 1,
+    float32), where the reference's stubs would make every memory row
+    equal; None for a model without them."""
+    import torch
+    M = memory_len(cfg)
+    if not M:
+        return None
+    key = "audio_frames" if cfg.family == "audio" else "vision_embeds"
+    x = torch.randn((1, M, cfg.d_model),
+                    generator=torch.Generator().manual_seed(seed))
+    return {key: x.to(device)}
+
+
+def family_trace(eng, card, batch: int = 8, steps: int = 5):
+    """One decode step at ``batch`` (prompt LLM_PROMPT, cache
+    LLM_MAX_LEN) under torch.profiler: device busy share, kernels a
+    step, the largest kernels by device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = eng.cfg
+    tag = f"[families-trace {cfg.name}]"
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (batch, LLM_PROMPT)).astype(np.int32)
+    _, cache = eng.prefill(toks)
+    tok = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
+    eng.decode(tok, cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.decode(tok, cache)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.decode(tok, cache)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev = {e.key: e.self_device_time_total / steps for e in events}
+    launches = sum(e.count for e in events) / steps
+    device_us = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    log(f"{tag} on {card}, one decode step at batch {batch}: wall "
+        f"{wall_us:.0f} us (unprofiled), device busy {device_us:.0f} us = "
+        f"{device_us / wall_us:.1%} of wall; {launches:.0f} kernels a step")
+    for k, v in top:
+        log(f"{tag}   {v:9.1f} us/step  {k[:90]}")
+    return dict(batch=batch, wall_us=wall_us, device_us=device_us,
+                busy=device_us / wall_us, launches_per_step=launches,
+                top=top)
+
+
+def family_path(card, cfg):
+    """One model of phase families on the card, f32 weights drawn from
+    seed 0 and the reference's stub extras (batch 1): the calls of one
+    request, g(X) at FAMILY_SIZES through ServingEngine, a K-request
+    plan executed timed, exact launches, every kernel at every call
+    shape against its plain version (phase llm-kernels), one decode step
+    traced.  Returns its kernels' {name: summary with launches} and the
+    details."""
+    import numpy as np
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.core.delay_model import DelayModel, fit
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ServingEngine
+    tag = f"[families {cfg.name}]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_model(cfg,
+                            torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(np.prod(p.shape)) for p in _leaves(params))
+    run, M = RunConfig(), memory_len(cfg)
+    extras = api.extra_input_specs(cfg, 1, abstract=False, device="cuda")
+    shown = {k: tuple(v.shape) for k, v in (extras or {}).items()}
+    log(f"{tag} {cfg.num_layers} layers (+{cfg.encoder_layers} encoder), "
+        f"{n_params} params drawn on the card in {init_s:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"stub extras {shown}")
+    # the calls of one request: a prefill of LLM_PROMPT tokens and one
+    # decode step against an LLM_MAX_LEN cache
+    one = collections.Counter()
+    toks = torch.zeros((1, LLM_PROMPT), dtype=torch.int64, device="cuda")
+    with _recording_flagged(one, M, drop_batch=True):
+        _, cache = api.make_prefill_step(cfg, run, LLM_MAX_LEN)(
+            params, toks, extras)
+        api.make_decode_step(cfg, run)(params, toks[:, -1:], cache, extras)
+    del cache
+    per = collections.Counter()
+    for key, n in one.items():
+        per[key[0]] += n
+    want = {k: v for k, v in expected_launches(cfg, 1, 1).items() if v}
+    check(dict(per) == want, f"{tag} one prefill + one decode step made "
+          f"{dict(per)} kernel calls, expected {want}")
+    eng = ServingEngine(cfg, params, run, LLM_MAX_LEN, extras=extras,
+                        device="cuda")
+    seen = collections.Counter()
+    _zero_llm_counts()
+    with _recording_flagged(seen, M):
+        curve = eng.measure_decode_curve(FAMILY_SIZES, FAMILY_REPS)
+    cal = _llm_counts()
+    n_pre, n_dec = eng.prefill_calls, eng.decode_calls
+    check(n_pre == len(FAMILY_SIZES)
+          and n_dec == len(FAMILY_SIZES) * (1 + FAMILY_REPS)
+          and cal == expected_launches(cfg, n_pre, n_dec),
+          f"{tag} calibration: {n_pre} prefills, {n_dec} decode steps, "
+          f"launches {cal}")
+    raw = fit([x for x, _ in curve], [t for _, t in curve])
+    g = DelayModel(a=max(raw.a, 1e-9), b=max(raw.b, 1e-9))
+    log(f"{tag} decode delay curve (batch, best-of-{FAMILY_REPS} s a "
+        f"step): " + ", ".join(f"{x}: {t * 1e3:.3f} ms" for x, t in curve))
+    log(f"{tag} fitted g(X) = {raw.a * 1e3:.4f} ms * X + {raw.b * 1e3:.4f} "
+        f"ms on {card}; planning with a = {g.a * 1e3:.4f} ms, b = "
+        f"{g.b * 1e3:.4f} ms")
+    K = FAMILY_K
+    rng = np.random.default_rng(0)
+    multiples = np.linspace(10.0, 40.0, K)
+    for k in range(K):
+        eng.submit(rng.integers(0, cfg.vocab_size,
+                                LLM_PROMPT).astype(np.int32),
+                   float(multiples[k] * g.g(K) + 0.05))
+    _zero_llm_counts()
+    p0, d0 = eng.prefill_calls, eng.decode_calls
+    t0 = time.perf_counter()
+    with _recording_flagged(seen, M):
+        plan = eng.plan()
+        plan.validate()
+        top = max(plan.steps_completed.values())
+        check(LLM_PROMPT + top <= LLM_MAX_LEN,
+              f"{tag} the plan wants {top} tokens a request")
+        out = eng.execute(plan, timed=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _llm_counts()
+    prefills, decodes = eng.prefill_calls - p0, eng.decode_calls - d0
+    check(decodes == plan.num_batches and launches == expected_launches(
+        cfg, prefills, decodes), f"{tag} serving: {launches} launches for "
+          f"{prefills} prefills and {decodes} decode steps "
+          f"({plan.num_batches} batches)")
+    steps = [plan.steps_completed[k] for k in range(K)]
+    check(min(steps) > 0, f"{tag} a request got no tokens: {steps}")
+    for k in range(K):
+        check(len(out[k]) == steps[k]
+              and all(0 <= t < cfg.vocab_size for t in out[k]),
+              f"{tag} request {k}: {len(out[k])} tokens, planned "
+              f"{steps[k]}")
+    measured = sum(t for _, t in eng.last_timings)
+    log(f"{tag} K={K}: {plan.num_batches} batches, sizes "
+        f"{dict(sorted(collections.Counter(plan.batch_sizes()).items()))}, "
+        f"tokens per request {steps}, {prefills} prefill call(s); decode "
+        f"measured {measured:.4f} s, predicted {plan.makespan():.4f} s "
+        f"(measured/predicted {measured / plan.makespan():.4f}); "
+        f"{sum(steps) / measured:.1f} tokens/s; whole run {wall:.3f} s")
+    log(f"{tag} launches: calibration {cal}, serving {launches} = per "
+        f"prefill {expected_launches(cfg, 1, 0)} and per decode step "
+        f"{expected_launches(cfg, 0, 1)}; {len(seen)} distinct call shapes")
+    trace = family_trace(eng, card)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{tag} peak device memory {peak:.2f} GiB (max_memory_allocated "
+        f"from the draw on) on {card}")
+    del eng, params
+    torch.cuda.empty_cache()
+    extra = (FAMILY_SQ_OVER_SKV,) if cfg.family == "vlm" else ()
+    summaries, rows = phase_llm_kernels(cfg, one, seen, card, extra=extra)
+    total = {k: cal[k] + launches[k] for k in launches}
+    for name, summ in summaries.items():
+        summ["launches"] = total[name]
+    return summaries, dict(
+        n_params=n_params, layers=cfg.num_layers, init_s=init_s,
+        curve=curve, fit_a=raw.a, fit_b=raw.b, K=K,
+        batches=plan.num_batches, batch_sizes=plan.batch_sizes(),
+        steps=steps, measured_s=measured, predicted_s=plan.makespan(),
+        tokens_per_s=sum(steps) / measured, wall_s=wall,
+        calibration_launches=cal, serving_launches=launches,
+        launches=total, trace=trace, peak_gib=peak, kernel_rows=rows,
+        g=(g.a, g.b))
+
+
+def _family_parity_params(cfg):
+    """``parity_params`` (std LLM_PARITY_STD on the card) with the VLM's
+    cross-layer gates drawn uniform in FAMILY_GATES: at the reference's
+    zero gates, tanh(0) = 0 would leave the cross layers out."""
+    import torch
+    params = parity_params(cfg)
+    if cfg.cross_attn_every:
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        lo, hi = FAMILY_GATES
+        for g in ("gate_attn", "gate_mlp"):
+            leaf = params["groups"]["cross"][g]
+            leaf.copy_(lo + (hi - lo) * torch.rand(
+                leaf.shape, generator=gen, device="cuda"))
+    return params
+
+
+def _family_greedy(cfg, params, extras, prompt, n, device):
+    """Greedy decoding of ``prompt`` for n tokens (the engine's order:
+    the prompt's last token re-fed first): the tokens and each step's
+    logits on the CPU."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.models import api
+    run = RunConfig()
+    p = torch.as_tensor(prompt[None].astype("int64"), device=device)
+    _, cache = api.make_prefill_step(cfg, run, LLM_MAX_LEN)(params, p,
+                                                            extras)
+    step = api.make_decode_step(cfg, run)
+    tok, toks, logits = p[:, -1:], [], []
+    for _ in range(n):
+        out, cache = step(params, tok, cache, extras)
+        logits.append(out[0, -1].float().cpu())
+        tok = out[:, -1].argmax(-1)[:, None]
+        toks.append(int(tok[0, 0]))
+    return toks, logits
+
+
+def family_parity(cfg):
+    """A 2-layer full-width variant (whisper: 2 encoder and 2 decoder
+    layers; the VLM: one self and one cross layer) on the card and on
+    the CPU, same params (``_family_parity_params``) and drawn extras:
+    the greedy tokens of a FAMILY_PARITY prompt and each step's logits,
+    within LLM_PARITY_TOL of the largest |logit|.  Where the tokens
+    differ, the CPU's top-2 margin there must be inside that tolerance
+    (the logits then decide nothing)."""
+    import numpy as np
+    import torch
+    over = dict(num_layers=2)
+    if cfg.encoder_layers:
+        over["encoder_layers"] = 2
+    if cfg.cross_attn_every:
+        over["cross_attn_every"] = 2
+    cfg = dataclasses.replace(cfg, **over)
+    tag = f"[families-parity {cfg.name}]"
+    params = _family_parity_params(cfg)
+    cpu_params = _tree_to(params, "cpu")
+    prompt = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, FAMILY_PARITY["prompt"]).astype(np.int32)
+    n = FAMILY_PARITY["tokens"]
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        before = _llm_counts()
+        out[dev] = _family_greedy(cfg, p, drawn_extras(cfg, dev), prompt, n,
+                                  dev)
+        if dev == "cuda":
+            after = _llm_counts()
+            want = expected_launches(cfg, 1, n)
+            check({k: after[k] - before[k] for k in after} == want,
+                  f"{tag} card launches {after} - {before}, want {want}")
+    del params
+    torch.cuda.empty_cache()
+    (tc, lc), (tp, lp) = out["cuda"], out["cpu"]
+    scale = max(float(x.abs().max()) for x in lp)
+    err = max(float((a - b).abs().max()) for a, b in zip(lc, lp))
+    tol = LLM_PARITY_TOL * scale
+    same = next((i for i in range(n) if tc[i] != tp[i]), n)
+    check(all(float((lc[i] - lp[i]).abs().max()) <= tol
+              for i in range(same)),
+          f"{tag} logits, card vs CPU: max abs err {err:.3g} over {tol:.3g}")
+    margin = None
+    if same < n:
+        top2 = torch.topk(lp[same], 2).values
+        margin = float(top2[0] - top2[1])
+        log(f"{tag} tokens differ at step {same}: card {tc[same]}, CPU "
+            f"{tp[same]}; CPU top-2 margin {margin:.3g}")
+        check(margin <= tol, f"{tag} tokens differ at step {same} with a "
+              f"top-2 margin {margin:.3g} over {tol:.3g}")
+    log(f"{tag} prompt {len(prompt)}, {n} greedy tokens: card {tc}, CPU "
+        f"{tp} ({'equal' if same == n else 'differ within the margin'}); "
+        f"logits max abs err {err:.3g} at |logit| <= {scale:.3g} "
+        f"(tolerance {LLM_PARITY_TOL} x {scale:.3g}); weights normal(0, "
+        f"{LLM_PARITY_STD})"
+        + (f", gates uniform{FAMILY_GATES}" if cfg.cross_attn_every else "")
+        + "; extras normal(0, 1)")
+    return dict(layers=cfg.num_layers, tokens_card=tc, tokens_cpu=tp,
+                logits_max_abs_err=err, logits_scale=scale, tol=tol,
+                equal=same == n, margin=margin)
+
+
+def family_launcher(card, cfg, g):
+    """``python -m repro_torch.launch.serve --arch <cfg> --requests
+    FAMILY_LAUNCHER_REQUESTS`` in a child process on the card this
+    process has released (``--layers`` for the cut VLM), with deadlines
+    of 5..30 g(6) from phase families' fit, so that the plan fits the
+    launcher's --max-len; exit 0, a line per request with its tokens,
+    both quality penalties."""
+    import re
+    import numpy as np
+    import torch
+    from repro_torch.core.delay_model import DelayModel
+    torch.cuda.empty_cache()
+    n = FAMILY_LAUNCHER_REQUESTS
+    gm = DelayModel(a=g[0], b=g[1])
+    deadlines = [float(m * gm.g(n)) for m in np.linspace(5.0, 30.0, n)]
+    args = ["--arch", cfg.name, "--requests", str(n),
+            "--deadlines", ",".join(f"{d:.6f}" for d in deadlines)]
+    if cfg.family == "vlm":
+        args += ["--layers", str(cfg.num_layers)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=MOE_LAUNCHER_TIMEOUT)
+    secs = time.perf_counter() - t0
+    tag = f"[families-launcher {cfg.name}]"
+    for line in proc.stdout.splitlines():
+        if line.strip():
+            log(f"{tag} | {line}")
+    check(proc.returncode == 0, f"{' '.join(cmd[1:])} exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    rows = [m.groups() for m in re.finditer(
+        r"^ *(\d+) +([\d.]+) +(\d+)  \[([\d, ]*)\]$", proc.stdout, re.M)]
+    pen = re.search(r"mean quality penalty: stacking=([\d.]+) "
+                    r"greedy=([\d.]+)", proc.stdout)
+    check(len(rows) == n and pen is not None,
+          f"{tag} the launcher printed {len(rows)} request rows of {n} and "
+          f"{'no' if pen is None else 'its'} quality penalties")
+    for rid, _, count, toks in rows:
+        check(len([t for t in toks.split(",") if t.strip()]) == int(count),
+              f"{tag} request {rid}: {count} tokens, printed {toks!r}")
+    log(f"{tag} exit 0 in {secs:.1f} s on {card}; tokens per request "
+        f"{[int(r[2]) for r in rows]}; mean quality penalty stacking "
+        f"{pen.group(1)}, greedy {pen.group(2)}")
+    return dict(cmd=cmd[1:], seconds=secs, tokens=[int(r[2]) for r in rows],
+                penalty_stacking=float(pen.group(1)),
+                penalty_greedy=float(pen.group(2)))
+
+
+def phase_families(card):
+    """Phase families: whisper-tiny and xlstm-125m at full width and
+    depth, llama-3.2-vision-90b at full width and FAMILY_VLM_LAYERS
+    layers, each through ``family_path`` (serving, exact launches, the
+    kernels at every shape, a trace), ``family_parity`` (2 layers, card
+    vs CPU) and ``family_launcher``.  Returns the kernels' {model:
+    {name: summary with launches}} and the details."""
+    import torch
+    t_phase = time.perf_counter()
+    per_model, details = {}, {}
+    for cfg in family_configs():
+        label = f"{cfg.name} ({cfg.num_layers} layers)"
+        t0 = time.perf_counter()
+        per_model[label], det = family_path(card, cfg)
+        torch.cuda.empty_cache()
+        det["parity"] = family_parity(cfg)
+        det["launcher"] = family_launcher(card, cfg, det["g"])
+        det["seconds"] = time.perf_counter() - t0
+        details[label] = det
+        log(f"[families] {label}: {det['seconds']:.1f} s")
+    details["seconds"] = time.perf_counter() - t_phase
+    log(f"[done] phase families {details['seconds']:.1f} s on {card}")
+    return per_model, details
 
 
 # ---------------------------------------------------------------------------
@@ -3169,7 +3679,9 @@ def main() -> int:
     for cfg in (TINYLLAMA, ZAMBA2):
         per_model[cfg.name], llm[cfg.name] = phase_llm(card, cfg)
     moe_models, moe = phase_moe(card)
-    llm_kernels = merge_kernel_summaries({**per_model, **moe_models})
+    family_models, families = phase_families(card)
+    llm_kernels = merge_kernel_summaries({**per_model, **moe_models,
+                                          **family_models})
     train_launches, train = phase_train(card)
     plan = phase_plan(card)
     for entry in llm_kernels:
@@ -3178,7 +3690,8 @@ def main() -> int:
             path: sum(k[name]["launches"] for k in models.values()
                       if name in k)
             for path, models in (("llm_decode", per_model),
-                                 ("moe", moe_models))}
+                                 ("moe", moe_models),
+                                 ("families", family_models))}
         if name in train_launches:
             entry["launches_by_path"]["train"] = train_launches[name]
             entry["launches"] += train_launches[name]
@@ -3190,7 +3703,8 @@ def main() -> int:
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         kernel=kernel, kernel_rows=rows, main=main_path, trace=trace,
         parity=parity, bucketed=bucketed, closed=closed, fleet=fleet,
-        llm_kernels=llm_kernels, llm=llm, moe=moe, train=train, plan=plan,
+        llm_kernels=llm_kernels, llm=llm, moe=moe, families=families,
+        train=train, plan=plan,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -159,6 +159,14 @@ class DecodeWorkload:
         if self._engine is None:
             cfg = self.cfg if self.cfg is not None \
                 else smoke_variant(get_config(self.arch))
+            if cfg.family in ("audio", "vlm"):
+                # the reference builds this engine without the modality
+                # extras these families read, and cannot serve them here
+                raise NotImplementedError(
+                    f"DecodeWorkload: the {cfg.family} family ({cfg.name}) "
+                    f"needs modality extras, which DecodeWorkload does not "
+                    f"give its engine (nor does the reference's); serve it "
+                    f"through serving.engine.ServingEngine(extras=...)")
             params = self.params
             if params is None:
                 params = models_api.init_model(

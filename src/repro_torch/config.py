@@ -7,7 +7,8 @@ is field-for-field the reference's (``dataclasses.asdict`` compares them
 in ``tests/test_torch_llm_config.py``).
 
 The registry holds the archs the port runs: ``tinyllama-1.1b``,
-``zamba2-2.7b``, ``deepseek-moe-16b`` and ``qwen3-moe-30b-a3b`` (one
+``zamba2-2.7b``, ``deepseek-moe-16b``, ``qwen3-moe-30b-a3b``,
+``whisper-tiny``, ``xlstm-125m`` and ``llama-3.2-vision-90b`` (one
 module each under ``repro_torch/configs/``).  ``get_config`` of an arch
 the reference has but the port has not reached yet raises with its name.
 The transformer raises ``NotImplementedError`` for the ``RunConfig``
@@ -215,7 +216,8 @@ def list_archs() -> list:
 
 def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401
-        deepseek_moe_16b, qwen3_moe_30b_a3b, tinyllama_1_1b, zamba2_2_7b)
+        deepseek_moe_16b, llama_3_2_vision_90b, qwen3_moe_30b_a3b,
+        tinyllama_1_1b, whisper_tiny, xlstm_125m, zamba2_2_7b)
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

@@ -39,7 +39,7 @@ def _entry():
     return fn
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, causal, window):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q must be (B,Sq,H,D) and k, v "
                          f"(B,Skv,KV,D), got {tuple(q.shape)}, "
@@ -52,9 +52,10 @@ def _check(q, k, v, window):
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {D} not in "
                          f"{HEAD_DIMS}")
-    if Sq > Skv:
-        raise ValueError(f"flash_attention: Sq={Sq} > Skv={Skv}; queries "
-                         f"align to the end of the keys")
+    if Sq > Skv and (causal or window):
+        raise ValueError(f"flash_attention: Sq={Sq} > Skv={Skv} with a "
+                         f"causal or window mask; queries align to the end "
+                         f"of the keys")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one type, "
                         f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
@@ -87,9 +88,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Softmax attention of q (B,Sq,H,D) over k, v (B,Skv,KV,D), query
     head h reading KV head h // (H/KV); query i sits at key position
-    i + Skv - Sq (ends aligned).  f32 scores and accumulation; output in
-    q's type."""
-    _check(q, k, v, window)
+    i + Skv - Sq (ends aligned), which only a causal or window mask
+    reads: without one (cross attention) Sq may exceed Skv.  f32 scores
+    and accumulation; output in q's type."""
+    _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     return with_grad(_launch, attention_ref, (q, k, v), causal=causal,
@@ -109,8 +111,10 @@ def _launch(q, k, v, causal, window):
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
+    # the kernel reads q_offset only through a causal or window mask
+    q_offset = Skv - Sq if causal or window else 0
     rc = launch(_entry(), q.get_device(), qp, kp, vp, o.data_ptr(), B, Sq, Skv,
-                H, KV, D, int(bool(causal)), int(window), Skv - Sq,
+                H, KV, D, int(bool(causal)), int(window), q_offset,
                 1.0 / math.sqrt(D), _DTYPES[q.dtype])
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -2,7 +2,8 @@
 
 A CPU tensor goes to the plain version (``ref.ssd_scan_ref``); a CUDA
 tensor launches the kernel of ``csrc/ssd_scan.cu`` or raises.  The
-per-head (4-D B/C) form serves xLSTM only and is not ported.
+per-head (4-D B/C) form serves xLSTM only; the TPU kernel never took
+it, and ``models.ssm.ssd_chunked`` runs it in plain torch ops.
 Under grad mode, when an input needs a gradient, the launch goes through
 ``kernels.KernelFunction``: the kernel's forward, and as backward the plain
 version's autograd recomputed from the saved inputs
@@ -39,7 +40,9 @@ def _check(x, a, bmat, cmat, h0, chunk):
     if bmat.dim() == 4 or cmat.dim() == 4:
         raise NotImplementedError(
             "ssd_scan: per-head (B,S,H,N) B/C (the xLSTM form) is not "
-            "ported; only B/C shared across heads, (B,S,N)")
+            "this kernel's, nor was it the TPU kernel's; "
+            "models.ssm.ssd_chunked runs it in plain torch.  The kernel "
+            "takes B/C shared across heads, (B,S,N)")
     if x.dim() != 4 or a.dim() != 3 or bmat.dim() != 3 or h0.dim() != 4:
         raise ValueError(f"ssd_scan: x must be (B,S,H,P), a (B,S,H), "
                          f"bmat/cmat (B,S,N), h0 (B,H,P,N); got "

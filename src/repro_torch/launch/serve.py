@@ -4,7 +4,12 @@
         --smoke --requests 6 [--deadlines 0.2,0.5,1.0] [--device cpu]
 
 The port of ``repro.launch.serve`` with its options, plus ``--device``
-(default ``cuda``; without a card it raises unless ``--device cpu``).
+(default ``cuda``; without a card it raises unless ``--device cpu``) and
+``--layers N``, which cuts the model to its first N layers at full
+width (llama-3.2-vision-90b's 100 layers do not fit one card; 10 do).
+whisper-tiny and llama-3.2-vision-90b are served against the
+reference's stub modality inputs (zero audio frames, 0.02 vision
+embeddings), batch 1, which the engine expands to each prefill's rows.
 Submits synthetic prompts with heterogeneous deadlines, calibrates the
 decode delay model on the device (the paper's Fig.-1a procedure), plans
 token budgets with STACKING (Alg. 1), validates and executes the plan
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.config import RunConfig, get_config, smoke_variant
+from repro_torch.config import RunConfig, get_config, replace, smoke_variant
 from repro_torch.core.baselines import greedy_batching
 from repro_torch.core.delay_model import DelayModel
 from repro_torch.core.service import ServiceRequest
@@ -46,6 +51,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers (0: all)")
     return ap.parse_args(argv)
 
 
@@ -57,9 +64,12 @@ def serve(argv=None, delay: Optional[DelayModel] = None,
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if args.layers:
+        cfg = replace(cfg, num_layers=args.layers)
     dev = resolve_device(args.device)
     card = card_line(dev)
-    echo(f"arch={cfg.name} params~{cfg.param_count() / 1e6:.1f}M {card}")
+    echo(f"arch={cfg.name} layers={cfg.num_layers} "
+         f"params~{cfg.param_count() / 1e6:.1f}M {card}")
     t0 = time.perf_counter()
     params = api.init_model(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
@@ -68,7 +78,7 @@ def serve(argv=None, delay: Optional[DelayModel] = None,
     init_s = time.perf_counter() - t0
     echo(f"params drawn on {dev} in {init_s:.1f}s")
     run = RunConfig()
-    extras = api.extra_input_specs(cfg, 1, abstract=False)
+    extras = api.extra_input_specs(cfg, 1, abstract=False, device=dev)
     eng = ServingEngine(cfg, params, run, max_len=args.max_len,
                         extras=extras, device=dev)
 

@@ -1,8 +1,9 @@
 """Model API: model lookup, step factories and initialisation.
 
-The port of ``repro.models.api`` for the families the port runs: the
-transformer (dense and MoE) and the hybrid Mamba2 + shared-attention
-model (zamba2).  Each model module exposes ``schema``, ``forward``,
+The port of ``repro.models.api`` for all six of the reference's
+families: the transformer (dense, MoE and the cross-attention VLM), the
+hybrid Mamba2 + shared-attention model (zamba2), whisper (audio) and
+xLSTM (ssm).  Each model module exposes ``schema``, ``forward``,
 ``prefill``, ``decode_step`` and ``init_cache``.  ``make_train_step``
 builds the training loss (the reference's name for it: it returns the
 loss function, not a step).
@@ -13,27 +14,41 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig, RunConfig
-from repro_torch.models import transformer, zamba2
+from repro_torch.models import transformer, whisper, xlstm_model, zamba2
 from repro_torch.models.params import init_params
 
 
 def get_model(cfg: ModelConfig):
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return transformer
+    if cfg.family == "audio":
+        return whisper
     if cfg.family == "hybrid":
         return zamba2
-    raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
-                              f"ported (the port runs 'dense', 'moe' and "
-                              f"'hybrid')")
+    if cfg.family == "ssm":
+        return xlstm_model
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def extra_input_specs(cfg: ModelConfig, batch: int, abstract: bool = True,
-                      dtype: torch.dtype = torch.bfloat16):
-    """The modality-frontend inputs of ``cfg`` (the reference's audio
-    frames and vision embeddings): None for the families the port runs,
-    which take none.  The other families raise, as ``get_model``."""
+                      dtype: torch.dtype = torch.bfloat16, device="cuda"):
+    """The modality front ends' stub inputs, as the reference gives
+    them: zeros ``audio_frames`` (B, num_audio_frames, d_model) for the
+    audio family, ``0.02 * ones`` ``vision_embeds`` (B,
+    num_vision_tokens, d_model) for the VLM, on ``device`` (the meta
+    device when ``abstract``); None for the families that take none."""
     get_model(cfg)
-    return None
+    device = "meta" if abstract else device
+    extras = {}
+    if cfg.family == "audio":
+        extras["audio_frames"] = torch.zeros(
+            (batch, cfg.num_audio_frames, cfg.d_model), dtype=dtype,
+            device=device)
+    if cfg.family == "vlm":
+        extras["vision_embeds"] = torch.full(
+            (batch, cfg.num_vision_tokens, cfg.d_model), 0.02, dtype=dtype,
+            device=device)
+    return extras or None
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig):

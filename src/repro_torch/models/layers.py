@@ -147,6 +147,12 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
+def q_project(p, x: torch.Tensor) -> torch.Tensor:
+    """The query projection alone, einsum("bsd,dhk->bshk") with wq
+    (cross-attention decode, whose k and v sit in the cross cache)."""
+    return _project(x, p["wq"])
+
+
 def qkv_project(cfg, p, x, kv_x=None, positions=None, rope: bool = True,
                 rope_tab=None):
     """Returns q (B,S,H,D), k/v (B,Skv,KV,D).  ``rope_tab``: the
@@ -177,19 +183,22 @@ def out_project(p, o: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0):
-    """Softmax attention of q (B,S,H,D) over k, v (B,S,KV,D) with GQA,
+    """Softmax attention of q (B,Sq,H,D) over k, v (B,Skv,KV,D) with GQA,
     through the flash-attention kernel's wrapper.
 
-    Only Sq == Skv is ported.  There the reference's choices agree: its
-    jnp path aligns the starts of q and k (``q_offset=0``) and its Pallas
-    kernel the ends (``q_offset = Skv - Sq``).  Cross and continuation
-    attention (Sq != Skv) come with the model families that need them,
-    so they raise here on every device.
+    At Sq == Skv the reference's choices agree: its jnp path aligns the
+    starts of q and k (``q_offset=0``) and its Pallas kernel the ends
+    (``q_offset = Skv - Sq``).  Cross attention (Sq != Skv, not causal,
+    no window: whisper's and the VLM's memory) masks nothing, so where
+    q sits against k is moot and either length may be the larger.
+    Continuation attention (Sq != Skv, causal or windowed) is not
+    ported and raises on every device.
     """
-    if q.shape[1] != k.shape[1]:
+    if q.shape[1] != k.shape[1] and (causal or window):
         raise NotImplementedError(
-            f"chunked_attention: Sq={q.shape[1]} != Skv={k.shape[1]} "
-            f"(cross or continuation attention) is not ported")
+            f"chunked_attention: Sq={q.shape[1]} != Skv={k.shape[1]} with "
+            f"causal={causal}, window={window} (continuation attention) "
+            f"is not ported")
     return flash_ops.flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -10,7 +10,8 @@ Prefill runs ``ssd_chunked``: chunks of Q steps, the masked-decay
 quadratic form inside a chunk, the state carried across chunks.  Its
 shared-B/C form goes through the ``ssd_scan`` kernel's wrapper (a CPU
 tensor takes the plain version, a CUDA tensor the hand-written kernel);
-the per-head form (xLSTM's) is not ported and raises.  Decode is the
+the per-head form (xLSTM's mLSTM) is the reference's jnp branch in
+plain torch ops on every device: it was never a TPU kernel.  Decode is the
 O(1) recurrence in plain torch ops, as the reference gave it no kernel.
 Leaves keep the reference's layouts (``in_zx (d, 2 d_in)``, ``conv_w
 (W, C)``, ``out (d_in, d)``).
@@ -26,6 +27,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import P
+
+NEG_INF = -1e30
 
 
 def ssm_dims(cfg) -> Tuple[int, int, int]:
@@ -81,17 +84,50 @@ def ssd_chunked(xh, dt_a, bmat, cmat, h0, *, chunk: int = 128):
 
     xh:   (B, S, H, P)   inputs (already scaled by dt)
     dt_a: (B, S, H)      per-step log decay (dt * A, negative)
-    bmat, cmat: (B, S, N) shared across heads (Mamba2 G=1)
+    bmat, cmat: (B, S, N) shared across heads (Mamba2 G=1), through the
+                ssd_scan kernel's wrapper, or (B, S, H, N) per head (the
+                mLSTM's keys and queries), in plain torch ops
     h0:   (B, H, P, N)   incoming state
     Returns y (B, S, H, P), h_final (float32).  S must be a multiple of
-    min(chunk, S).  Per-head (B, S, H, N) B/C, the mLSTM form, raises
-    ``NotImplementedError``."""
+    min(chunk, S)."""
     S = xh.shape[1]
     Q = min(chunk, S)
     assert S % Q == 0
+    if bmat.dim() == 4:
+        return _ssd_chunked_per_head(xh, dt_a, bmat, cmat, h0, Q)
     return ssd_ops.ssd_scan(xh.contiguous(), dt_a.contiguous(),
                             bmat.contiguous(), cmat.contiguous(),
                             h0.float().contiguous(), chunk=Q)
+
+
+def _ssd_chunked_per_head(xh, dt_a, bmat, cmat, h0, Q: int):
+    """The reference's jnp scan with per-head B/C, chunk by chunk: the
+    incoming state's decayed contribution, the masked-decay quadratic
+    form inside the chunk, and the state carried on.  Sums in float32;
+    y in xh's type."""
+    B, S, H, Pd = xh.shape
+    h = h0.float()
+    idx = torch.arange(Q, device=xh.device)
+    tri = (idx[:, None] >= idx[None, :])[None, :, :, None]    # k <= q
+    ys = []
+    for c0 in range(0, S, Q):
+        x32 = xh[:, c0:c0 + Q].float()                      # (B,Q,H,P)
+        b_ = bmat[:, c0:c0 + Q].float()                     # (B,Q,H,N)
+        c_ = cmat[:, c0:c0 + Q].float()
+        cum = torch.cumsum(dt_a[:, c0:c0 + Q].float(), dim=1)   # (B,Q,H)
+        total = cum[:, -1]                                  # (B,H)
+        y_off = torch.einsum("bqhn,bhpn->bqhp", c_, h) \
+            * torch.exp(cum)[..., None]
+        scores = torch.einsum("bqhn,bkhn->bqkh", c_, b_)    # (B,Q,Q,H)
+        logdec = (cum[:, :, None, :] - cum[:, None, :, :]).masked_fill(
+            ~tri, NEG_INF)
+        y_diag = torch.einsum("bqkh,bkhp->bqhp", scores * torch.exp(logdec),
+                              x32)
+        w = torch.exp(total[:, None] - cum)                 # (B,Q,H)
+        h = h * torch.exp(total)[..., None, None] \
+            + torch.einsum("bqhp,bqhn,bqh->bhpn", x32, b_, w)
+        ys.append((y_off + y_diag).to(xh.dtype))
+    return torch.cat(ys, dim=1), h
 
 
 def mamba2_forward(cfg, p, u, state=None, *, chunk: int = 128):

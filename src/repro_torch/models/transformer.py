@@ -1,19 +1,25 @@
-"""Decoder-only transformer LM, dense and MoE families, in PyTorch.
+"""Decoder-only transformer LM, dense, MoE and VLM families, in PyTorch.
 
 The port of ``repro.models.transformer`` for the dense family
-(``tinyllama-1.1b``) and the MoE family (``deepseek-moe-16b``,
+(``tinyllama-1.1b``), the MoE family (``deepseek-moe-16b``,
 ``qwen3-moe-30b-a3b``: each layer's MLP is ``models/moe.py``'s routed
-experts): ``schema``, ``forward``, ``init_cache``, ``prefill`` and
+experts) and the VLM family (``llama-3.2-vision-90b``: groups of
+``cross_attn_every - 1`` self layers and one cross-attention layer over
+the vision embeddings, its two residuals scaled by tanh gates):
+``schema``, ``forward``, ``init_cache``, ``prefill`` and
 ``decode_step``.  Layer weights stay *stacked* (each leaf ``(L, ...)``,
-as the reference keeps them), and a Python loop over layer views takes
-the place of the reference's ``lax.scan``.
+or ``(G, n_self, ...)`` and ``(G, ...)`` in the VLM's groups, as the
+reference keeps them), and Python loops over layer views take the place
+of the reference's ``lax.scan``.
 
 Per forward: 2 RMSNorms per layer plus the final one (45 at 22 layers),
 2 more per layer with per-head q/k norm (qwen3: 4L+1), one
 flash-attention call per layer at prefill and one flash-decode call per
-layer at each decode step.  ``forward`` returns the MoE load-balance
-loss summed over layers, as the reference's scan carry does; ``prefill``
-and ``decode_step`` drop it.
+layer at each decode step; a cross layer counts as a layer (its
+attention runs over the memory, not causal, and its decode over the
+cross cache of ``num_vision_tokens`` rows).  ``forward`` returns the
+MoE load-balance loss summed over layers, as the reference's scan carry
+does; ``prefill`` and ``decode_step`` drop it.
 
 The default decode path is the reference's non-in-place one: each step
 returns a new cache and leaves the caller's as it was.  ``forward`` is
@@ -22,12 +28,14 @@ recomputes each layer in the backward (``torch.utils.checkpoint``, as
 the reference's ``jax.checkpoint`` of its scan body), and ``"full"`` and
 ``"group"`` do what they do in the reference's dense transformer without
 cross-attention: nothing.  ``RunConfig`` knobs this port does not
-implement raise ``NotImplementedError`` (``check_run``);
-cross-attention configs raise too.
+implement raise ``NotImplementedError`` (``check_run``).  The VLM
+family serves only: under ``remat`` or with a parameter that needs a
+gradient it raises (``check_inference``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -37,10 +45,11 @@ from repro_torch.config import ModelConfig, RunConfig
 from repro_torch.models import kv_cache
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, attn_schema, chunked_attention, decode_attention,
-    embed, embed_schema, mlp_schema, norm_schema, out_project, qkv_project,
-    rope_tables, unembed)
+    embed, embed_schema, mlp_schema, norm_schema, out_project, q_project,
+    qkv_project, rope_tables, unembed)
 from repro_torch.models.moe import apply_moe, moe_schema
 from repro_torch.models.params import P, map_schema
+from repro_torch.training.optimizer import leaves
 
 # RunConfig fields the port does not implement, with the value that
 # means "off" (the reference's default)
@@ -51,9 +60,6 @@ _UNPORTED_KNOBS = {"decode_inplace_cache": False, "decode_slice_reads": False,
 
 def check_run(cfg: ModelConfig, run: RunConfig) -> None:
     """Raise for what this port of the transformer does not implement."""
-    if cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention layers are not ported")
     for name, off in _UNPORTED_KNOBS.items():
         if getattr(run, name) != off:
             raise NotImplementedError(
@@ -61,6 +67,25 @@ def check_run(cfg: ModelConfig, run: RunConfig) -> None:
                 f"(only {off!r})")
     if run.prefill_logits not in ("all", "last"):
         raise ValueError(f"prefill_logits={run.prefill_logits!r}")
+
+
+def check_inference(cfg: ModelConfig, run: RunConfig, params) -> None:
+    """``check_run`` for the audio, ssm and vlm families, which are
+    ported for serving only: raise under ``remat`` too, and when grad
+    mode is on and a parameter needs a gradient.  Their training is
+    ROADMAP queue 1 item 6."""
+    check_run(cfg, run)
+    if run.remat != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: RunConfig.remat={run.remat!r} is not ported for "
+            f"the {cfg.family} family (serving only; its training is "
+            f"ROADMAP queue 1 item 6)")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in leaves(params)):
+        raise NotImplementedError(
+            f"{cfg.name}: gradients through the {cfg.family} family are "
+            f"not ported (serving only; its training is ROADMAP queue 1 "
+            f"item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -83,9 +108,29 @@ def _layer_schema(cfg: ModelConfig):
     return s
 
 
+def _cross_layer_schema(cfg: ModelConfig):
+    return {"ln1": norm_schema(cfg), "attn": attn_schema(cfg),
+            "ln2": norm_schema(cfg), "mlp": mlp_schema(cfg),
+            "gate_attn": P((1,), init="zeros"),
+            "gate_mlp": P((1,), init="zeros")}
+
+
+def cross_groups(cfg: ModelConfig):
+    """(groups, self layers a group) of a VLM config; layers past the
+    last whole group are dropped, as in the reference."""
+    return cfg.num_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+
+
 def schema(cfg: ModelConfig):
-    return {"embed": embed_schema(cfg), "final_norm": norm_schema(cfg),
-            "layers": stack_schema(_layer_schema(cfg), cfg.num_layers)}
+    s = {"embed": embed_schema(cfg), "final_norm": norm_schema(cfg)}
+    if cfg.cross_attn_every:
+        G, n_self = cross_groups(cfg)
+        s["groups"] = {
+            "self": stack_schema(stack_schema(_layer_schema(cfg), n_self), G),
+            "cross": stack_schema(_cross_layer_schema(cfg), G)}
+    else:
+        s["layers"] = stack_schema(_layer_schema(cfg), cfg.num_layers)
+    return s
 
 
 def layer_params(stacked, i: int):
@@ -146,6 +191,32 @@ def block_decode(cfg, lp, x, pos, kc, vc, run: RunConfig, rope_tab, index):
     return x + h, aux
 
 
+def cross_attn_seq(cfg, lp, x, memory):
+    """The VLM's cross layer over a full sequence: attention of x to the
+    memory (no rotary, not causal), then the MLP, each residual scaled
+    by the tanh of its gate.  Returns (x, (k, v)) with k, v over the
+    memory."""
+    h = apply_norm(cfg, lp["ln1"], x)
+    q, k, v = qkv_project(cfg, lp["attn"], h, kv_x=memory, rope=False)
+    o = chunked_attention(q, k, v, causal=False)
+    x = x + torch.tanh(lp["gate_attn"]) * out_project(lp["attn"], o)
+    h = apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+    return x + torch.tanh(lp["gate_mlp"]) * h, (k, v)
+
+
+def cross_attn_decode(cfg, lp, x, ck, cv, memory_len):
+    """The VLM's cross layer for one token over the cross cache ck, cv
+    (B, Tv, KV, D), of which ``memory_len`` (B,) rows are valid."""
+    h = apply_norm(cfg, lp["ln1"], x)
+    q = q_project(lp["attn"], h)
+    if cfg.use_qkv_bias:
+        q = q + lp["attn"]["bq"]
+    o = decode_attention(q, kv_cache.read(ck), kv_cache.read(cv), memory_len)
+    x = x + torch.tanh(lp["gate_attn"]) * out_project(lp["attn"], o)
+    h = apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+    return x + torch.tanh(lp["gate_mlp"]) * h
+
+
 def _decode_attend(q, kc, vc, pos, run: RunConfig):
     """Attention over one layer's cache (the reference's default branch;
     ``decode_slice_reads`` is not ported)."""
@@ -163,35 +234,63 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
     """tokens: (B, S) -> (logits, aux, kvs or None).  aux is the MoE
     load-balance loss summed over layers (0.0 in the dense family); kvs
     (when collect_kv) are stacked per-layer (L, B, S, KV, D) pairs, the
-    prefill cache."""
-    check_run(cfg, run)
+    prefill cache; in the VLM ((k, v) each (G, n_self, B, S, KV, D),
+    (ck, cv) each (G, B, Tv, KV, D)), as the reference's scan stacks
+    them.  The VLM reads ``extras["vision_embeds"]`` (B, Tv, d)."""
+    if cfg.cross_attn_every:
+        check_inference(cfg, run, params)
+    else:
+        check_run(cfg, run)
     S = tokens.shape[1]
     x = embed(params["embed"], tokens)
     positions = torch.arange(S, dtype=torch.float32,
                              device=tokens.device)[None]
     window = run.decode_window or 0
     tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    ks, vs, aux = [], [], 0.0
-    for lp in unstack(params["layers"]):
+
+    def layer(lp, x):
         if run.remat == "block":
             # recomputed in the backward; the blocks draw no random
             # numbers, so no RNG state is kept
-            x, a, (k, v) = checkpoint(block_seq, cfg, lp, x, positions,
-                                      tab, run, window=window,
-                                      use_reentrant=False,
-                                      preserve_rng_state=False)
-        else:
-            x, a, (k, v) = block_seq(cfg, lp, x, positions, tab, run,
-                                     window=window)
-        aux = aux + a
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
+            return checkpoint(block_seq, cfg, lp, x, positions, tab, run,
+                              window=window, use_reentrant=False,
+                              preserve_rng_state=False)
+        return block_seq(cfg, lp, x, positions, tab, run, window=window)
+
+    ks, vs, cks, cvs, aux = [], [], [], [], 0.0
+    if cfg.cross_attn_every:
+        memory = extras["vision_embeds"].to(x.dtype)
+        groups = params["groups"]
+        for gself, gcross in zip(unstack(groups["self"]),
+                                 unstack(groups["cross"])):
+            gk, gv = [], []
+            for lp in unstack(gself):
+                x, a, (k, v) = layer(lp, x)
+                aux = aux + a
+                gk.append(k)
+                gv.append(v)
+            x, (ck, cv) = cross_attn_seq(cfg, gcross, x, memory)
+            if collect_kv:
+                ks.append(torch.stack(gk))
+                vs.append(torch.stack(gv))
+                cks.append(ck)
+                cvs.append(cv)
+    else:
+        for lp in unstack(params["layers"]):
+            x, a, (k, v) = layer(lp, x)
+            aux = aux + a
+            if collect_kv:
+                ks.append(k)
+                vs.append(v)
     if last_only:
         x = x[:, -1:].contiguous()
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
-    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    kvs = None
+    if collect_kv:
+        kvs = (torch.stack(ks), torch.stack(vs))
+        if cfg.cross_attn_every:
+            kvs = (kvs, (torch.stack(cks), torch.stack(cvs)))
     return logits, aux, kvs
 
 
@@ -199,38 +298,54 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
 # Decode (single token, KV cache)
 # ---------------------------------------------------------------------------
 
-def stacked_kv(cfg: ModelConfig, n: int, batch: int, max_len: int,
+def stacked_kv(cfg: ModelConfig, n, batch: int, max_len: int,
                run: RunConfig, device="cuda"):
-    """One cache buffer (k or v) of zeros for n attention layers: (n, B,
-    max_len, KV, D) in ``run.kv_cache_dtype`` (int8: a dict of q and
-    scales, each stacked)."""
+    """One cache buffer (k or v) of zeros for n attention layers (n an
+    int, or a tuple of leading axes): (*n, B, max_len, KV, D) in
+    ``run.kv_cache_dtype`` (int8: a dict of q and scales, each
+    stacked)."""
+    lead = (n,) if isinstance(n, int) else tuple(n)
     buf = kv_cache.alloc(batch, max_len, cfg.num_kv_heads,
                          cfg.resolved_head_dim, run.kv_cache_dtype, device)
     if isinstance(buf, dict):
-        return {k: v.expand((n,) + v.shape).clone() for k, v in buf.items()}
-    return buf.expand((n,) + buf.shape).clone()
+        return {k: v.expand(lead + v.shape).clone() for k, v in buf.items()}
+    return buf.expand(lead + buf.shape).clone()
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
                device="cuda"):
     """{"pos": (B,) int32, "k"/"v": (L, B, max_len, KV, D)} of zeros
-    (int8: dicts of q and scales).  ``device="meta"`` gives shapes
-    only."""
+    (int8: dicts of q and scales); the VLM's "k"/"v" are (G, n_self, B,
+    max_len, KV, D), and its "cross_k"/"cross_v" (G, B, Tv, KV, D).
+    ``device="meta"`` gives shapes only."""
     check_run(cfg, run)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if cfg.cross_attn_every:
+        G, n_self = cross_groups(cfg)
+        Tv = cfg.num_vision_tokens
+        return {"pos": pos,
+                "k": stacked_kv(cfg, (G, n_self), batch, max_len, run,
+                                device),
+                "v": stacked_kv(cfg, (G, n_self), batch, max_len, run,
+                                device),
+                "cross_k": stacked_kv(cfg, G, batch, Tv, run, device),
+                "cross_v": stacked_kv(cfg, G, batch, Tv, run, device)}
     L = cfg.num_layers
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    return {"pos": pos,
             "k": stacked_kv(cfg, L, batch, max_len, run, device),
             "v": stacked_kv(cfg, L, batch, max_len, run, device)}
 
 
 def write_stacked(buf, new: torch.Tensor, pos: torch.Tensor):
-    """kv_cache.write_ over a leading layer axis, in place: buf
-    (L, B, S, ...) and new (L, B, S_new, ...) fold L into the batch."""
-    L, B = new.shape[0], new.shape[1]
-    flat_pos = pos.repeat(L)
+    """kv_cache.write_ over the leading layer axes, in place: buf
+    (*lead, B, S, ...) and new (*lead, B, S_new, KV, D) fold the lead
+    axes into the batch."""
+    nl = new.dim() - 4
+    n, B = math.prod(new.shape[:nl]), new.shape[nl]
+    flat_pos = pos.repeat(n)
 
     def fold(t):
-        return t.reshape((L * B,) + t.shape[2:])
+        return t.reshape((n * B,) + t.shape[nl + 1:])
     if isinstance(buf, dict):
         kv_cache.write_({k: fold(v) for k, v in buf.items()}, fold(new),
                         flat_pos)
@@ -244,11 +359,16 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
     """Run the full prompt, build a max_len cache.  Returns (logits,
     cache)."""
     B, S = tokens.shape
-    logits, _, (k_new, v_new) = forward(
+    logits, _, kvs = forward(
         cfg, params, tokens, run, extras, collect_kv=True,
         last_only=run.prefill_logits == "last")
     cache = init_cache(cfg, B, max_len, run, tokens.device)
     pos0 = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+    if cfg.cross_attn_every:
+        kvs, (ck, cv) = kvs
+        write_stacked(cache["cross_k"], ck, pos0)
+        write_stacked(cache["cross_v"], cv, pos0)
+    k_new, v_new = kvs
     write_stacked(cache["k"], k_new, pos0)
     write_stacked(cache["v"], v_new, pos0)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32,
@@ -259,19 +379,39 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
                 run: RunConfig, extras: Optional[dict] = None):
     """token: (B, 1) -> (logits (B, 1, V), updated cache).  The updated
-    cache is a copy; the one passed in is left as it was."""
-    check_run(cfg, run)
+    cache is a copy (the VLM's cross cache, which a step only reads, is
+    shared with it); the one passed in is left as it was."""
+    if cfg.cross_attn_every:
+        check_inference(cfg, run, params)
+    else:
+        check_run(cfg, run)
     pos = cache["pos"]
     x = embed(params["embed"], token)
     kc_all, vc_all = kv_cache.clone(cache["k"]), kv_cache.clone(cache["v"])
     # shared by every layer: rotary tables and cache write slots
     tab = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
-    S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[2]
+    S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[-3]
     index = kv_cache.write_index(pos, 1, S)
-    for i in range(cfg.num_layers):
-        x, _ = block_decode(cfg, layer_params(params["layers"], i), x, pos,
-                            layer_params(kc_all, i),
-                            layer_params(vc_all, i), run, tab, index)
+    if cfg.cross_attn_every:
+        G, n_self = cross_groups(cfg)
+        mem_len = torch.full((token.shape[0],), cfg.num_vision_tokens,
+                             dtype=torch.int32, device=token.device)
+        for g in range(G):
+            gself = layer_params(params["groups"]["self"], g)
+            kc, vc = layer_params(kc_all, g), layer_params(vc_all, g)
+            for i in range(n_self):
+                x, _ = block_decode(cfg, layer_params(gself, i), x, pos,
+                                    layer_params(kc, i), layer_params(vc, i),
+                                    run, tab, index)
+            x = cross_attn_decode(
+                cfg, layer_params(params["groups"]["cross"], g), x,
+                layer_params(cache["cross_k"], g),
+                layer_params(cache["cross_v"], g), mem_len)
+    else:
+        for i in range(cfg.num_layers):
+            x, _ = block_decode(cfg, layer_params(params["layers"], i), x,
+                                pos, layer_params(kc_all, i),
+                                layer_params(vc_all, i), run, tab, index)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], x)
     return logits, dict(cache, k=kc_all, v=vc_all, pos=pos + 1)

@@ -1,0 +1,178 @@
+"""Whisper-tiny [arXiv:2212.04356] in PyTorch: an encoder-decoder
+transformer over stub frame embeddings.
+
+The port of ``repro.models.whisper``: ``schema``, ``encode``,
+``forward``, ``init_cache``, ``prefill`` and the non-in-place
+``decode_step``.  The mel-spectrogram and conv front end is a stub, as
+in the reference: the model reads precomputed frame embeddings
+``extras["audio_frames"]`` (B, num_audio_frames, d_model)
+(``models.api.extra_input_specs``).
+
+Encoder: bidirectional self attention over the frames, no rotary.
+Decoder, per layer: causal self attention (rotary), cross attention to
+the encoder output (no rotary, not causal), then the MLP; layernorm and
+the tanh GELU.  Layer weights stay stacked ``(L, ...)`` and Python loops
+over layer views take the place of the reference's ``lax.scan``.
+
+Per prefill: one flash-attention call per encoder layer, two per decoder
+layer (self and cross); per decode step two flash-decode calls per
+decoder layer, the cross one over the cross cache with ``cur_len =
+num_audio_frames``.  Whisper's norms are layernorms: no RMSNorm launch.
+The cache holds ``pos``, the self k/v (L, B, max_len, KV, D) and the
+cross k/v (L, B, num_audio_frames, KV, D), written once at prefill.
+Serving only: ``remat`` and gradients raise
+(``transformer.check_inference``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config import ModelConfig, RunConfig
+from repro_torch.models import kv_cache
+from repro_torch.models.layers import (
+    apply_mlp, apply_norm, attn_schema, chunked_attention, decode_attention,
+    embed, embed_schema, mlp_schema, norm_schema, out_project, q_project,
+    qkv_project, rope_tables, unembed)
+from repro_torch.models.transformer import (
+    check_inference, check_run, layer_params, stack_schema, stacked_kv,
+    unstack, write_stacked)
+
+
+def _enc_layer_schema(cfg):
+    return {"ln1": norm_schema(cfg), "attn": attn_schema(cfg),
+            "ln2": norm_schema(cfg), "mlp": mlp_schema(cfg)}
+
+
+def schema(cfg: ModelConfig):
+    dec_layer = {"ln1": norm_schema(cfg), "attn": attn_schema(cfg),
+                 "ln_cross": norm_schema(cfg), "cross": attn_schema(cfg),
+                 "ln2": norm_schema(cfg), "mlp": mlp_schema(cfg)}
+    return {
+        "embed": embed_schema(cfg),
+        "enc_layers": stack_schema(_enc_layer_schema(cfg),
+                                   cfg.encoder_layers),
+        "enc_norm": norm_schema(cfg),
+        "dec_layers": stack_schema(dec_layer, cfg.num_layers),
+        "final_norm": norm_schema(cfg),
+    }
+
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, run: RunConfig):
+    """frames: (B, F, d) stub embeddings -> encoder output (B, F, d)."""
+    x = frames.to(params["embed"]["tok"].dtype)
+    for lp in unstack(params["enc_layers"]):
+        h = apply_norm(cfg, lp["ln1"], x)
+        q, k, v = qkv_project(cfg, lp["attn"], h, rope=False)
+        x = x + out_project(lp["attn"], chunked_attention(q, k, v,
+                                                          causal=False))
+        x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+    return apply_norm(cfg, params["enc_norm"], x)
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
+            extras: Optional[dict] = None, collect_kv: bool = False,
+            last_only: bool = False):
+    """Teacher-forced decoder over the encoded frames: tokens (B, S) ->
+    (logits, 0.0, kvs or None); kvs (when collect_kv) are the stacked
+    (k, v, ck, cv), each (L, B, ·, KV, D)."""
+    check_inference(cfg, run, params)
+    S = tokens.shape[1]
+    enc_out = encode(cfg, params, extras["audio_frames"], run)
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(S, dtype=torch.float32,
+                             device=tokens.device)[None]
+    tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    kvs = []
+    for lp in unstack(params["dec_layers"]):
+        h = apply_norm(cfg, lp["ln1"], x)
+        q, k, v = qkv_project(cfg, lp["attn"], h, positions=positions,
+                              rope_tab=tab)
+        o = chunked_attention(q, k, v, causal=True,
+                              window=run.decode_window)
+        x = x + out_project(lp["attn"], o)
+        h = apply_norm(cfg, lp["ln_cross"], x)
+        cq, ck, cv = qkv_project(cfg, lp["cross"], h, kv_x=enc_out,
+                                 rope=False)
+        x = x + out_project(lp["cross"],
+                            chunked_attention(cq, ck, cv, causal=False))
+        x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+        if collect_kv:
+            kvs.append((k, v, ck, cv))
+    if last_only:
+        x = x[:, -1:].contiguous()
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], x)
+    if not collect_kv:
+        return logits, 0.0, None
+    return logits, 0.0, tuple(torch.stack(t) for t in zip(*kvs))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
+               device="cuda"):
+    """A cache of zeros (see the module docstring); ``device="meta"``
+    gives shapes only."""
+    check_run(cfg, run)
+    L, F = cfg.num_layers, cfg.num_audio_frames
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "k": stacked_kv(cfg, L, batch, max_len, run, device),
+            "v": stacked_kv(cfg, L, batch, max_len, run, device),
+            "cross_k": stacked_kv(cfg, L, batch, F, run, device),
+            "cross_v": stacked_kv(cfg, L, batch, F, run, device)}
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
+            run: RunConfig, extras: Optional[dict] = None):
+    """Encode the frames, run the prompt, build a max_len cache with the
+    cross k/v of every decoder layer.  Returns (logits, cache)."""
+    B, S = tokens.shape
+    logits, _, (k, v, ck, cv) = forward(
+        cfg, params, tokens, run, extras, collect_kv=True,
+        last_only=run.prefill_logits == "last")
+    cache = init_cache(cfg, B, max_len, run, tokens.device)
+    pos0 = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+    for name, new in (("k", k), ("v", v), ("cross_k", ck), ("cross_v", cv)):
+        write_stacked(cache[name], new, pos0)
+    cache["pos"] = torch.full((B,), S, dtype=torch.int32,
+                              device=tokens.device)
+    return logits, cache
+
+
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
+                run: RunConfig, extras: Optional[dict] = None):
+    """token: (B, 1) -> (logits (B, 1, V), updated cache): the
+    reference's non-in-place branch.  The self k/v are copies; the cross
+    k/v, which a step only reads, are shared with the cache passed in,
+    which is left as it was."""
+    check_inference(cfg, run, params)
+    pos = cache["pos"]
+    x = embed(params["embed"], token)
+    kc_all, vc_all = kv_cache.clone(cache["k"]), kv_cache.clone(cache["v"])
+    tab = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[-3]
+    index = kv_cache.write_index(pos, 1, S)
+    mem_len = torch.full((token.shape[0],), cfg.num_audio_frames,
+                         dtype=torch.int32, device=token.device)
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["dec_layers"], i)
+        kc, vc = layer_params(kc_all, i), layer_params(vc_all, i)
+        h = apply_norm(cfg, lp["ln1"], x)
+        q, k, v = qkv_project(cfg, lp["attn"], h, positions=pos[:, None],
+                              rope_tab=tab)
+        kv_cache.write_(kc, k, pos, index)
+        kv_cache.write_(vc, v, pos, index)
+        o = decode_attention(q, kv_cache.read(kc), kv_cache.read(vc),
+                             pos + 1, window=run.decode_window)
+        x = x + out_project(lp["attn"], o)
+        h = apply_norm(cfg, lp["ln_cross"], x)
+        co = decode_attention(q_project(lp["cross"], h),
+                              kv_cache.read(layer_params(cache["cross_k"], i)),
+                              kv_cache.read(layer_params(cache["cross_v"], i)),
+                              mem_len)
+        x = x + out_project(lp["cross"], co)
+        x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params["embed"], x)
+    return logits, dict(cache, k=kc_all, v=vc_all, pos=pos + 1)

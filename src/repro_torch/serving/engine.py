@@ -17,6 +17,14 @@ demand, as in the reference.  Its semantics are kept exactly, quirks
 included: equal-length prompts share one prefill call, and a request's
 first decode step re-feeds the last prompt token at position S (the
 prefill wrote positions 0..S-1).
+
+The engine keeps one set of modality extras (whisper's audio frames,
+the VLM's vision embeddings), as the reference does.  Where the
+reference prefills X rows against batch-1 extras and fails, the port
+expands each batch-1 extras tensor to the rows of the call (a view, no
+copy), so a row of a batch-X prefill is the batch-1 prefill of its
+prompt.  Decode steps pass the extras through as they are: the models
+read the memory from their cross caches there.
 """
 
 from __future__ import annotations
@@ -67,6 +75,9 @@ def _tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 
@@ -104,7 +115,8 @@ class ServingEngine:
         self.delay = delay or DelayModel(a=0.002, b=0.02)
         self.quality = quality or TokenQuality()
         self.scheduler = resolve(SCHEDULERS, scheduler, "scheduler")
-        self.extras = extras
+        self.extras = None if extras is None \
+            else _to_device(extras, self.device)
         self.requests: Dict[int, Request] = {}
         self.last_timings: List[tuple] = []
         self.prefill_calls = 0
@@ -133,9 +145,17 @@ class ServingEngine:
     def _tokens(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
+    def _extras_at(self, rows: int):
+        """The extras with each batch-1 tensor expanded to ``rows``."""
+        if self.extras is None:
+            return None
+        return {k: v.expand((rows,) + v.shape[1:])
+                if v.shape[0] == 1 else v for k, v in self.extras.items()}
+
     def prefill(self, tokens: np.ndarray):
         self.prefill_calls += 1
-        return self._prefill(self.params, self._tokens(tokens), self.extras)
+        toks = self._tokens(tokens)
+        return self._prefill(self.params, toks, self._extras_at(len(toks)))
 
     def decode(self, tokens: torch.Tensor, cache):
         self.decode_calls += 1

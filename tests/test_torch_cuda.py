@@ -1155,3 +1155,118 @@ def test_moe_decode_step_on_card_matches_cpu(cuda):
     torch.testing.assert_close(gg, gc, atol=1e-6, rtol=1e-6)
     torch.testing.assert_close(lg, lc, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(sg, sc, atol=1e-3, rtol=1e-3)
+
+
+# -- the remaining families: whisper-tiny, xlstm-125m, the VLM ---------------
+
+# flash_attention without a mask, (B, Sq, Skv, H, KV, D): whisper's
+# encoder over its 1500 frames and its cross prefill over them (G = 1,
+# D = 64), the VLM's cross prefill over 1601 vision tokens (G = 8,
+# D = 128), and Sq > Skv (the VLM smoke's 32 over 16, and ragged tiles)
+FAMILY_ATTN = [(2, 1500, 1500, 6, 6, 64), (8, 128, 1500, 6, 6, 64),
+               (2, 32, 1500, 6, 6, 64), (2, 128, 1601, 64, 8, 128),
+               (8, 32, 1601, 64, 8, 128), (2, 32, 16, 4, 4, 64),
+               (3, 100, 37, 8, 2, 64), (1, 200, 64, 4, 4, 128)]
+# decode over the cross caches, (B, S, H, KV, D): neither S is a multiple
+# of the kernel's 64-row tile
+FAMILY_DEC = [(8, 1500, 6, 6, 64), (1, 1500, 6, 6, 64),
+              (8, 1601, 64, 8, 128), (1, 1601, 64, 8, 128)]
+# rmsnorm rows: the VLM's d = 8192, the mLSTM's 1536 and the sLSTM's 768
+FAMILY_RMS = [(8, 128, 8192), (8, 1, 8192), (8, 128, 1536), (8, 1, 1536),
+              (8, 128, 768), (8, 1, 768), (1, 32, 8192)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", FAMILY_ATTN)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_unmasked_at_the_family_shapes(cuda, B, Sq, Skv, H,
+                                                       KV, D, dtype):
+    dt = DTYPES[dtype][0]
+    q = _randn((B, Sq, H, D), 21, cuda, dt)
+    k = _randn((B, Skv, KV, D), 22, cuda, dt)
+    v = _randn((B, Skv, KV, D), 23, cuda, dt)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    _close(got, attention_ref(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", FAMILY_DEC)
+@pytest.mark.parametrize("full", [True, False], ids=["whole", "random"])
+@pytest.mark.parametrize("q_dtype,c_dtype", [("float32", "float32"),
+                                             ("bfloat16", "bfloat16"),
+                                             ("float32", "bfloat16")])
+def test_decode_attention_over_the_cross_caches(cuda, B, S, H, KV, D, full,
+                                                q_dtype, c_dtype):
+    """cur_len the whole cache (the cross decode's) or random."""
+    q, kc, vc = _dec_inputs(B, S, H, KV, D, cuda, q_dtype, c_dtype)
+    cur = [S] * B if full else \
+        np.random.default_rng(S + B).integers(1, S + 1, B).tolist()
+    _dec_check(q, kc, vc, cur)
+
+
+@pytest.mark.parametrize("shape", FAMILY_RMS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rmsnorm_at_the_family_shapes(cuda, shape, dtype):
+    x = _randn(shape, 24, cuda, DTYPES[dtype][0])
+    s = _randn(shape[-1:], 25, cuda)
+    before = rms_ops.launches
+    got = rms_ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rms_ops.launches == before + 1
+    _close(got, rmsnorm_ref(x, s), dtype)
+
+
+def _family_params(cfg):
+    """Smoke params drawn with std 0.05 (norm scales and biases as in
+    the schema; at the reference's init every softmax is one-hot and
+    rounding would pick the winning key), the VLM's gates uniform in
+    [0.5, 1] (zeros would leave its cross layers out)."""
+    from repro_torch.models import api
+    sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
+                     else P(p.shape, scale=0.05),
+                     api.get_model(cfg).schema(cfg))
+    params = init_params(sch, torch.Generator().manual_seed(0), "cpu")
+    if cfg.cross_attn_every:
+        cross = params["groups"]["cross"]
+        gen = torch.Generator().manual_seed(1)
+        for g in ("gate_attn", "gate_mlp"):
+            cross[g] = 0.5 + 0.5 * torch.rand(cross[g].shape, generator=gen)
+    return params
+
+
+@pytest.mark.parametrize("arch,launches", [
+    # (flash, decode, rmsnorm) for one prefill and one decode step
+    ("whisper-tiny", (6, 4, 0)),            # 2 encoder + 2x2 decoder
+    ("xlstm-125m", (0, 0, 4)),              # one rmsnorm a block
+    ("llama-3.2-vision-90b", (2, 2, 10))])  # one self, one cross layer
+def test_family_on_card_matches_cpu(cuda, arch, launches):
+    """Prefill and two greedy decode steps of each family's smoke
+    variant, batch 3 against batch-1 extras drawn from a seed (expanded
+    by the engine's rule), float32 cache: the kernels on the card, the
+    plain versions on the CPU, within 1e-3; launches exact."""
+    from repro_torch.serving.engine import ServingEngine
+    cfg = smoke_variant(get_config(arch))
+    params = _family_params(cfg)
+    M = cfg.num_audio_frames or cfg.num_vision_tokens
+    extras = None
+    if M:
+        key = "audio_frames" if cfg.family == "audio" else "vision_embeds"
+        extras = {key: torch.randn((1, M, cfg.d_model),
+                                   generator=torch.Generator().manual_seed(2))}
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (3, 16))
+    run = RunConfig(kv_cache_dtype="float32")
+    outs = {}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(cfg, params, run, 32, extras=extras, device=dev)
+        n = (fa_ops.launches, dec_ops.launches, rms_ops.launches)
+        logits, cache = eng.prefill(toks)
+        step, cache = eng.decode(torch.as_tensor(toks[:, -1:], device=dev),
+                                 cache)
+        if dev == cuda:
+            assert (fa_ops.launches - n[0], dec_ops.launches - n[1],
+                    rms_ops.launches - n[2]) == launches
+        step2, _ = eng.decode(step[:, -1].argmax(-1)[:, None], cache)
+        outs[str(dev)] = [t.cpu() for t in (logits, step, step2)]
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)

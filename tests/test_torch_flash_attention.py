@@ -181,9 +181,14 @@ def test_chunked_attention_matches_reference(window):
 
 
 def test_chunked_attention_raises_for_cross_attention():
+    """Sq != Skv under a causal or window mask (continuation attention)
+    is not ported and raises; unmasked (cross attention) it runs, held
+    to the reference in tests/test_torch_vlm.py."""
     q, k, v = (torch.tensor(a) for a in _inputs(1, 8, 16, 2, 2, 32))
-    with pytest.raises(NotImplementedError):
-        layers.chunked_attention(q, k, v, causal=False)
+    for kw in (dict(causal=True), dict(causal=False, window=4)):
+        with pytest.raises(NotImplementedError, match="continuation"):
+            layers.chunked_attention(q, k, v, **kw)
+    assert layers.chunked_attention(q, k, v, causal=False).shape == q.shape
 
 
 def test_wrapper_runs_plain_version_on_cpu():

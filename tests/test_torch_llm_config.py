@@ -74,10 +74,11 @@ def test_default_run_config_matches():
 
 
 def test_registry_lists_ported_and_raises_for_others():
-    assert config.list_archs() == ["deepseek-moe-16b", "qwen3-moe-30b-a3b",
-                                   "tinyllama-1.1b", "zamba2-2.7b"]
-    with pytest.raises(KeyError, match="whisper-tiny"):
-        config.get_config("whisper-tiny")
+    assert config.list_archs() == [
+        "deepseek-moe-16b", "llama-3.2-vision-90b", "qwen3-moe-30b-a3b",
+        "tinyllama-1.1b", "whisper-tiny", "xlstm-125m", "zamba2-2.7b"]
+    with pytest.raises(KeyError, match="codeqwen1.5-7b"):
+        config.get_config("codeqwen1.5-7b")
 
 
 def test_token_quality_matches():

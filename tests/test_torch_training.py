@@ -356,8 +356,9 @@ def test_extra_inputs_and_trainable_params():
     for arch in ARCHS:
         assert api.extra_input_specs(_configs(arch)[0], 2) is None
     cfg = smoke_variant(get_config("tinyllama-1.1b"))
-    with pytest.raises(NotImplementedError):
-        api.extra_input_specs(dataclasses.replace(cfg, family="audio"), 2)
+    with pytest.raises(ValueError, match="unknown family"):
+        api.extra_input_specs(dataclasses.replace(cfg, family="diffusion"),
+                              2)
     w = torch.ones(3, requires_grad=True)
     with pytest.raises(ValueError, match="leaf"):
         train.trainable({"w": w * 2})

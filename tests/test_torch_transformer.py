@@ -208,14 +208,19 @@ def test_unported_run_knobs_raise(knob, value):
 
 
 def test_other_families_raise():
+    """Every family of the reference maps to a model (the audio, ssm and
+    vlm ones since they were ported); an unknown family raises as in
+    the reference, and so does an unported knob on a cross-attention
+    config."""
     cfg, _ = configs("smoke")
-    for family in ("audio", "ssm", "vlm"):
-        with pytest.raises(NotImplementedError):
-            api.get_model(dataclasses.replace(cfg, family=family))
-    # cross-attention layers (the VLM family's) are not ported
-    vlm = dataclasses.replace(cfg, family="dense", cross_attn_every=2)
-    with pytest.raises(NotImplementedError):
-        transformer.check_run(vlm, RunConfig())
+    with pytest.raises(ValueError, match="unknown family"):
+        api.get_model(dataclasses.replace(cfg, family="diffusion"))
+    assert api.get_model(dataclasses.replace(cfg, family="vlm")) \
+        is transformer
+    vlm = dataclasses.replace(cfg, family="vlm", cross_attn_every=2)
+    transformer.check_run(vlm, RunConfig())
+    with pytest.raises(NotImplementedError, match="decode_inplace_cache"):
+        transformer.check_run(vlm, RunConfig(decode_inplace_cache=True))
 
 
 def test_init_model_follows_the_reference_scales():

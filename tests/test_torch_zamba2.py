@@ -50,7 +50,7 @@ from repro_torch.config import RunConfig, get_config, smoke_variant  # noqa: E40
 from repro_torch.core.delay_model import DelayModel  # noqa: E402
 from repro_torch.core.service import make_scenario  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.models import api, ssm, zamba2  # noqa: E402
+from repro_torch.models import api, zamba2  # noqa: E402
 from repro_torch.models.params import map_schema, params_from_numpy  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
@@ -257,10 +257,12 @@ def test_unported_knobs_raise():
         with pytest.raises(NotImplementedError, match=knob):
             api.make_prefill_step(cfg, RunConfig(**{knob: value}), MAX_LEN)(
                 params, torch.zeros((1, 4), dtype=torch.int64))
+    # per-head (4-D) B/C, the xLSTM form, runs in plain torch; the
+    # ssd_scan kernel's wrapper refuses it
     with pytest.raises(NotImplementedError, match="per-head"):
-        ssm.ssd_chunked(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2),
-                        torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
-                        torch.zeros(1, 2, 8, 8))
+        ssd_ops.ssd_scan(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2),
+                         torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
+                         torch.zeros(1, 2, 8, 8))
 
 
 def test_engine_batch_mixing_conv_state_types_matches_reference():
