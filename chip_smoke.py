@@ -174,6 +174,33 @@ modality inputs (batch 1, which the engine expands to a prefill's rows):
                  a child process.  The phase's launches join the kernels
                  line under ``launches_by_path["families"]``.
 
+Then the last dense configs, f32 weights drawn on the card from a seed,
+bf16 KV cache, TF32 off:
+
+ 10d. dense -- codeqwen1.5-7b (MHA, qkv bias; K=8, traced) and
+                 minitron-4b (G=3, layernorm, relu^2; K=2) at full width
+                 and depth, granite-34b (multi-query, G=48; K=2) at full
+                 width and 44 of its 88 layers (the full depth is 126.5
+                 GiB in f32), each through phases 7-9 (``llm_path``):
+                 launches exact (codeqwen 65 rmsnorm a forward, the
+                 layernorm configs none; L flash a prefill, L decode a
+                 step), g(X), init seconds, peak memory; phase 8 also
+                 at decode G in {33, 48, 64} on one KV head, D in {64,
+                 128}, B in {1, 8}, those timed at B=8; the serving
+                 knobs on codeqwen at full width (std-0.02 weights,
+                 batch 8, prompt 128, 8 steps teacher-forced on the base
+                 run's tokens): in place with uniform positions against
+                 the default path (tokens, logits within 2e-2 of the
+                 largest |logit|), slice reads with and without the
+                 in-place branch against the masked window of 48
+                 (tokens), prefill_parallel_q against the default
+                 (prefill logits within 2e-5 of the largest), launches
+                 exact (no decode_attention on the in-place branch),
+                 each run's decode step wall time; phase 10 at 2 layers
+                 for each; the serve launcher on granite at
+                 --layers 44.  The phase's launches join the kernels
+                 line under ``launches_by_path["dense"]``.
+
 Then training, on full-width TinyLlama-1.1B (f32 weights, TF32 off):
 
  11. train   -- (a) a 2-layer full-width model on std-0.02 weights, one
@@ -1112,11 +1139,13 @@ def _plain_llm():
             "ssd_scan": ssd_scan_ref}
 
 
-def expected_launches(cfg, prefills: int, decodes: int):
+def expected_launches(cfg, prefills: int, decodes: int, run=None):
     """Kernel launches of ``prefills`` prefills and ``decodes`` decode
-    steps of ``cfg``: the transformer (dense and MoE: routing and the
-    experts launch none of these kernels) has 2 RMSNorms per layer, 2
-    more with per-head q/k norm (qwen3), and the final one per forward,
+    steps of ``cfg`` under ``run`` (a RunConfig; default the default
+    one): the transformer (dense and MoE: routing and the experts launch
+    none of these kernels) has 2 RMSNorms per layer and the final one
+    per forward where its norm is RMSNorm (none where it is layernorm:
+    minitron, granite), 2 more per layer with per-head q/k norm (qwen3),
     an attention layer per layer; zamba2 has 2 RMSNorms per Mamba2
     layer, 2 per shared-block application and the final one, one
     ssd_scan per Mamba2 layer at prefill and the shared block's
@@ -1124,12 +1153,16 @@ def expected_launches(cfg, prefills: int, decodes: int):
     per encoder layer and two per decoder layer at prefill, two decode
     calls per decoder layer a step (self and cross); xLSTM one RMSNorm
     per block (its inner norm) a forward and nothing else; the VLM
-    counts a cross layer as a layer."""
+    counts a cross layer as a layer.  Under ``decode_inplace_cache``
+    self attention decodes in plain torch and launches no
+    decode_attention: only whisper's and the VLM's cross layers do."""
     L, n = cfg.num_layers, prefills + decodes
+    inplace = run is not None and run.decode_inplace_cache
     if cfg.family == "audio":
         return {"rmsnorm": 0,
                 "flash_attention": (cfg.encoder_layers + 2 * L) * prefills,
-                "decode_attention": 2 * L * decodes, "ssd_scan": 0}
+                "decode_attention": (1 if inplace else 2) * L * decodes,
+                "ssd_scan": 0}
     if cfg.family == "ssm":
         return {"rmsnorm": L * n, "flash_attention": 0,
                 "decode_attention": 0, "ssd_scan": 0}
@@ -1139,10 +1172,15 @@ def expected_launches(cfg, prefills: int, decodes: int):
         G = L // cfg.shared_attn_every
         return {"rmsnorm": (2 * L + 2 * G + 1) * n,
                 "flash_attention": G * prefills,
-                "decode_attention": G * decodes, "ssd_scan": L * prefills}
-    norms = 2 * L + 1 + (2 * L if cfg.qk_norm else 0)
+                "decode_attention": 0 if inplace else G * decodes,
+                "ssd_scan": L * prefills}
+    norms = (2 * L + 1 if cfg.norm == "rmsnorm" else 0) \
+        + (2 * L if cfg.qk_norm else 0)
+    attending = L
+    if inplace:     # the VLM's cross layers still read their cross cache
+        attending = L // cfg.cross_attn_every if cfg.cross_attn_every else 0
     return {"rmsnorm": norms * n, "flash_attention": L * prefills,
-            "decode_attention": L * decodes, "ssd_scan": 0}
+            "decode_attention": attending * decodes, "ssd_scan": 0}
 
 
 def _zero_llm_counts():
@@ -1489,9 +1527,11 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8, causal=True,
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kb, vb))
     mask = (torch.arange(S, device="cuda")[None]
             < cur[:, None])[:, None, None, :]
-    splits = _llm_ops()[name].num_splits(B, KV, S)
+    dec = _llm_ops()[name]
+    rows = KV * dec.head_chunks(H // KV)
+    splits = dec.num_splits(B, rows, S)
     return dict(kernel=name, shape=[B, *qs], cache_shape=[B, *cs],
-                splits=splits, grid=[splits, KV, B],
+                splits=splits, grid=[splits, rows, B],
                 types="float32 q, bfloat16 cache", calls=calls,
                 cur_len=cur.tolist(), bound_ms=bound, bound_by=by,
                 bytes=nb, flops=4 * D * H * valid,
@@ -2017,13 +2057,13 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def llm_path(card, cfg, K: int = 8, trace: bool = True):
+def llm_path(card, cfg, K: int = 8, trace: bool = True, extra=()):
     """The llm_decode path on full-width ``cfg`` with f32 weights drawn
     on the card: the calls of one request, phase llm-main with K
-    requests, llm-kernels and (``trace``) llm-trace.  Returns its
-    kernels' {name: summary with launches}, the details (with the init
-    seconds and the peak device memory from the draw on) and the
-    params."""
+    requests, llm-kernels (also at the kernel-call keys in ``extra``)
+    and (``trace``) llm-trace.  Returns its kernels' {name: summary with
+    launches}, the details (with the init seconds and the peak device
+    memory from the draw on) and the params."""
     import torch
     from repro_torch.models import api
     torch.cuda.reset_peak_memory_stats()
@@ -2045,7 +2085,7 @@ def llm_path(card, cfg, K: int = 8, trace: bool = True):
           f"one prefill + one decode step made {dict(per)} kernel calls, "
           f"expected {want}")
     main_path, wl, seen = phase_llm_main(cfg, params, card, K=K)
-    summaries, rows = phase_llm_kernels(cfg, shapes, seen, card)
+    summaries, rows = phase_llm_kernels(cfg, shapes, seen, card, extra)
     for name, s in summaries.items():
         s["launches"] = main_path["launches"][name]
     details = dict(kernel_rows=rows, main=main_path, layers=cfg.num_layers,
@@ -2541,8 +2581,9 @@ def family_launcher(card, cfg, g):
     deadlines = [float(m * gm.g(n)) for m in np.linspace(5.0, 30.0, n)]
     args = ["--arch", cfg.name, "--requests", str(n),
             "--deadlines", ",".join(f"{d:.6f}" for d in deadlines)]
-    if cfg.family == "vlm":
-        args += ["--layers", str(cfg.num_layers)]
+    from repro_torch.config import get_config
+    if cfg.num_layers != get_config(cfg.name).num_layers:
+        args += ["--layers", str(cfg.num_layers)]   # a depth-cut model
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
                                if p]))
@@ -2597,6 +2638,231 @@ def phase_families(card):
         log(f"[families] {label}: {det['seconds']:.1f} s")
     details["seconds"] = time.perf_counter() - t_phase
     log(f"[done] phase families {details['seconds']:.1f} s on {card}")
+    return per_model, details
+
+
+# ---------------------------------------------------------------------------
+# The last dense configs: codeqwen1.5-7b, minitron-4b, granite-34b
+# ---------------------------------------------------------------------------
+
+DENSE_GRANITE_LAYERS = 44      # of 88: the full depth is 126.5 GiB in f32
+DENSE_PARITY_LAYERS = 2
+DENSE_GROUPS = (33, 48, 64)    # decode_attention at G > 32, one KV head
+DENSE_GROUP_DIMS = (64, 128)
+DENSE_KNOB_B, DENSE_KNOB_STEPS = 8, 8
+DENSE_KNOB_TOL = 2e-2          # logits x the largest |logit|: the new
+                               # token's k, v enter unrounded in place
+DENSE_PARALLEL_Q_TOL = 2e-5    # prefill logits x the largest |logit|
+
+
+def dense_configs():
+    """(config, K, traced) of phase dense, at full width: codeqwen and
+    minitron at full depth, granite at DENSE_GRANITE_LAYERS layers."""
+    from repro_torch.configs.codeqwen1_5_7b import CONFIG as CODEQWEN
+    from repro_torch.configs.granite_34b import CONFIG as GRANITE
+    from repro_torch.configs.minitron_4b import CONFIG as MINITRON
+    return [(CODEQWEN, 8, True), (MINITRON, 2, False),
+            (dataclasses.replace(GRANITE, num_layers=DENSE_GRANITE_LAYERS),
+             2, False)]
+
+
+def dense_group_keys(B):
+    """decode_attention call keys at G in DENSE_GROUPS on one KV head,
+    D in DENSE_GROUP_DIMS, over a LLM_MAX_LEN cache (f32 q, bf16 cache,
+    the path's types; the check runs every type)."""
+    return [("decode_attention",
+             (((B, 1, G, D), "float32"), ((B, LLM_MAX_LEN, 1, D),
+                                          "bfloat16"),
+              ((B, LLM_MAX_LEN, 1, D), "bfloat16")))
+            for G in DENSE_GROUPS for D in DENSE_GROUP_DIMS]
+
+
+def dense_group_times(card):
+    """The DENSE_GROUPS keys timed at B = 8 (kernel, plain, SDPA,
+    bound), as phase llm-kernels times the path's shapes."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rng = np.random.default_rng(23)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    rows = []
+    for _, sig in dense_group_keys(1):
+        per_row = tuple((shape[1:], t) for shape, t in sig)
+        r = _time_llm_kernel("decode_attention", per_row, 1, randn, rng)
+        rows.append(r)
+        log(f"[dense-groups] decode_attention {tuple(r['shape'])} over "
+            f"{tuple(r['cache_shape'])} on {card}: kernel "
+            f"{_fmt_us(r['ms'])} us  plain {_fmt_us(r['plain_ms'])} us  "
+            f"library {_fmt_us(r['library_ms'])} us  bound "
+            f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']})  "
+            f"bound/kernel {r['bound_ms'] / r['ms']:.3f}  splits "
+            f"{r['splits']}, grid {tuple(r['grid'])}")
+    return rows
+
+
+def _knob_run(cfg, params, toks, run, forced=None):
+    """Prefill ``toks`` and DENSE_KNOB_STEPS decode steps under ``run``,
+    each step fed the argmax of the last (greedy) or, given ``forced``,
+    that run's tokens, so that runs compare step by step.  Launches
+    must be exact.  Returns the prefill logits (on the card), each
+    step's logits (CPU) and argmax tokens, and each step's wall
+    seconds."""
+    import torch
+    from repro_torch.models import api
+    _zero_llm_counts()
+    pl, cache = api.make_prefill_step(cfg, run, LLM_MAX_LEN)(params, toks)
+    step = api.make_decode_step(cfg, run)
+    tok, logits, argmax, secs = toks[:, -1:], [], [], []
+    for i in range(DENSE_KNOB_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(params, tok, cache)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        logits.append(lg[:, -1].float().cpu())
+        argmax.append(lg[:, -1].argmax(-1).cpu())
+        tok = (forced[i] if forced is not None else argmax[-1]).to(
+            "cuda")[:, None]
+    counts = _llm_counts()
+    want = expected_launches(cfg, 1, DENSE_KNOB_STEPS, run)
+    check(counts == want, f"[dense-knobs] {run}: launches {counts}, "
+          f"expected {want}")
+    return pl, logits, argmax, secs
+
+
+def _compare_steps(tag, base, other, tol_x):
+    """Step-by-step: argmax tokens equal, or a difference inside the
+    base run's top-2 logit margin; logits within tol_x x the largest
+    |logit|.  Returns (max abs err, scale, token flips)."""
+    import torch
+    err = max(float((a - b).abs().max()) for a, b in zip(base[1], other[1]))
+    scale = max(float(a.abs().max()) for a in base[1])
+    flips = 0
+    for i, (a, b, lg) in enumerate(zip(base[2], other[2], base[1])):
+        for r in torch.nonzero(a != b).flatten().tolist():
+            flips += 1
+            top2 = torch.topk(lg[r], 2).values
+            margin = float(top2[0] - top2[1])
+            log(f"{tag} step {i} row {r}: tokens {int(a[r])} / "
+                f"{int(b[r])}, base top-2 margin {margin:.3g}")
+            check(margin <= tol_x * scale, f"{tag} step {i} row {r}: "
+                  f"tokens differ with a top-2 margin {margin:.3g}")
+    check(err <= tol_x * scale, f"{tag} logits differ by {err:.3g} over "
+          f"{tol_x} x {scale:.3g}")
+    return err, scale, flips
+
+
+def dense_knobs(card, cfg):
+    """The serving knobs on full-width ``cfg`` (std-0.02 weights drawn
+    on the card, ``parity_params``), DENSE_KNOB_B requests of prompt
+    LLM_PROMPT at batch DENSE_KNOB_B, DENSE_KNOB_STEPS decode steps:
+    in place with uniform positions against the default path (tokens,
+    logits within DENSE_KNOB_TOL), slice reads with and without the
+    in-place branch against the masked window of LLM_WINDOW (tokens),
+    prefill_parallel_q against the default (prefill logits within
+    DENSE_PARALLEL_Q_TOL); launches exact for each (no decode_attention
+    on the in-place branch); each run's median decode step wall time."""
+    import numpy as np
+    import torch
+    from repro_torch.config import RunConfig
+    tag = f"[dense-knobs {cfg.name}]"
+    t0 = time.perf_counter()
+    params = parity_params(cfg)
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (DENSE_KNOB_B, LLM_PROMPT)), device="cuda")
+    w = LLM_WINDOW
+    runs = {"default": RunConfig(),
+            "inplace_uniform": RunConfig(decode_inplace_cache=True,
+                                         decode_uniform_pos=True),
+            "parallel_q": RunConfig(prefill_parallel_q=True),
+            "window": RunConfig(decode_window=w),
+            "slice": RunConfig(decode_window=w, decode_slice_reads=True),
+            "inplace_slice": RunConfig(decode_window=w,
+                                       decode_slice_reads=True,
+                                       decode_inplace_cache=True)}
+    out = {}
+    for name, run in runs.items():
+        base = {"inplace_uniform": "default", "parallel_q": "default",
+                "slice": "window", "inplace_slice": "window"}.get(name)
+        out[name] = _knob_run(cfg, params, toks, run,
+                              forced=out[base][2] if base else None)
+    res = {}
+    for name, base in (("inplace_uniform", "default"), ("slice", "window"),
+                       ("inplace_slice", "window")):
+        err, scale, flips = _compare_steps(f"{tag} {name} vs {base}",
+                                           out[base], out[name],
+                                           DENSE_KNOB_TOL)
+        res[name] = dict(against=base, logits_max_abs_err=err,
+                         logits_scale=scale, token_flips=flips)
+    pa, pb = out["default"][0], out["parallel_q"][0]
+    perr = float((pa - pb).abs().max())
+    pscale = float(pa.abs().max())
+    check(perr <= DENSE_PARALLEL_Q_TOL * pscale,
+          f"{tag} prefill_parallel_q: prefill logits differ by {perr:.3g}")
+    res["parallel_q"] = dict(against="default",
+                             prefill_logits_max_abs_err=perr,
+                             prefill_logits_scale=pscale)
+    for name in runs:
+        secs = sorted(out[name][3][1:])
+        res.setdefault(name, {})["decode_step_ms"] = \
+            1e3 * secs[len(secs) // 2]
+        res[name]["launches_per_step"] = expected_launches(
+            cfg, 0, 1, runs[name])
+    log(f"{tag} on {card}, batch {DENSE_KNOB_B}, prompt {LLM_PROMPT}, "
+        f"{DENSE_KNOB_STEPS} steps teacher-forced on each base run's "
+        f"tokens, weights normal(0, {LLM_PARITY_STD}): "
+        + "; ".join(f"{k}: " + ", ".join(
+            f"{kk} {vv:.4g}" if isinstance(vv, float) else f"{kk} {vv}"
+            for kk, vv in v.items() if kk != "launches_per_step")
+            for k, v in res.items()))
+    del params
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def phase_dense(card):
+    """Phase dense: codeqwen1.5-7b (K=8, traced), minitron-4b (K=2) and
+    granite-34b at DENSE_GRANITE_LAYERS layers (K=2), each at full width
+    through ``llm_path`` (exact launches, g(X), init seconds, peak
+    memory, every kernel at every shape, decode_attention also at
+    DENSE_GROUPS); the serving knobs on codeqwen (``dense_knobs``); the
+    DENSE_GROUPS decode shapes timed; phase llm-parity at
+    DENSE_PARITY_LAYERS layers for each; the serve launcher on granite
+    at its cut depth.  Returns the kernels' {model: {name: summary with
+    launches}} and the details."""
+    import torch
+    t_phase = time.perf_counter()
+    per_model, details = {}, {}
+    for cfg, K, trace in dense_configs():
+        label = f"{cfg.name} ({cfg.num_layers} layers)"
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        extra = dense_group_keys(1) + dense_group_keys(8) \
+            if cfg.num_kv_heads == 1 else ()
+        per_model[label], det, params = llm_path(card, cfg, K=K,
+                                                 trace=trace, extra=extra)
+        del params
+        torch.cuda.empty_cache()
+        if cfg.name == "codeqwen1.5-7b":
+            det["knobs"] = dense_knobs(card, cfg)
+        det["parity"] = phase_llm_parity(cfg, layers=DENSE_PARITY_LAYERS)
+        torch.cuda.empty_cache()
+        det["seconds"] = time.perf_counter() - t0
+        details[label] = det
+        log(f"[dense] {label}: {det['seconds']:.1f} s; g(X) = "
+            f"{det['main']['fit_a'] * 1e3:.4f} ms * X + "
+            f"{det['main']['fit_b'] * 1e3:.4f} ms; init "
+            f"{det['init_s']:.1f} s; peak {det['peak_gib']:.2f} GiB")
+    details["groups"] = dense_group_times(card)
+    granite = dense_configs()[2][0]
+    g = details[f"{granite.name} ({granite.num_layers} layers)"]["main"]
+    details["launcher"] = family_launcher(card, granite,
+                                          (g["fit_a"], g["fit_b"]))
+    details["seconds"] = time.perf_counter() - t_phase
+    log(f"[done] phase dense {details['seconds']:.1f} s on {card}")
     return per_model, details
 
 
@@ -3680,8 +3946,9 @@ def main() -> int:
         per_model[cfg.name], llm[cfg.name] = phase_llm(card, cfg)
     moe_models, moe = phase_moe(card)
     family_models, families = phase_families(card)
+    dense_models, dense = phase_dense(card)
     llm_kernels = merge_kernel_summaries({**per_model, **moe_models,
-                                          **family_models})
+                                          **family_models, **dense_models})
     train_launches, train = phase_train(card)
     plan = phase_plan(card)
     for entry in llm_kernels:
@@ -3691,7 +3958,8 @@ def main() -> int:
                       if name in k)
             for path, models in (("llm_decode", per_model),
                                  ("moe", moe_models),
-                                 ("families", family_models))}
+                                 ("families", family_models),
+                                 ("dense", dense_models))}
         if name in train_launches:
             entry["launches_by_path"]["train"] = train_launches[name]
             entry["launches"] += train_launches[name]
@@ -3704,6 +3972,7 @@ def main() -> int:
         kernel=kernel, kernel_rows=rows, main=main_path, trace=trace,
         parity=parity, bucketed=bucketed, closed=closed, fleet=fleet,
         llm_kernels=llm_kernels, llm=llm, moe=moe, families=families,
+        dense=dense,
         train=train, plan=plan,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -6,13 +6,15 @@ of ``repro``).  The dataclasses are copied whole, so a config built here
 is field-for-field the reference's (``dataclasses.asdict`` compares them
 in ``tests/test_torch_llm_config.py``).
 
-The registry holds the archs the port runs: ``tinyllama-1.1b``,
-``zamba2-2.7b``, ``deepseek-moe-16b``, ``qwen3-moe-30b-a3b``,
-``whisper-tiny``, ``xlstm-125m`` and ``llama-3.2-vision-90b`` (one
-module each under ``repro_torch/configs/``).  ``get_config`` of an arch
-the reference has but the port has not reached yet raises with its name.
-The transformer raises ``NotImplementedError`` for the ``RunConfig``
-knobs it does not port (``repro_torch.models.transformer.check_run``).
+The registry holds the archs the port runs, all ten of the
+reference's assigned ones: ``tinyllama-1.1b``, ``codeqwen1.5-7b``,
+``minitron-4b``, ``granite-34b``, ``zamba2-2.7b``,
+``deepseek-moe-16b``, ``qwen3-moe-30b-a3b``, ``whisper-tiny``,
+``xlstm-125m`` and ``llama-3.2-vision-90b`` (one module each under
+``repro_torch/configs/``).  ``get_config`` of a name it does not hold
+raises ``KeyError`` with the name.  The transformer raises
+``NotImplementedError`` for the ``RunConfig`` knobs it does not port
+(``fsdp`` and ``shard_kv_seq``: ``repro_torch.models.transformer.check_run``).
 """
 
 from __future__ import annotations
@@ -204,8 +206,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not ported to repro_torch (yet); "
-                       f"ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"arch {name!r} is not registered in repro_torch; "
+                       f"registered: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -216,8 +218,9 @@ def list_archs() -> list:
 
 def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401
-        deepseek_moe_16b, llama_3_2_vision_90b, qwen3_moe_30b_a3b,
-        tinyllama_1_1b, whisper_tiny, xlstm_125m, zamba2_2_7b)
+        codeqwen1_5_7b, deepseek_moe_16b, granite_34b, llama_3_2_vision_90b,
+        minitron_4b, qwen3_moe_30b_a3b, tinyllama_1_1b, whisper_tiny,
+        xlstm_125m, zamba2_2_7b)
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

@@ -11,7 +11,10 @@
 // type.  q and the cache may differ in type: the serving path's default
 // is f32 q over a bf16 cache.  22 calls per TinyLlama decode step, q
 // (B,1,32,64) over caches (B,512,4,64), G = H/KV = 8; 9 per Zamba2
-// step, q (B,1,32,80) over (B,512,32,80), G = 1.
+// step, q (B,1,32,80) over (B,512,32,80), G = 1; granite-34b's
+// multi-query attention, q (B,1,48,128) over (B,512,1,128), G = 48.
+// Like the Pallas kernel, which holds a group as one (G, D) tile, it
+// takes any G that divides H.
 //
 // What bounds it.  Each valid cache row (k and v, D values each) is
 // read once for the G query heads of its group: 4*G*D operations
@@ -27,7 +30,8 @@
 //
 // Design.
 // - Split-K over the valid range, decided on the device.  The grid is
-//   (splits, KV, B).  Each block reads cur_len[b] itself, computes the
+//   (splits, KV, B) (KV * ceil(G/64) on y when G > 64, below).  Each
+//   block reads cur_len[b] itself, computes the
 //   valid range [lo, hi), and takes an equal share of the 64-row tiles
 //   that overlap it (shares differ by at most one tile), so every tile
 //   a block touches holds a valid position.  `splits` depends on
@@ -35,18 +39,30 @@
 //   ceil(S/64)); the host never reads cur_len, so the serving path
 //   stays free of syncs and can be captured in a CUDA graph.
 // - Every warp busy at every G.  The 8 warps are HS head slices times
-//   8/HS position slices, HS = 1, 2, 4 for G <= 8, 16, 32: a warp holds
-//   at most 8 heads and PW = 8*HS positions of each tile.  For the
-//   scores R = 32/PW lanes share a position, each summing a part of the
-//   D products, joined by shuffles; for the PV product lane l holds
-//   output columns l + 32 j (ceil(D/32) of them), p broadcast by
-//   shuffle.  Each warp runs its own online softmax over its positions;
-//   at the end the block merges its warps' (m, l, acc) in shared memory.
+//   8/HS position slices, HS = 1, 2, 4, 8 for G <= 8, 16, 32, 64: a
+//   warp holds at most 8 heads and PW = 8*HS positions of each tile,
+//   taken PL = min(PW, 32) at a time (HS = 8: one head slice a warp,
+//   each warp walks the whole tile in two passes of 32 positions, a
+//   lane one position a pass).  For the scores R = 32/PL lanes share a
+//   position, each summing a part of the D products, joined by
+//   shuffles; for the PV product lane l holds output columns l + 32 j
+//   (ceil(D/32) of them), p broadcast by shuffle.  Each warp runs its
+//   own online softmax over its positions; at the end the block merges
+//   its warps' (m, l, acc) in shared memory.  Every block reads its
+//   tiles of the cache once for all the heads it holds: granite's one
+//   KV head is read once per (b, split) for its 48 query heads.
 //   The heads a warp may hold (HM: G rounded up to a power of two, at
 //   most 8) are a template parameter, so a lane keeps HM * ceil(D/32)
 //   accumulators and no more: at G = 1 the kernel needs few registers
 //   and more blocks fit on an SM.  q's type is a flag, not a template
 //   parameter, to keep the number of instantiations (and the build) down.
+// - G > 64: the grid's y axis is KV * ceil(G/64), each block holding 64
+//   heads of its group (the last one the rest).  A block cannot hold
+//   the registers of more than 64 heads, so a loop over head chunks
+//   inside the block would read each tile once per chunk too; as
+//   blocks the chunks run side by side, and a chunk's read of a tile
+//   may find it in L2 after another's.  No config of the repo has
+//   G > 48; the card tests run G = 96.
 // - 16-byte cp.async loads, neighbouring lanes on neighbouring 16-byte
 //   chunks of a row, into a two-stage ring of tiles in the cache's own
 //   type (tile i+1 in flight while tile i is used); rows outside
@@ -64,6 +80,12 @@
 //   masked contributes l = 0, acc = 0 (a split with no valid tile reads
 //   no cache at all), and a row with cur_len = 0 gives 0.
 //
+// Measured at G = 48 on one KV head (granite, B = 8, cache 512; NVIDIA
+// H100 80GB HBM3, 700 W; chip_smoke.py, PERF.md): 24.1 us a call against
+// SDPA's 13.0 and a 0.44 us bound.  At B = 8 the grid holds 64 blocks for
+// 132 SMs, each walking its tiles for 48 heads: latency-bound, left for a
+// PR that makes the kernel faster.
+//
 // C interface (route: nvcc -shared, loaded with ctypes): device pointers
 // and the stream arrive as void*, both kernels are launched on that
 // stream, and the function returns cudaGetLastError() so the caller can
@@ -80,7 +102,7 @@ namespace {
 constexpr int kBS = 64;        // cache positions per tile
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxGroup = 32;  // G <= 4 head slices of 8
+constexpr int kBlockHeads = 64;  // heads a block holds: 8 slices of 8
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -182,23 +204,27 @@ __global__ void __launch_bounds__(
   constexpr int VEC = T::kVec, NC = T::kChunks, KST = T::kKStride;
   constexpr int PS = kWarps / HS;  // position slices
   constexpr int PW = kBS / PS;     // positions a warp holds in a tile
-  constexpr int R = 32 / PW;       // lanes per position in the scores
+  constexpr int PL = PW < 32 ? PW : 32;  // ... of them in one pass
+  constexpr int R = 32 / PL;       // lanes per position in the scores
   constexpr int C = (D + 31) / 32; // a lane's columns: lane + 32 j
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int G = H / KV;
+  const int chunks = (G + kBlockHeads - 1) / kBlockHeads;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int bh0 = b * H + kvh * G;  // (b, first head of the group)
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kvh = blockIdx.y / chunks, hc = blockIdx.y % chunks;
+  const int Gb = min(kBlockHeads, G - hc * kBlockHeads);  // block's heads
+  const int bh0 = b * H + kvh * G + hc * kBlockHeads;  // its first (b, h)
 
-  // q's G*D values, 4 a thread per step, loaded before the block waits
+  // q's Gb*D values, 4 a thread per step, loaded before the block waits
   // on cur_len so the two loads overlap
   constexpr int kQSteps = (HS * HM * D / 4 + kThreads - 1) / kThreads;
   float4 qr[kQSteps];
 #pragma unroll
   for (int k = 0; k < kQSteps; ++k) {
     const int e4 = tid + k * kThreads;
-    if (e4 < G * D / 4) {
+    if (e4 < Gb * D / 4) {
       const size_t off = (size_t)bh0 * D + 4 * e4;
       if (q_bf16) {
         const uint2 u = *reinterpret_cast<const uint2*>(
@@ -224,15 +250,15 @@ __global__ void __launch_bounds__(
   const int t0 = t_lo + split * share + min(split, extra);  // splits take
   const int t1 = t0 + share + (split < extra);              // one more
   if (t0 >= t1) {  // no valid position: contribute nothing, read nothing
-    for (int e = tid; e < G * (D + 2); e += kThreads) {
+    for (int e = tid; e < Gb * (D + 2); e += kThreads) {
       const int g = e / (D + 2), c = e % (D + 2);
       part_row<D>(part, bh0 + g, split, splits)[c] = c == D ? kNegInf : 0.f;
     }
     return;
   }
 
-  float* Qs = reinterpret_cast<float*>(smem);                      // [G][D]
-  TC* ring = reinterpret_cast<TC*>(smem + sizeof(float) * G * D);  // 2 stages
+  float* Qs = reinterpret_cast<float*>(smem);                      // [Gb][D]
+  TC* ring = reinterpret_cast<TC*>(smem + sizeof(float) * Gb * D);  // 2 stages
   const size_t row = (size_t)KV * D;
   const TC* kb = kc + (size_t)b * S * row + (size_t)kvh * D;
   const TC* vb = vc + (size_t)b * S * row + (size_t)kvh * D;
@@ -254,14 +280,14 @@ __global__ void __launch_bounds__(
 #pragma unroll
   for (int k = 0; k < kQSteps; ++k) {
     const int e4 = tid + k * kThreads;
-    if (e4 < G * D / 4) reinterpret_cast<float4*>(Qs)[e4] = qr[k];
+    if (e4 < Gb * D / 4) reinterpret_cast<float4*>(Qs)[e4] = qr[k];
   }
 
-  const int HPW = (G + HS - 1) / HS;   // heads of a full slice
+  const int HPW = (Gb + HS - 1) / HS;   // heads of a full slice
   const int hs = warp / PS, ps = warp % PS;
   const int g0 = hs * HPW;
-  const int nh = max(0, min(HPW, G - g0));  // this warp's heads
-  const int pi = lane % PW, r = lane / PW;
+  const int nh = max(0, min(HPW, Gb - g0));  // this warp's heads
+  const int pi = lane % PL, r = lane / PL;
 
   float m[HM], l[HM], acc[HM][C];
 #pragma unroll
@@ -284,82 +310,85 @@ __global__ void __launch_bounds__(
 
     const TC* Ks = ring + st * T::kStage;
     const TC* Vs = Ks + kBS * KST * VEC;
-    const int p_w = ps * PW;                 // the warp's first row
-    const int pos = t * kBS + p_w + pi;
-    const bool valid = pos >= lo && pos < hi;
+#pragma unroll
+    for (int pass = 0; pass < PW / PL; ++pass) {
+      const int p_w = ps * PW + pass * PL;     // the pass's first row
+      const int pos = t * kBS + p_w + pi;
+      const bool valid = pos >= lo && pos < hi;
 
-    // scores: lanes r of position pi each sum chunks r, r+R, ...  The
-    // shuffles below run for all HM heads, outside any branch the
-    // compiler cannot prove uniform (a shuffle there costs a collective
-    // loop); only the arithmetic of heads past nh is skipped.
-    float s[HM];
+      // scores: lanes r of position pi each sum chunks r, r+R, ...  The
+      // shuffles below run for all HM heads, outside any branch the
+      // compiler cannot prove uniform (a shuffle there costs a collective
+      // loop); only the arithmetic of heads past nh is skipped.
+      float s[HM];
 #pragma unroll
-    for (int h = 0; h < HM; ++h) s[h] = 0.f;
-    const TC* krow = Ks + (p_w + pi) * KST * VEC;
+      for (int h = 0; h < HM; ++h) s[h] = 0.f;
+      const TC* krow = Ks + (p_w + pi) * KST * VEC;
 #pragma unroll
-    for (int c0 = 0; c0 < NC; c0 += R) {
-      const int c = c0 + r;
-      if (c >= NC) break;
-      float kf[VEC];
-      chunk_f32(krow + c * VEC, kf);
+      for (int c0 = 0; c0 < NC; c0 += R) {
+        const int c = c0 + r;
+        if (c >= NC) break;
+        float kf[VEC];
+        chunk_f32(krow + c * VEC, kf);
 #pragma unroll
-      for (int h = 0; h < HM; ++h) {
-        if (h < nh) {
-          const float* qg = Qs + (g0 + h) * D + c * VEC;
+        for (int h = 0; h < HM; ++h) {
+          if (h < nh) {
+            const float* qg = Qs + (g0 + h) * D + c * VEC;
 #pragma unroll
-          for (int v4 = 0; v4 < VEC; v4 += 4) {
-            const float4 qv = *reinterpret_cast<const float4*>(qg + v4);
-            s[h] = fmaf(qv.x, kf[v4], s[h]);
-            s[h] = fmaf(qv.y, kf[v4 + 1], s[h]);
-            s[h] = fmaf(qv.z, kf[v4 + 2], s[h]);
-            s[h] = fmaf(qv.w, kf[v4 + 3], s[h]);
+            for (int v4 = 0; v4 < VEC; v4 += 4) {
+              const float4 qv = *reinterpret_cast<const float4*>(qg + v4);
+              s[h] = fmaf(qv.x, kf[v4], s[h]);
+              s[h] = fmaf(qv.y, kf[v4 + 1], s[h]);
+              s[h] = fmaf(qv.z, kf[v4 + 2], s[h]);
+              s[h] = fmaf(qv.w, kf[v4 + 3], s[h]);
+            }
           }
         }
       }
-    }
 
-    // online softmax over the warp's PW positions, per head
-    float p[HM];
-#pragma unroll
-    for (int h = 0; h < HM; ++h) {
-#pragma unroll
-      for (int o = PW; o < 32; o <<= 1)
-        s[h] += __shfl_xor_sync(kFull, s[h], o);
-      const float sc = valid ? s[h] * scale : kNegInf;
-      float mx = sc;
-#pragma unroll
-      for (int o = 1; o < PW; o <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-      const float m_new = fmaxf(m[h], mx);
-      const float alpha = expf(m[h] - m_new);
-      p[h] = valid ? expf(sc - m_new) : 0.f;
-      float sum = p[h];
-#pragma unroll
-      for (int o = 1; o < PW; o <<= 1)
-        sum += __shfl_xor_sync(kFull, sum, o);
-      l[h] = l[h] * alpha + sum;
-      m[h] = m_new;
-#pragma unroll
-      for (int j = 0; j < C; ++j) acc[h][j] *= alpha;
-    }
-
-    // PV: lane l holds columns l + 32 j; p of position i from lane i
-    const TC* Vw = Vs + p_w * D;
-#pragma unroll 4
-    for (int i = 0; i < PW; ++i) {
-      float vv[C];
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        const int col = lane + 32 * j;
-        vv[j] = col < D ? to_f32(Vw[i * D + col]) : 0.f;
-      }
+      // online softmax over the pass's PL positions, per head
+      float p[HM];
 #pragma unroll
       for (int h = 0; h < HM; ++h) {
-        const float ph = __shfl_sync(kFull, p[h], i);
 #pragma unroll
-        for (int j = 0; j < C; ++j) acc[h][j] = fmaf(ph, vv[j], acc[h][j]);
+        for (int o = PL; o < 32; o <<= 1)
+          s[h] += __shfl_xor_sync(kFull, s[h], o);
+        const float sc = valid ? s[h] * scale : kNegInf;
+        float mx = sc;
+#pragma unroll
+        for (int o = 1; o < PL; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+        const float m_new = fmaxf(m[h], mx);
+        const float alpha = expf(m[h] - m_new);
+        p[h] = valid ? expf(sc - m_new) : 0.f;
+        float sum = p[h];
+#pragma unroll
+        for (int o = 1; o < PL; o <<= 1)
+          sum += __shfl_xor_sync(kFull, sum, o);
+        l[h] = l[h] * alpha + sum;
+        m[h] = m_new;
+#pragma unroll
+        for (int j = 0; j < C; ++j) acc[h][j] *= alpha;
       }
-    }
+
+      // PV: lane l holds columns l + 32 j; p of position i from lane i
+      const TC* Vw = Vs + p_w * D;
+#pragma unroll 4
+      for (int i = 0; i < PL; ++i) {
+        float vv[C];
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const int col = lane + 32 * j;
+          vv[j] = col < D ? to_f32(Vw[i * D + col]) : 0.f;
+        }
+#pragma unroll
+        for (int h = 0; h < HM; ++h) {
+          const float ph = __shfl_sync(kFull, p[h], i);
+#pragma unroll
+          for (int j = 0; j < C; ++j) acc[h][j] = fmaf(ph, vv[j], acc[h][j]);
+        }
+      }
+    }  // pass
     __syncthreads();  // stage st consumed before it is loaded again
   }
 
@@ -382,7 +411,7 @@ __global__ void __launch_bounds__(
     }
   }
   __syncthreads();
-  if (tid < G) {  // per head: the block's m and l, each warp's weight
+  if (tid < Gb) {  // per head: the block's m and l, each warp's weight
     const int w0 = (tid / HPW) * PS, h = tid % HPW;
     float M = kNegInf, L = 0.f;
 #pragma unroll
@@ -399,7 +428,7 @@ __global__ void __launch_bounds__(
     out[D + 1] = L;
   }
   __syncthreads();
-  for (int e = tid; e < G * D; e += kThreads) {
+  for (int e = tid; e < Gb * D; e += kThreads) {
     const int g = e / D, d = e % D;
     const int w0 = (g / HPW) * PS, h = g % HPW;
     float A = 0.f;
@@ -462,17 +491,18 @@ template <typename TC, int D, int HS, int HM>
 int launch_split(const void* q, int q_bf16, const void* kc, const void* vc,
                  const int* cur, float* part, int B, int S, int H, int KV,
                  int window, float scale, int splits, cudaStream_t stream) {
+  const int G = H / KV, chunks = (G + kBlockHeads - 1) / kBlockHeads;
   const size_t merge = sizeof(float) * kWarps * HM * (D + 2);
   const size_t ring = Tile<TC, D>::kRingBytes;
-  const size_t smem =
-      sizeof(float) * (H / KV) * D + (ring > merge ? ring : merge);
+  const size_t smem = sizeof(float) * (G < kBlockHeads ? G : kBlockHeads) *
+                          D + (ring > merge ? ring : merge);
   auto* kernel = decode_split_kernel<TC, D, HS, HM>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid(splits, KV, B);
+  const dim3 grid(splits, KV * chunks, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       q, q_bf16, static_cast<const TC*>(kc), static_cast<const TC*>(vc), cur,
       part, S, H, KV, window, scale, splits);
@@ -485,7 +515,8 @@ int launch_typed(const void* q, const void* kc, const void* vc,
                  int KV, int window, float scale, int splits,
                  cudaStream_t stream) {
   // head slices and heads per warp: G <= 8 in one slice of G rounded up
-  // to a power of two, G <= 16 in two slices and G <= 32 in four of 8
+  // to a power of two, G <= 16, 32, 64 in two, four, eight slices of 8;
+  // beyond 64 each block holds 64 heads in eight slices
   const int G = H / KV, qb = std::is_same<TQ, __nv_bfloat16>::value;
   int rc;
 #define SPLIT(HS, HM)                                                     \
@@ -501,8 +532,10 @@ int launch_typed(const void* q, const void* kc, const void* vc,
     rc = SPLIT(1, 8);
   else if (G <= 16)
     rc = SPLIT(2, 8);
-  else
+  else if (G <= 32)
     rc = SPLIT(4, 8);
+  else
+    rc = SPLIT(8, 8);
 #undef SPLIT
   if (rc != 0) return rc;
   const int rows = B * H;
@@ -555,14 +588,16 @@ int launch_cache(const void* q, const void* kc, const void* vc,
 // 16-byte aligned; cur_len: (B,) int32; part: f32 scratch of
 // B*H*splits*(D+2) values.  dtype codes: 0 = float32, 1 = bfloat16, for
 // q (and o) and for the caches separately.  Launches the split kernel,
-// grid (splits, KV, B), then the combine kernel, on `stream`.
+// grid (splits, KV * ceil(G/64), B), then the combine kernel, on
+// `stream`.
 extern "C" int decode_attention_launch(const void* q, const void* kc,
                                        const void* vc, const void* cur_len,
                                        void* part, void* o, int B, int S,
                                        int H, int KV, int D, int window,
                                        float scale, int splits, int q_dtype,
                                        int c_dtype, void* stream) {
-  if (KV < 1 || H % KV != 0 || H / KV > kMaxGroup || splits < 1)
+  if (KV < 1 || H % KV != 0 || splits < 1 ||
+      (long long)KV * ((H / KV + kBlockHeads - 1) / kBlockHeads) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* cur = static_cast<const int*>(cur_len);

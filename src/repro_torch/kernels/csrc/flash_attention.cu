@@ -4,7 +4,9 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_pallas, body _kernel): q (B,Sq,H,D) against k, v
 // (B,Skv,KV,D), query head h reading KV head h / G (G = H/KV); query i
-// sits at key position i + Skv - Sq; keys after a query (causal) or
+// sits at key position q_offset + i (the Pallas kernel's Skv - Sq, ends
+// aligned, unless the caller asks for continuation attention, where any
+// q_offset >= 0 and Sq > Skv are allowed); keys after a query (causal) or
 // window or more positions before it are masked; online softmax with
 // f32 running max m, sum l and accumulator; output acc / max(l, 1e-30)
 // in q's type.  On the serving path it runs once per layer per prefill:
@@ -590,7 +592,8 @@ int launch_dim(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q, o: (B,Sq,H,D); k, v: (B,Skv,KV,D); all contiguous, 16-byte aligned,
-// one type (dtype 0 = float32, 1 = bfloat16).  q_offset = Skv - Sq.
+// one type (dtype 0 = float32, 1 = bfloat16).  q_offset >= 0: key
+// position of query 0 (Skv - Sq for ends aligned).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int KV, int D,

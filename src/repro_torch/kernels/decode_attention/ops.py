@@ -2,8 +2,11 @@
 
 A CPU tensor goes to the plain version (``ref.decode_attention_ref``);
 a CUDA tensor launches the kernels of ``csrc/decode_attention.cu`` (a
-split-K pass over the valid cache, grid ``(num_splits(B, KV, S), KV,
-B)``, then a combine pass) or raises.  q and the cache may differ in
+split-K pass over the valid cache, grid ``(splits, KV * head_chunks(G),
+B)`` with ``splits = num_splits(B, KV * head_chunks(G), S)``, then a
+combine pass) or raises.  Any group size G = H / KV runs, as in the
+Pallas kernel: a block holds up to ``BLOCK_HEADS`` query heads of one
+KV head.  q and the cache may differ in
 type (float32 q over a bfloat16 cache is the serving path's default).
 ``launches`` counts wrapper calls that launched the kernels, one per
 call, so a run can show that its path went through them.  There is no
@@ -25,10 +28,16 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)        # the kernel's compiled head sizes
-MAX_GROUP = 32                   # query heads per KV head the kernel holds
+BLOCK_HEADS = 64                 # query heads one block of the kernel holds
 _MAX_GRID = 65535
 TILE = 64                        # cache rows per tile of the kernel
 BLOCK_TARGET = 2 * 132           # blocks to aim for: two per H100 SM
+
+
+def head_chunks(G: int) -> int:
+    """Blocks along the grid's y axis per KV head: one per
+    ``BLOCK_HEADS`` query heads of its group."""
+    return -(-G // BLOCK_HEADS)
 
 
 def num_splits(B: int, KV: int, S: int) -> int:
@@ -62,10 +71,9 @@ def _check(q, k_cache, v_cache, window):
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} and "
                          f"cache {tuple(k_cache.shape)} do not fit "
                          f"(H = KV * G)")
-    if D not in HEAD_DIMS or H // KV > MAX_GROUP:
+    if D not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head_dim {D} must be in "
-                         f"{HEAD_DIMS} and H/KV = {H // KV} at most "
-                         f"{MAX_GROUP}")
+                         f"{HEAD_DIMS}")
     if q.dtype not in _DTYPES or k_cache.dtype not in _DTYPES \
             or v_cache.dtype != k_cache.dtype:
         raise TypeError(f"decode_attention: q and the caches must be "
@@ -82,9 +90,10 @@ def _check(q, k_cache, v_cache, window):
     if window < 0:
         raise ValueError(f"decode_attention: window must be >= 0, got "
                          f"{window}")
-    if B > _MAX_GRID or KV > _MAX_GRID:
-        raise ValueError(f"decode_attention: B={B} or KV={KV} over the grid "
-                         f"limit {_MAX_GRID}")
+    if B > _MAX_GRID or KV * head_chunks(H // KV) > _MAX_GRID:
+        raise ValueError(f"decode_attention: B={B} or KV={KV} (times "
+                         f"{head_chunks(H // KV)} blocks of heads) over "
+                         f"the grid limit {_MAX_GRID}")
 
 
 def _cur_tensor(cur_len, B: int, device) -> torch.Tensor:
@@ -130,7 +139,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    splits = num_splits(B, KV, S)
+    splits = num_splits(B, KV * head_chunks(H // KV), S)
     part = torch.empty((B, H, splits, D + 2), dtype=torch.float32,
                        device=q.device)
     rc = launch(_entry(), q.get_device(), qp, kp, vp, cur.data_ptr(),

@@ -39,7 +39,7 @@ def _entry():
     return fn
 
 
-def _check(q, k, v, causal, window):
+def _check(q, k, v, causal, window, q_offset):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q must be (B,Sq,H,D) and k, v "
                          f"(B,Skv,KV,D), got {tuple(q.shape)}, "
@@ -52,10 +52,14 @@ def _check(q, k, v, causal, window):
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {D} not in "
                          f"{HEAD_DIMS}")
-    if Sq > Skv and (causal or window):
+    if q_offset is None and Sq > Skv and (causal or window):
         raise ValueError(f"flash_attention: Sq={Sq} > Skv={Skv} with a "
-                         f"causal or window mask; queries align to the end "
-                         f"of the keys")
+                         f"causal or window mask and ends aligned (no "
+                         f"q_offset): the first query would sit before "
+                         f"the first key")
+    if q_offset is not None and q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be >= 0, got "
+                         f"{q_offset}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one type, "
                         f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
@@ -85,20 +89,24 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_offset=None) -> torch.Tensor:
     """Softmax attention of q (B,Sq,H,D) over k, v (B,Skv,KV,D), query
     head h reading KV head h // (H/KV); query i sits at key position
-    i + Skv - Sq (ends aligned), which only a causal or window mask
-    reads: without one (cross attention) Sq may exceed Skv.  f32 scores
-    and accumulation; output in q's type."""
-    _check(q, k, v, causal, window)
+    i + q_offset, by default i + Skv - Sq (ends aligned, the Pallas
+    kernel's rule), which only a causal or window mask reads: without
+    one (cross attention) Sq may exceed Skv, and with an explicit
+    q_offset >= 0 (continuation attention) too.  f32 scores and
+    accumulation; output in q's type."""
+    _check(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
     return with_grad(_launch, attention_ref, (q, k, v), causal=causal,
-                     window=window)
+                     window=window, q_offset=q_offset)
 
 
-def _launch(q, k, v, causal, window):
+def _launch(q, k, v, causal, window, q_offset=None):
     """One launch of the kernel on checked CUDA tensors."""
     global launches
     B, Sq, H, D = q.shape
@@ -112,7 +120,10 @@ def _launch(q, k, v, causal, window):
     if q.numel() == 0:
         return o
     # the kernel reads q_offset only through a causal or window mask
-    q_offset = Skv - Sq if causal or window else 0
+    if not (causal or window):
+        q_offset = 0
+    elif q_offset is None:
+        q_offset = Skv - Sq
     rc = launch(_entry(), q.get_device(), qp, kp, vp, o.data_ptr(), B, Sq, Skv,
                 H, KV, D, int(bool(causal)), int(window), q_offset,
                 1.0 / math.sqrt(D), _DTYPES[q.dtype])

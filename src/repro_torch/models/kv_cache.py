@@ -5,6 +5,12 @@ The port of ``repro.models.kv_cache``'s ``alloc``, ``write`` and
 (symmetric per-(position, head) quantization: ``{"q": int8 (B,S,KV,D),
 "s": float32 (B,S,KV)}``).
 
+The layer-stacked helpers of the reference's in-place decode
+(``decode_inplace_cache``) are here too: ``layer_view``, ``read_layer``,
+``write_layer`` (with ``uniform``) and ``slice_window``.  Where the
+reference updates a buffer carried through its layer scan, the port
+writes the layer's view of the caller's buffer in place.
+
 ``write`` keeps the reference's ``mode="drop"`` semantics: an index in
 [-S, 0) counts from the end (jax normalizes it so), and an index
 outside [-S, S) is dropped.  ``write_`` does the same in place, without
@@ -99,3 +105,87 @@ def read(cache) -> torch.Tensor:
     if isinstance(cache, dict):
         return cache["q"].float() * cache["s"][..., None]
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Layer-stacked in-place variants (decode_inplace_cache): the cache keeps
+# its (lead..., B, S, KV, D) stacked layout; writes go to one layer's view
+# in place, reads take a view of one layer.
+# ---------------------------------------------------------------------------
+
+def layer_view(cache_all, lead_idx: tuple):
+    """One layer's (B, S, KV, D) buffer of a stacked cache (a dict of
+    views for int8, not dequantized): a view, not a copy.  ``lead_idx``
+    is a tuple of layer indices (``()``: the buffer itself)."""
+    if isinstance(cache_all, dict):
+        return {k: v[lead_idx] for k, v in cache_all.items()}
+    return cache_all[lead_idx]
+
+
+def read_layer(cache_all, lead_idx: tuple) -> torch.Tensor:
+    """Dense (dequantized if int8) (B, S, KV, D) view of one layer."""
+    return read(layer_view(cache_all, lead_idx))
+
+
+def write_layer(cache_all, lead_idx: tuple, new: torch.Tensor,
+                pos: torch.Tensor, uniform: bool = False, index=None):
+    """In place: write new (B, S_new, KV, D) into layer ``lead_idx`` of
+    ``cache_all`` (lead..., B, S, KV, D) at positions pos (B,) (int8:
+    quantized per (position, head) first, as ``write``); returns
+    ``cache_all``.
+
+    ``uniform=True`` is the reference's contiguous update: every row is
+    written at ``pos[0]``, whatever its own position, the start taken as
+    ``lax.dynamic_update_slice`` takes it (``_dynamic_start``: counted
+    from the end when negative, then clamped to [0, S - S_new]; a row
+    at another position is written at the wrong place: that is
+    the reference's contract for serving steps that share one
+    position).  Otherwise each row goes to its own position with
+    ``write``'s drop semantics; ``index``: ``write_index(pos, S_new,
+    S)``, when the caller has it."""
+    view = layer_view(cache_all, lead_idx)
+    if isinstance(view, dict):
+        q, scale = quantize(new)
+        _write_layer_arr(view["q"], q, pos, uniform, index)
+        _write_layer_arr(view["s"], scale, pos, uniform, index)
+    else:
+        _write_layer_arr(view, new, pos, uniform, index)
+    return cache_all
+
+
+def _write_layer_arr(buf: torch.Tensor, new: torch.Tensor,
+                     pos: torch.Tensor, uniform: bool, index) -> None:
+    if not uniform:
+        write_(buf, new, pos, index)
+        return
+    S, n = buf.shape[1], new.shape[1]
+    if n > S:
+        raise ValueError(f"write_layer: {n} positions exceed the cache "
+                         f"length {S}")
+    # the start stays on the device: no host read of pos
+    idx = _dynamic_start(pos[:1], S, n) + torch.arange(n, device=buf.device)
+    buf.index_copy_(1, idx, new.to(buf.dtype))
+
+
+def _dynamic_start(start, S: int, n: int) -> torch.Tensor:
+    """The first index of an n-long slice at ``start`` of an axis of S,
+    as jax's dynamic slices take it: a negative start counts from the
+    end, then the start is clamped to [0, S - n]."""
+    start = start.to(torch.int64)
+    return torch.clamp(torch.where(start < 0, start + S, start), 0, S - n)
+
+
+def slice_window(layer_cache, start, window: int):
+    """Rows [start, start + window) along the sequence axis of a (B, S,
+    KV, D) layer view (decode_slice_reads), the start taken as
+    ``lax.dynamic_slice_in_dim`` takes it (``_dynamic_start``); ``start``
+    may be a 0-d device tensor (no host read).  A contiguous copy of the
+    window (the decode kernel reads contiguous caches), not a view."""
+    def sl(x):
+        first = _dynamic_start(torch.as_tensor(start, device=x.device),
+                               x.shape[1], window)
+        return x.index_select(1, first + torch.arange(window,
+                                                      device=x.device))
+    if isinstance(layer_cache, dict):
+        return {k: sl(v) for k, v in layer_cache.items()}
+    return sl(layer_cache)

@@ -10,9 +10,14 @@ reference's layouts (``wq (d,H,hd)``, ``wo (H,hd,d)``, ``up/gate (d,f)``,
 ``rmsnorm``, ``chunked_attention`` and ``decode_attention`` go through
 the kernel wrappers: a CPU tensor takes the plain version, a CUDA tensor
 the hand-written kernel (or the wrapper raises).
+``decode_attention_with_new``, the reference's attention of the in-place
+decode (``decode_inplace_cache``), is plain torch on every device, as
+the reference's is jnp and reaches no Pallas kernel.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +26,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.models.params import P
+
+NEG_INF = -1e30
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -182,24 +189,26 @@ def out_project(p, o: torch.Tensor) -> torch.Tensor:
 # Attention over a full sequence (prefill)
 # ---------------------------------------------------------------------------
 
-def chunked_attention(q, k, v, *, causal: bool, window: int = 0):
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_offset: int = 0, parallel_q: bool = False):
     """Softmax attention of q (B,Sq,H,D) over k, v (B,Skv,KV,D) with GQA,
-    through the flash-attention kernel's wrapper.
+    through the flash-attention kernel's wrapper, with the reference
+    jnp path's meaning: query i sits at key position ``q_offset + i``
+    (starts aligned by default), masked by ``causal`` and ``window``.
 
-    At Sq == Skv the reference's choices agree: its jnp path aligns the
-    starts of q and k (``q_offset=0``) and its Pallas kernel the ends
-    (``q_offset = Skv - Sq``).  Cross attention (Sq != Skv, not causal,
-    no window: whisper's and the VLM's memory) masks nothing, so where
-    q sits against k is moot and either length may be the larger.
-    Continuation attention (Sq != Skv, causal or windowed) is not
-    ported and raises on every device.
+    At Sq == Skv and ``q_offset=0`` this is also what the reference's
+    Pallas kernel computes (it aligns the ends).  Continuation attention
+    (Sq != Skv under a causal or window mask) takes any ``q_offset >=
+    0``, either length the larger; a row whose keys are all masked gets
+    0 from the kernel and the mean of v from the plain version (the
+    reference's jnp path: the mean over its padded chunks).  Cross
+    attention (not causal, no window) masks nothing, so the offset is
+    moot there.  ``parallel_q``: the reference vectorises its q chunks;
+    the kernel's grid already runs every q tile in parallel, so the
+    flag changes nothing here.
     """
-    if q.shape[1] != k.shape[1] and (causal or window):
-        raise NotImplementedError(
-            f"chunked_attention: Sq={q.shape[1]} != Skv={k.shape[1]} with "
-            f"causal={causal}, window={window} (continuation attention) "
-            f"is not ported")
-    return flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +223,42 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window: int = 0):
     type first)."""
     return decode_ops.decode_attention(q, k_cache, v_cache, cur_len,
                                        window=window)
+
+
+def decode_attention_with_new(q, k_cache, v_cache, k_new, v_new, cur_len,
+                              *, window: int = 0):
+    """Decode attention over the cache as it was before this step's
+    write, plus the new token out of band (the reference's in-place
+    decode): q (B,1,H,D); caches (B,S,KV,D) with ``cur_len`` (B,) valid
+    entries NOT counting the new token; k_new, v_new (B,1,KV,D).  With
+    ``window`` the old entries >= cur_len - window + 1 stay, the new
+    token sitting at position cur_len.
+
+    The reference's arithmetic, in plain torch: float32 scores and
+    softmax over the S old positions and the new one; the old entries'
+    probabilities cast to the cache's type before their PV product (the
+    new token's k and v enter in their own type, unrounded), products
+    summed in float32.  Output in q's type."""
+    B, _, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    cur = torch.as_tensor(cur_len, device=q.device)
+    if cur.dim() == 0:
+        cur = cur.expand(B)
+    qr = q.reshape(B, KV, H // KV, D).float()
+    s_old = torch.einsum("bhgd,bshd->bhgs", qr, k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    valid = pos[None] < cur[:, None]
+    if window:
+        valid &= pos[None] >= (cur[:, None] - window + 1)
+    s_old = s_old.masked_fill(~valid[:, None, None, :], NEG_INF)
+    s_new = torch.einsum("bhgd,bohd->bhgo", qr, k_new.float()) * scale
+    p = torch.softmax(torch.cat([s_old, s_new], dim=-1), dim=-1)
+    p_old = p[..., :S].to(v_cache.dtype).float()
+    p_new = p[..., S:].to(v_new.dtype).float()
+    o = torch.einsum("bhgs,bshd->bhgd", p_old, v_cache.float()) \
+        + torch.einsum("bhgo,bohd->bhgd", p_new, v_new.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -22,15 +22,35 @@ MoE load-balance loss summed over layers, as the reference's scan carry
 does; ``prefill`` and ``decode_step`` drop it.
 
 The default decode path is the reference's non-in-place one: each step
-returns a new cache and leaves the caller's as it was.  ``forward`` is
-differentiable (the training path): ``RunConfig.remat="block"``
-recomputes each layer in the backward (``torch.utils.checkpoint``, as
-the reference's ``jax.checkpoint`` of its scan body), and ``"full"`` and
-``"group"`` do what they do in the reference's dense transformer without
-cross-attention: nothing.  ``RunConfig`` knobs this port does not
-implement raise ``NotImplementedError`` (``check_run``).  The VLM
-family serves only: under ``remat`` or with a parameter that needs a
-gradient it raises (``check_inference``).
+returns a new cache and leaves the caller's as it was.  The serving
+knobs of ``RunConfig`` follow the reference:
+
+* ``decode_inplace_cache``: the step writes the caller's cache buffers
+  in place (no copy of the cache a step) and returns them.  Each
+  attention layer attends over its cache as it was before the write,
+  with the new token out of band (``layers.decode_attention_with_new``,
+  plain torch, as the reference's jnp), so this branch launches no
+  decode_attention kernel for self attention; the VLM's cross layers
+  still do.
+* ``decode_uniform_pos`` (with the in-place branch): every row is
+  written at ``pos[0]`` (``kv_cache.write_layer``).
+* ``decode_slice_reads`` (with ``decode_window``): attention reads a
+  copy of the ``decode_window`` rows from ``min(pos) + 1 - w`` on, for
+  the whole batch, so a row far ahead of the slowest one loses its
+  keys past the slice, as in the reference.
+* ``prefill_parallel_q``: accepted; it changes nothing here, since the
+  flash kernel already runs every q tile in parallel (the reference
+  vectorises its jnp path's q chunks with it).
+
+``forward`` is differentiable (the training path):
+``RunConfig.remat="block"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+its scan body), and ``"full"`` and ``"group"`` do what they do in the
+reference's dense transformer without cross-attention: nothing.
+``fsdp`` and ``shard_kv_seq`` (sharding over several cards) raise
+``NotImplementedError`` (``check_run``).  The VLM family serves only:
+under ``remat`` or with a parameter that needs a gradient it raises
+(``check_inference``).
 """
 
 from __future__ import annotations
@@ -45,17 +65,16 @@ from repro_torch.config import ModelConfig, RunConfig
 from repro_torch.models import kv_cache
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, attn_schema, chunked_attention, decode_attention,
-    embed, embed_schema, mlp_schema, norm_schema, out_project, q_project,
-    qkv_project, rope_tables, unembed)
+    decode_attention_with_new, embed, embed_schema, mlp_schema, norm_schema,
+    out_project, q_project, qkv_project, rope_tables, unembed)
 from repro_torch.models.moe import apply_moe, moe_schema
 from repro_torch.models.params import P, map_schema
 from repro_torch.training.optimizer import leaves
 
 # RunConfig fields the port does not implement, with the value that
-# means "off" (the reference's default)
-_UNPORTED_KNOBS = {"decode_inplace_cache": False, "decode_slice_reads": False,
-                   "decode_uniform_pos": False, "prefill_parallel_q": False,
-                   "fsdp": False, "shard_kv_seq": False}
+# means "off" (the reference's default): sharding over several cards
+# (ROADMAP queue 1 item 9)
+_UNPORTED_KNOBS = {"fsdp": False, "shard_kv_seq": False}
 
 
 def check_run(cfg: ModelConfig, run: RunConfig) -> None:
@@ -175,17 +194,30 @@ def block_seq(cfg, lp, x, positions, rope_tab, run: RunConfig,
     return x + h, aux, (k, v)
 
 
-def block_decode(cfg, lp, x, pos, kc, vc, run: RunConfig, rope_tab, index):
+def block_decode(cfg, lp, x, pos, kc, vc, run: RunConfig, rope_tab, index,
+                 slice_reads: bool = True):
     """Single-token decode for one layer.  x: (B,1,d); pos: (B,) write
-    index; kc/vc: this layer's cache buffers, written in place at
-    ``index`` (``kv_cache.write_index``); rope_tab: the rotary tables
-    of ``pos``.  Returns (x, aux)."""
+    index; kc/vc: this layer's cache buffers (views), written in place
+    at ``index`` (``kv_cache.write_index``); rope_tab: the rotary tables
+    of ``pos``.  Returns (x, aux).
+
+    The reference's ``_block_decode`` (write, then attend over the
+    written cache through the decode kernel), or under
+    ``decode_inplace_cache`` its ``_block_decode_inplace``: attend over
+    the cache as it was, the new token out of band, then write (at
+    ``pos[0]`` for every row with ``decode_uniform_pos``).
+    ``slice_reads`` False: the write-then-attend branch reads the whole
+    cache whatever ``decode_slice_reads`` says (zamba2's, as in the
+    reference)."""
     h = apply_norm(cfg, lp["ln1"], x)
     q, k, v = qkv_project(cfg, lp["attn"], h, positions=pos[:, None],
                           rope_tab=rope_tab)
-    kv_cache.write_(kc, k, pos, index)
-    kv_cache.write_(vc, v, pos, index)
-    o = _decode_attend(q, kc, vc, pos, run)
+    if run.decode_inplace_cache:
+        o = decode_inplace(q, k, v, kc, vc, pos, run, index)
+    else:
+        kv_cache.write_(kc, k, pos, index)
+        kv_cache.write_(vc, v, pos, index)
+        o = _decode_attend(q, kc, vc, pos, run, slice_reads)
     x = x + out_project(lp["attn"], o)
     h, aux = _ffn(cfg, lp, apply_norm(cfg, lp["ln2"], x), run)
     return x + h, aux
@@ -217,11 +249,57 @@ def cross_attn_decode(cfg, lp, x, ck, cv, memory_len):
     return x + torch.tanh(lp["gate_mlp"]) * h
 
 
-def _decode_attend(q, kc, vc, pos, run: RunConfig):
-    """Attention over one layer's cache (the reference's default branch;
-    ``decode_slice_reads`` is not ported)."""
+def _slice_start(kc, pos, run: RunConfig):
+    """(start, w) of ``decode_slice_reads``' window of one layer's cache:
+    w = min(decode_window, S) rows from clip(min(pos) + 1 - w, 0, S - w),
+    one start for the whole batch, left on the device; None when the
+    knob is off."""
+    if not (run.decode_slice_reads and run.decode_window):
+        return None
+    S = (kc["q"] if isinstance(kc, dict) else kc).shape[1]
+    w = min(run.decode_window, S)
+    return torch.clamp(pos.min() + 1 - w, 0, S - w), w
+
+
+def _decode_attend(q, kc, vc, pos, run: RunConfig, slice_reads=True):
+    """Attention over one layer's written cache through the decode
+    kernel; with ``decode_slice_reads`` (and ``slice_reads``) over a
+    copy of the window's rows only, each row's valid length counted
+    from the window's start."""
+    sl = _slice_start(kc, pos, run) if slice_reads else None
+    if sl is not None:
+        start, w = sl
+        kc = kv_cache.slice_window(kc, start, w)
+        vc = kv_cache.slice_window(vc, start, w)
+        return decode_attention(q, kv_cache.read(kc), kv_cache.read(vc),
+                                pos + 1 - start, window=run.decode_window)
     return decode_attention(q, kv_cache.read(kc), kv_cache.read(vc), pos + 1,
                             window=run.decode_window)
+
+
+def decode_inplace(q, k, v, kc, vc, pos, run: RunConfig, index):
+    """The in-place branch's attention and write for one layer (the
+    reference's ``_decode_attend_prewrite`` and ``write_layer``): attend
+    over the layer's cache kc, vc as it was before this step's write,
+    or with ``decode_slice_reads`` its window's rows, plus the new token
+    k, v out of band, in plain torch; then write k, v in place (at
+    ``pos[0]`` for every row with ``decode_uniform_pos``; ``index``:
+    the step's ``kv_cache.write_index``).  Returns the attention
+    output."""
+    k_old, v_old, cur = kc, vc, pos
+    sl = _slice_start(kc, pos, run)
+    if sl is not None:
+        start, w = sl
+        k_old = kv_cache.slice_window(kc, start, w)
+        v_old = kv_cache.slice_window(vc, start, w)
+        cur = pos - start
+    o = decode_attention_with_new(q, kv_cache.read(k_old),
+                                  kv_cache.read(v_old), k, v, cur,
+                                  window=run.decode_window)
+    for buf, new in ((kc, k), (vc, v)):
+        kv_cache.write_layer(buf, (), new, pos,
+                             uniform=run.decode_uniform_pos, index=index)
+    return o
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +414,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
             "v": stacked_kv(cfg, L, batch, max_len, run, device)}
 
 
+def step_buffers(cache, run: RunConfig):
+    """The k and v buffers a decode step writes: the cache's own under
+    ``decode_inplace_cache``, copies otherwise."""
+    if run.decode_inplace_cache:
+        return cache["k"], cache["v"]
+    return kv_cache.clone(cache["k"]), kv_cache.clone(cache["v"])
+
+
 def write_stacked(buf, new: torch.Tensor, pos: torch.Tensor):
     """kv_cache.write_ over the leading layer axes, in place: buf
     (*lead, B, S, ...) and new (*lead, B, S_new, KV, D) fold the lead
@@ -380,14 +466,16 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
                 run: RunConfig, extras: Optional[dict] = None):
     """token: (B, 1) -> (logits (B, 1, V), updated cache).  The updated
     cache is a copy (the VLM's cross cache, which a step only reads, is
-    shared with it); the one passed in is left as it was."""
+    shared with it); the one passed in is left as it was.  Under
+    ``decode_inplace_cache`` the k and v buffers passed in are written
+    in place and returned (``pos`` is new either way)."""
     if cfg.cross_attn_every:
         check_inference(cfg, run, params)
     else:
         check_run(cfg, run)
     pos = cache["pos"]
     x = embed(params["embed"], token)
-    kc_all, vc_all = kv_cache.clone(cache["k"]), kv_cache.clone(cache["v"])
+    kc_all, vc_all = step_buffers(cache, run)
     # shared by every layer: rotary tables and cache write slots
     tab = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[-3]

@@ -2,8 +2,12 @@
 transformer over stub frame embeddings.
 
 The port of ``repro.models.whisper``: ``schema``, ``encode``,
-``forward``, ``init_cache``, ``prefill`` and the non-in-place
-``decode_step``.  The mel-spectrogram and conv front end is a stub, as
+``forward``, ``init_cache``, ``prefill`` and ``decode_step`` (both of
+the reference's branches: the default one, and
+``decode_inplace_cache``, whose self attention runs over the cache as
+it was before the write with the new token out of band, in plain
+torch; only that branch honours ``decode_slice_reads``, as in the
+reference).  The mel-spectrogram and conv front end is a stub, as
 in the reference: the model reads precomputed frame embeddings
 ``extras["audio_frames"]`` (B, num_audio_frames, d_model)
 (``models.api.extra_input_specs``).
@@ -16,8 +20,8 @@ over layer views take the place of the reference's ``lax.scan``.
 
 Per prefill: one flash-attention call per encoder layer, two per decoder
 layer (self and cross); per decode step two flash-decode calls per
-decoder layer, the cross one over the cross cache with ``cur_len =
-num_audio_frames``.  Whisper's norms are layernorms: no RMSNorm launch.
+decoder layer (one, the cross one, under ``decode_inplace_cache``), the
+cross one over the cross cache with ``cur_len = num_audio_frames``.  Whisper's norms are layernorms: no RMSNorm launch.
 The cache holds ``pos``, the self k/v (L, B, max_len, KV, D) and the
 cross k/v (L, B, num_audio_frames, KV, D), written once at prefill.
 Serving only: ``remat`` and gradients raise
@@ -37,7 +41,8 @@ from repro_torch.models.layers import (
     embed, embed_schema, mlp_schema, norm_schema, out_project, q_project,
     qkv_project, rope_tables, unembed)
 from repro_torch.models.transformer import (
-    check_inference, check_run, layer_params, stack_schema, stacked_kv,
+    check_inference, check_run, decode_inplace, layer_params,
+    stack_schema, stacked_kv, step_buffers,
     unstack, write_stacked)
 
 
@@ -142,14 +147,15 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
                 run: RunConfig, extras: Optional[dict] = None):
-    """token: (B, 1) -> (logits (B, 1, V), updated cache): the
-    reference's non-in-place branch.  The self k/v are copies; the cross
-    k/v, which a step only reads, are shared with the cache passed in,
-    which is left as it was."""
+    """token: (B, 1) -> (logits (B, 1, V), updated cache).  The self k/v
+    are copies (under ``decode_inplace_cache`` the buffers passed in,
+    written in place); the cross k/v, which a step only reads, are
+    shared with the cache passed in, which is otherwise left as it
+    was."""
     check_inference(cfg, run, params)
     pos = cache["pos"]
     x = embed(params["embed"], token)
-    kc_all, vc_all = kv_cache.clone(cache["k"]), kv_cache.clone(cache["v"])
+    kc_all, vc_all = step_buffers(cache, run)
     tab = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[-3]
     index = kv_cache.write_index(pos, 1, S)
@@ -161,10 +167,13 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
         h = apply_norm(cfg, lp["ln1"], x)
         q, k, v = qkv_project(cfg, lp["attn"], h, positions=pos[:, None],
                               rope_tab=tab)
-        kv_cache.write_(kc, k, pos, index)
-        kv_cache.write_(vc, v, pos, index)
-        o = decode_attention(q, kv_cache.read(kc), kv_cache.read(vc),
-                             pos + 1, window=run.decode_window)
+        if run.decode_inplace_cache:
+            o = decode_inplace(q, k, v, kc, vc, pos, run, index)
+        else:
+            kv_cache.write_(kc, k, pos, index)
+            kv_cache.write_(vc, v, pos, index)
+            o = decode_attention(q, kv_cache.read(kc), kv_cache.read(vc),
+                                 pos + 1, window=run.decode_window)
         x = x + out_project(lp["attn"], o)
         h = apply_norm(cfg, lp["ln_cross"], x)
         co = decode_attention(q_project(lp["cross"], h),

@@ -3,7 +3,10 @@
 ``shared_attn_every`` Mamba2 layers.
 
 The port of ``repro.models.zamba2``: ``schema``, ``forward``,
-``init_cache``, ``prefill`` and the non-in-place ``decode_step``.  The
+``init_cache``, ``prefill`` and ``decode_step`` (both of the
+reference's branches: the default one, and ``decode_inplace_cache``,
+whose shared block attends over the cache as it was before the write
+with the new token out of band, in plain torch).  The
 backbone's leaves stay stacked ``(G, shared_attn_every, ...)``, as the
 reference keeps them, and Python loops over group and layer views take
 the place of its nested ``lax.scan``.  The shared block is one set of
@@ -15,14 +18,15 @@ Per forward: 2 RMSNorms per Mamba2 layer (its pre-norm and the gated
 inner norm), 2 per shared-block application and the final one (127 at
 54 layers in 9 groups); at prefill one ``ssd_scan`` per Mamba2 layer
 and one flash-attention call per group, at each decode step one
-flash-decode call per group.
+flash-decode call per group (none under ``decode_inplace_cache``).
 
 The cache holds, besides ``pos`` and the shared block's k/v per group
 ``(G, B, max_len, KV, D)``, each Mamba2 layer's states: ``conv``
 ``(G, E, B, W-1, C)``, bfloat16 after ``init_cache``/``prefill`` and
 the activations' type after a decode step (as the reference's), and
-``ssm`` ``(G, E, B, H, P, N)`` float32.  ``RunConfig`` knobs the port
-does not implement raise ``NotImplementedError``
+``ssm`` ``(G, E, B, H, P, N)`` float32.  As in the reference, only
+the in-place branch honours ``decode_slice_reads``.  ``RunConfig`` knobs
+the port does not implement raise ``NotImplementedError``
 (``transformer.check_run``), and so does ``remat`` "block" or "group"
 (the reference checkpoints each group there; not ported).  ``forward``
 is differentiable: the ``ssd_scan``, ``rmsnorm`` and flash-attention
@@ -44,7 +48,7 @@ from repro_torch.models.ssm import (mamba2_forward, mamba2_init_state,
                                     mamba2_schema, mamba2_step)
 from repro_torch.models.transformer import (
     block_decode, block_seq, check_run as _check_dense, layer_params,
-    stack_schema, stacked_kv, unstack, write_stacked)
+    stack_schema, stacked_kv, step_buffers, unstack, write_stacked)
 
 
 def _groups(cfg: ModelConfig) -> int:
@@ -171,13 +175,14 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
                 run: RunConfig, extras: Optional[dict] = None):
-    """token: (B, 1) -> (logits (B, 1, V), updated cache): the
-    reference's non-in-place branch.  The updated cache is new; the one
-    passed in is left as it was."""
+    """token: (B, 1) -> (logits (B, 1, V), updated cache).  The updated
+    cache is new and the one passed in is left as it was, but under
+    ``decode_inplace_cache``, where its k and v buffers are written in
+    place and returned."""
     check_run(cfg, run)
     pos = cache["pos"]
     x = embed(params["embed"], token)
-    kc_all, vc_all = kv_cache.clone(cache["k"]), kv_cache.clone(cache["v"])
+    kc_all, vc_all = step_buffers(cache, run)
     # shared by every group: rotary tables and cache write slots
     tab = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[2]
@@ -186,7 +191,8 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     for g in range(_groups(cfg)):
         x, _ = block_decode(cfg, params["shared"], x, pos,
                             layer_params(kc_all, g),
-                            layer_params(vc_all, g), run, tab, index)
+                            layer_params(vc_all, g), run, tab, index,
+                            slice_reads=False)
         for i in range(cfg.shared_attn_every):
             lp = _mamba_params(params, g, i)
             st = {key: val[g, i] for key, val in cache["ssm"].items()}

@@ -1270,3 +1270,169 @@ def test_family_on_card_matches_cpu(cuda, arch, launches):
         outs[str(dev)] = [t.cpu() for t in (logits, step, step2)]
     for got, want in zip(outs[str(cuda)], outs["cpu"]):
         torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+# -- the last dense configs: codeqwen1.5-7b, minitron-4b, granite-34b -------
+
+# (B, cache, H, KV) of decode at G = 3 (minitron), 33, 48 (granite's
+# multi-query), 64 (the most one block holds) and 96 (two blocks of
+# heads a KV head)
+DENSE_DEC = [(B, S, H, KV) for B in (1, 8)
+             for S, H, KV in ((512, 24, 8), (300, 33, 1), (512, 48, 1),
+                              (700, 128, 2), (200, 96, 1))]
+
+
+@pytest.mark.parametrize("B,S,H,KV", DENSE_DEC)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("q_dtype,c_dtype", [("float32", "float32"),
+                                             ("bfloat16", "bfloat16"),
+                                             ("float32", "bfloat16")])
+def test_decode_attention_at_large_groups(cuda, B, S, H, KV, D, window,
+                                          q_dtype, c_dtype):
+    q = _randn((B, 1, H, D), 21, cuda, DTYPES[q_dtype][0])
+    kc = _randn((B, S, KV, D), 22, cuda, DTYPES[c_dtype][0])
+    vc = _randn((B, S, KV, D), 23, cuda, DTYPES[c_dtype][0])
+    cur = torch.tensor(np.random.default_rng(B + H + D).integers(1, S + 1, B),
+                       dtype=torch.int32, device=cuda)
+    before = dec_ops.launches
+    got = dec_ops.decode_attention(q, kc, vc, cur, window=window)
+    torch.cuda.synchronize()
+    assert dec_ops.launches == before + 1
+    _close(got, decode_attention_ref(q, kc, vc, cur, window=window),
+           "bfloat16" if "bfloat16" in (q_dtype, c_dtype) else "float32")
+
+
+# (B, S, H, KV) of the prefills at prompt 128 and the calibration's 32 at
+# B = 16: codeqwen (MHA), minitron (G = 3), granite (G = 48, KV = 1)
+DENSE_ATTN = [(8, 128, 32, 32), (16, 32, 32, 32), (8, 128, 24, 8),
+              (16, 32, 24, 8), (8, 128, 48, 1), (16, 32, 48, 1)]
+
+
+@pytest.mark.parametrize("B,S,H,KV", DENSE_ATTN)
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_at_the_dense_shapes(cuda, B, S, H, KV, window,
+                                             dtype):
+    dt = DTYPES[dtype][0]
+    q = _randn((B, S, H, 128), 24, cuda, dt)
+    k = _randn((B, S, KV, 128), 25, cuda, dt)
+    v = _randn((B, S, KV, 128), 26, cuda, dt)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    _close(got, attention_ref(q, k, v, causal=True, window=window), dtype)
+
+
+@pytest.mark.parametrize("Sq,Skv,q_offset", [(16, 80, 0), (16, 80, 64),
+                                              (48, 40, 0), (96, 33, 7),
+                                              (64, 64, 5)])
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_continuation(cuda, Sq, Skv, q_offset, window,
+                                      dtype):
+    """Continuation attention: query i at key position q_offset + i, at
+    Sq < Skv and Sq > Skv, causal and windowed (rows whose keys are all
+    masked give 0 in the kernel, the mean of v in the plain version:
+    the windows here leave every row a key)."""
+    dt = DTYPES[dtype][0]
+    q = _randn((2, Sq, 8, 64), 27, cuda, dt)
+    k = _randn((2, Skv, 2, 64), 28, cuda, dt)
+    v = _randn((2, Skv, 2, 64), 29, cuda, dt)
+    if window and Sq + q_offset - window >= Skv:
+        window = Sq + q_offset - Skv + 1
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                 q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    _close(got, attention_ref(q, k, v, causal=True, window=window,
+                              q_offset=q_offset), dtype)
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 4096), (8, 128, 4096),
+                                   (8, 1, 4096), (16, 1, 4096)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rmsnorm_on_rows_of_4096(cuda, shape, dtype):
+    x = _randn(shape, 30, cuda, DTYPES[dtype][0])
+    s = _randn(shape[-1:], 31, cuda)
+    before = rms_ops.launches
+    got = rms_ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rms_ops.launches == before + 1
+    _close(got, rmsnorm_ref(x, s), dtype)
+
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("codeqwen1.5-7b", {}), ("minitron-4b", {}), ("granite-34b", {}),
+    ("granite-34b", dict(num_heads=48, num_kv_heads=1, head_dim=32))],
+    ids=["codeqwen", "minitron", "granite", "granite-g48"])
+def test_dense_config_on_card_matches_cpu(cuda, arch, over):
+    """Prefill and one decode step of each new config's smoke variant
+    (granite's also at G = 48 on one KV head), weights at std 0.05,
+    float32 cache: the kernels on the card, the plain versions on the
+    CPU, within 1e-3; launches exact (a layernorm config launches no
+    rmsnorm)."""
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), **over)
+    params = _family_params(cfg)
+    toks = torch.tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 16)), dtype=torch.int64)
+    run = RunConfig(kv_cache_dtype="float32")
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = _tree_to(params, dev)
+        n = (fa_ops.launches, dec_ops.launches, rms_ops.launches)
+        logits, cache = api.make_prefill_step(cfg, run, 32)(p, toks.to(dev))
+        step, _ = api.make_decode_step(cfg, run)(p, toks[:, -1:].to(dev),
+                                                 cache)
+        if dev == cuda:
+            L = cfg.num_layers
+            norms = 2 * (2 * L + 1) if cfg.norm == "rmsnorm" else 0
+            assert (fa_ops.launches - n[0], dec_ops.launches - n[1],
+                    rms_ops.launches - n[2]) == (L, L, norms)
+        outs[str(dev)] = (logits.cpu(), step.cpu())
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(decode_inplace_cache=True),
+    dict(decode_inplace_cache=True, decode_uniform_pos=True),
+    dict(decode_window=8, decode_slice_reads=True),
+    dict(decode_inplace_cache=True, decode_window=8,
+         decode_slice_reads=True)],
+    ids=["inplace", "inplace-uniform", "slice", "inplace-slice"])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_decode_knobs_on_card_match_cpu(cuda, knobs, kv_dtype):
+    """The serving knobs on the narrow GQA model, rows at different
+    positions, two decode steps: card against CPU within 1e-3 (float32
+    cache) or 2e-2 (bfloat16); the in-place branch launches no
+    decode_attention, the slice reads one a layer over the window's
+    contiguous copy."""
+    cfg = GQA
+    params = _family_params(cfg)
+    toks = torch.tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (3, 16)), dtype=torch.int64)
+    run = RunConfig(kv_cache_dtype=kv_dtype, **knobs)
+    tol = 1e-3 if kv_dtype == "float32" else 2e-2
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = _tree_to(params, dev)
+        _, cache = api.make_prefill_step(cfg, run, 32)(p, toks.to(dev))
+        cache = dict(cache, pos=torch.tensor([16, 13, 11], dtype=torch.int32,
+                                             device=dev))
+        n = dec_ops.launches
+        tok, got = toks[:, -1:].to(dev), []
+        for _ in range(2):
+            logits, cache = api.make_decode_step(cfg, run)(p, tok, cache)
+            got.append(logits.cpu())
+            tok = logits[:, -1].argmax(-1)[:, None]
+        if dev == cuda:
+            launched = dec_ops.launches - n
+            assert launched == (0 if run.decode_inplace_cache
+                                else 2 * cfg.num_layers)
+        outs[str(dev)] = got
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)

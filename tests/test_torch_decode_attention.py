@@ -1,7 +1,7 @@
 """The port's flash-decode attention against the reference's Pallas
 kernel (interpret mode) and its jnp oracle, on the same numpy inputs,
 at the sweep of tests/test_kernels.py (MHA, GQA, MQA; windows 0 and 64;
-float32 and bfloat16) plus zamba2's head size (D = 80, G = 1), windows 16 and 48 (starts inside a block), the
+float32 and bfloat16) plus zamba2's head size (D = 80, G = 1) and granite's multi-query group (G = 48), windows 16 and 48 (starts inside a block), the
 mixed float32-q / bfloat16-cache case the serving path runs, and
 ``layers.decode_attention`` against the reference's model path.
 
@@ -60,7 +60,8 @@ def _run(shape, window, q_dtype, c_dtype, bs, seed=3):
 
 SWEEP = [((2, 256, 4, 2, 64), 64), ((1, 128, 8, 8, 32), 32),
          ((3, 512, 4, 1, 128), 128),
-         ((2, 128, 4, 4, 80), 32)]          # zamba2's head size, G=1
+         ((2, 128, 4, 4, 80), 32),          # zamba2's head size, G=1
+         ((2, 128, 48, 1, 128), 64)]        # granite's multi-query, G=48
 
 
 @pytest.mark.parametrize("shape,bs", SWEEP)
@@ -174,3 +175,28 @@ def test_num_splits_at_the_serving_path_shapes():
     assert ops.num_splits(1, 4, 512) == 8
     assert ops.num_splits(8, 32, 512) == 2
     assert ops.num_splits(1, 32, 512) == 8
+
+
+@pytest.mark.parametrize("window", [0, 16])
+def test_decode_wrapper_takes_any_group(window):
+    """G = 48 and G = 96 (two blocks of heads a KV head on the card) go
+    through the wrapper's checks; on the CPU the plain version runs."""
+    rng = np.random.default_rng(3)
+    for H, KV in ((48, 1), (96, 1), (96, 2)):
+        q = torch.tensor(rng.standard_normal((2, 1, H, 64)),
+                         dtype=torch.float32)
+        kc = torch.tensor(rng.standard_normal((2, 64, KV, 64)),
+                          dtype=torch.float32)
+        vc = torch.tensor(rng.standard_normal((2, 64, KV, 64)),
+                          dtype=torch.float32)
+        cur = torch.tensor([40, 64], dtype=torch.int32)
+        before = ops.launches
+        got = ops.decode_attention(q, kc, vc, cur, window=window)
+        assert ops.launches == before
+        want = decode_attention_pallas(
+            jnp.asarray(q.numpy()), jnp.asarray(kc.numpy()),
+            jnp.asarray(vc.numpy()), jnp.asarray(cur.numpy()),
+            window=window, bs=64, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+    assert ops.head_chunks(48) == 1 and ops.head_chunks(96) == 2

@@ -182,13 +182,48 @@ def test_chunked_attention_matches_reference(window):
 
 def test_chunked_attention_raises_for_cross_attention():
     """Sq != Skv under a causal or window mask (continuation attention)
-    is not ported and raises; unmasked (cross attention) it runs, held
-    to the reference in tests/test_torch_vlm.py."""
+    used to raise; it runs now and is held to the reference's jnp path
+    in test_continuation_attention_matches_jnp_path.  What still raises
+    is a negative q_offset; unmasked (cross attention) it runs, held to
+    the reference in tests/test_torch_vlm.py."""
     q, k, v = (torch.tensor(a) for a in _inputs(1, 8, 16, 2, 2, 32))
     for kw in (dict(causal=True), dict(causal=False, window=4)):
-        with pytest.raises(NotImplementedError, match="continuation"):
-            layers.chunked_attention(q, k, v, **kw)
+        assert layers.chunked_attention(q, k, v, **kw).shape == q.shape
+        with pytest.raises(ValueError, match="q_offset"):
+            layers.chunked_attention(q, k, v, q_offset=-1, **kw)
     assert layers.chunked_attention(q, k, v, causal=False).shape == q.shape
+
+
+# (Sq, Skv, q_offset, window): queries before, inside and past the keys;
+# every row keeps a key (a row whose keys are all masked gets 0 from the
+# kernel and the mean of v from the plain version)
+CONTINUATION = [(8, 40, 0, 0), (8, 40, 32, 0), (8, 40, 13, 6),
+                (40, 24, 0, 0), (40, 24, 0, 24), (24, 16, 5, 20),
+                (32, 32, 7, 0), (32, 32, 7, 9)]
+
+
+@pytest.mark.parametrize("Sq,Skv,q_offset,window", CONTINUATION)
+@pytest.mark.parametrize("causal", [True, False])
+def test_continuation_attention_matches_jnp_path(Sq, Skv, q_offset, window,
+                                                 causal):
+    """chunked_attention(q_offset=...) against the reference's jnp path
+    with the same offset, causal or windowed (or both), at Sq < Skv,
+    Sq > Skv and Sq == Skv (where its Pallas kernel would ignore the
+    offset), within 2e-5; the wrapper's plain version on the CPU."""
+    if not causal and not window:
+        window = Skv                     # windowed only: a mask to hold
+    arrays = _inputs(2, Sq, Skv, 8, 2, 64, seed=Sq + Skv + q_offset)
+    (q, k, v), (jq, jk, jv) = _both(arrays, "float32")
+    before = ops.launches
+    got = layers.chunked_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, parallel_q=True)
+    assert ops.launches == before
+    for parallel_q in (False, True):
+        want = jax_chunked(jq, jk, jv, causal=causal, window=window,
+                           q_offset=q_offset, q_chunk=16, kv_chunk=16,
+                           parallel_q=parallel_q)
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5,
+                                   rtol=2e-5)
 
 
 def test_wrapper_runs_plain_version_on_cpu():

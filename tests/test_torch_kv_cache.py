@@ -93,3 +93,96 @@ def test_write_with_shared_index_matches_write(dtype):
 def test_write_index_rejects_more_positions_than_slots():
     with pytest.raises(ValueError):
         kv_cache.write_index(torch.zeros(2, dtype=torch.int32), S + 1, S)
+
+
+# -- layer-stacked in-place helpers (decode_inplace_cache) -------------------
+
+LEAD = (2, 3)          # a stacked cache of 2 groups of 3 layers (the VLM's)
+
+
+def _stacked(dtype, seed):
+    """A (2, 3, B, S, KV, D) cache with every layer written, in both
+    trees."""
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal(LEAD + (B, S, KV, D)).astype(np.float32)
+    jone, tone = jkv.alloc(B, S, KV, D, dtype), \
+        kv_cache.alloc(B, S, KV, D, dtype, "cpu")
+
+    def jstack(x):
+        return jnp.broadcast_to(x, LEAD + x.shape)
+    jc = jax_tree_map(jstack, jone)
+    tc = ({k: v.expand(LEAD + v.shape).clone() for k, v in tone.items()}
+          if isinstance(tone, dict) else tone.expand(LEAD + tone.shape).clone())
+    zero = np.zeros(B, np.int32)
+    for g in range(LEAD[0]):
+        for i in range(LEAD[1]):
+            jc = jkv.write_layer(jc, (g, i), jnp.asarray(base[g, i]),
+                                 jnp.asarray(zero))
+            kv_cache.write_layer(tc, (g, i), torch.tensor(base[g, i]),
+                                 torch.tensor(zero))
+    return jc, tc
+
+
+def jax_tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: fn(v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# (positions, S_new): rows at different places, past the end (dropped, or
+# clamped when uniform), negative
+LAYER_CASES = [([0, 3, 7], 1), ([5, 5, 5], 3), ([14, 2, 9], 2),
+               ([15, 15, 0], 1), ([-2, 4, 1], 1)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pos,n", LAYER_CASES)
+@pytest.mark.parametrize("uniform", [False, True])
+def test_write_layer_matches(dtype, pos, n, uniform):
+    """write_layer into one layer of a stacked cache, per-row scatter or
+    (uniform) every row at pos[0] with the start clamped to [0, S - n]
+    as lax.dynamic_update_slice clamps it: == the reference's, the other
+    layers untouched; layer_view and read_layer of every layer ==."""
+    jc, tc = _stacked(dtype, 5)
+    new = np.random.default_rng(6).standard_normal(
+        (B, n, KV, D)).astype(np.float32) * 2
+    p = np.asarray(pos, np.int32)
+    want = jkv.write_layer(jc, (1, 2), jnp.asarray(new), jnp.asarray(p),
+                           uniform=uniform)
+    got = kv_cache.write_layer(tc, (1, 2), torch.tensor(new),
+                               torch.tensor(p), uniform=uniform)
+    assert got is tc                       # in place
+    _equal(got, want)
+    for g in range(LEAD[0]):
+        for i in range(LEAD[1]):
+            _equal(kv_cache.layer_view(got, (g, i)),
+                   jkv.layer_view(want, (g, i)))
+            _equal(kv_cache.read_layer(got, (g, i)),
+                   jkv.read_layer(want, (g, i)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_layer_view_is_a_view(dtype):
+    _, tc = _stacked(dtype, 7)
+    view = kv_cache.layer_view(tc, (0, 1))
+    new = torch.full((B, 1, KV, D), 3.0)
+    kv_cache.write_layer(view, (), new, torch.tensor([1, 2, 3]))
+    _equal(kv_cache.layer_view(tc, (0, 1)), view)
+    row = (tc["q"] if dtype == "int8" else tc)[0, 1, 0, 1]
+    assert float(row.float().abs().max()) > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("start,w", [(0, 4), (5, 4), (12, 4), (14, 4),
+                                     (-3, 5), (0, 16)])
+def test_slice_window_matches(dtype, start, w):
+    """slice_window of one layer, start clamped to [0, S - w] as
+    lax.dynamic_slice_in_dim clamps it, from an int or a 0-d tensor:
+    == the reference's, and contiguous."""
+    jc, tc = _stacked(dtype, 8)
+    want = jkv.slice_window(jkv.layer_view(jc, (1, 0)), jnp.int32(start), w)
+    for s in (start, torch.tensor(start)):
+        got = kv_cache.slice_window(kv_cache.layer_view(tc, (1, 0)), s, w)
+        _equal(got, want)
+        for t in (got.values() if isinstance(got, dict) else [got]):
+            assert t.is_contiguous()

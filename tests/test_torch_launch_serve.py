@@ -23,7 +23,8 @@ G = DelayModel(a=0.004, b=0.03)
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-moe-16b",
-                                  "qwen3-moe-30b-a3b"])
+                                  "qwen3-moe-30b-a3b", "codeqwen1.5-7b",
+                                  "minitron-4b", "granite-34b"])
 def test_launcher_plan_and_penalties_match_the_numpy_core(arch):
     lines = []
     rep = serve.serve(["--arch", arch, "--smoke", "--device", "cpu",
@@ -49,6 +50,17 @@ def test_launcher_plan_and_penalties_match_the_numpy_core(arch):
     assert any(line.startswith("\nmean quality penalty: stacking=")
                for line in lines)
     assert rep["arch"].endswith("-smoke") and rep["device"] == "cpu"
+
+
+def test_launcher_cuts_depth_with_layers():
+    """--layers keeps the first N layers at full width (granite-34b runs
+    on one card at 44 of its 88); here on the smoke variant's 2."""
+    lines = []
+    rep = serve.serve(["--arch", "granite-34b", "--smoke", "--layers", "1",
+                       "--device", "cpu", "--requests", "2"], delay=G,
+                      echo=lines.append)
+    assert lines[0].startswith("arch=granite-34b-smoke layers=1 ")
+    assert sorted(rep["tokens"]) == [0, 1]
 
 
 def test_launcher_deadlines_option_and_calibration():

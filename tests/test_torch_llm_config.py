@@ -58,9 +58,9 @@ def test_zamba2_config_matches():
 
 @pytest.mark.parametrize("arch", jcfg.list_archs())
 def test_smoke_variant_matches(arch):
-    """The copied smoke_variant reduces every reference arch alike (the
-    port registers only TinyLlama; the others are rebuilt from the
-    reference's fields)."""
+    """The copied smoke_variant reduces every reference arch alike (each
+    rebuilt from the reference's fields, registered in the port or
+    not)."""
     ref = jcfg.get_config(arch)
     mine = config.ModelConfig(**dataclasses.asdict(ref))
     assert dataclasses.asdict(config.smoke_variant(mine)) \
@@ -74,11 +74,15 @@ def test_default_run_config_matches():
 
 
 def test_registry_lists_ported_and_raises_for_others():
+    """All ten of the reference's assigned archs are registered (the
+    last three, codeqwen1.5-7b, minitron-4b and granite-34b, since they
+    were ported); a name the reference does not register raises."""
     assert config.list_archs() == [
-        "deepseek-moe-16b", "llama-3.2-vision-90b", "qwen3-moe-30b-a3b",
+        "codeqwen1.5-7b", "deepseek-moe-16b", "granite-34b",
+        "llama-3.2-vision-90b", "minitron-4b", "qwen3-moe-30b-a3b",
         "tinyllama-1.1b", "whisper-tiny", "xlstm-125m", "zamba2-2.7b"]
-    with pytest.raises(KeyError, match="codeqwen1.5-7b"):
-        config.get_config("codeqwen1.5-7b")
+    with pytest.raises(KeyError, match="granite-8b"):
+        config.get_config("granite-8b")
 
 
 def test_token_quality_matches():

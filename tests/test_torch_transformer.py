@@ -191,8 +191,6 @@ def test_prefill_logits_last_only(model):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("decode_inplace_cache", True), ("decode_slice_reads", True),
-    ("decode_uniform_pos", True), ("prefill_parallel_q", True),
     ("remat", "block"), ("fsdp", True), ("shard_kv_seq", True)])
 def test_unported_run_knobs_raise(knob, value):
     cfg, _ = configs("smoke")
@@ -207,11 +205,45 @@ def test_unported_run_knobs_raise(knob, value):
             params, torch.zeros((1, 4), dtype=torch.int64))
 
 
+@pytest.mark.parametrize("knobs", [
+    dict(decode_inplace_cache=True),
+    dict(decode_window=8, decode_slice_reads=True),
+    dict(decode_inplace_cache=True, decode_uniform_pos=True),
+    dict(prefill_parallel_q=True)],
+    ids=["decode_inplace_cache", "decode_slice_reads",
+         "decode_uniform_pos", "prefill_parallel_q"])
+def test_ported_run_knobs_match_reference(knobs):
+    """The four serving knobs that used to raise: prefill and one decode
+    step of the GQA variant (G = 8) against the reference run with the
+    same knob, float32 cache, the reference's Pallas kernels in
+    interpret mode (1e-4; tests/test_torch_perf_variants.py holds them
+    over three steps, three cache types and rows at different
+    positions)."""
+    m = _model("gqa")
+    jrun, run = JaxRun(kv_cache_dtype="float32", **knobs), \
+        RunConfig(kv_cache_dtype="float32", **knobs)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_FORCE_PALLAS", "1")
+        jpl, jcache = jax_api.make_prefill_step(m.jcfg, jrun, MAX_LEN)(
+            m.jp, jnp.asarray(m.toks))
+        jdl, jcache2 = jax_api.make_decode_step(m.jcfg, jrun)(
+            m.jp, jnp.asarray(m.toks[:, -1:]), jcache)
+    t = torch.tensor(m.toks, dtype=torch.int64)
+    pl, cache = api.make_prefill_step(m.cfg, run, MAX_LEN)(m.params, t)
+    dl, cache2 = api.make_decode_step(m.cfg, run)(m.params, t[:, -1:], cache)
+    _close(pl, jpl, 1e-4)
+    _close(dl, jdl, 1e-4)
+    for name in ("k", "v"):
+        _close(cache2[name], jcache2[name], 1e-4, scaled=True)
+
+
 def test_other_families_raise():
     """Every family of the reference maps to a model (the audio, ssm and
     vlm ones since they were ported); an unknown family raises as in
     the reference, and so does an unported knob on a cross-attention
-    config."""
+    config, while the serving knobs now run there (the VLM's in-place
+    decode is held to the reference in
+    tests/test_torch_perf_variants.py)."""
     cfg, _ = configs("smoke")
     with pytest.raises(ValueError, match="unknown family"):
         api.get_model(dataclasses.replace(cfg, family="diffusion"))
@@ -219,8 +251,10 @@ def test_other_families_raise():
         is transformer
     vlm = dataclasses.replace(cfg, family="vlm", cross_attn_every=2)
     transformer.check_run(vlm, RunConfig())
-    with pytest.raises(NotImplementedError, match="decode_inplace_cache"):
-        transformer.check_run(vlm, RunConfig(decode_inplace_cache=True))
+    transformer.check_run(vlm, RunConfig(decode_inplace_cache=True,
+                                         decode_uniform_pos=True))
+    with pytest.raises(NotImplementedError, match="fsdp"):
+        transformer.check_run(vlm, RunConfig(fsdp=True))
 
 
 def test_init_model_follows_the_reference_scales():

@@ -107,22 +107,30 @@ def test_cross_chunked_attention_matches_reference(Sq, Skv, dtype):
 
 
 def test_flash_wrapper_takes_sq_over_skv_only_unmasked():
-    """Sq > Skv: the wrapper's plain version without a mask; a causal or
-    window mask (continuation attention) is refused on every device, and
-    chunked_attention raises NotImplementedError for Sq != Skv under
-    one."""
-    q, k, v = (torch.tensor(a) for a in _attn_inputs(32, 16, seed=1))
+    """Sq > Skv with ends aligned (no q_offset): the wrapper's plain
+    version runs only without a mask; a causal or window mask would put
+    the first query before the first key and is refused on every
+    device.  With the query offset chunked_attention passes
+    (continuation attention, starts aligned as in the reference's jnp
+    path), Sq != Skv runs under either mask and equals the reference's
+    jnp path within 2e-5."""
+    arrays = _attn_inputs(32, 16, seed=1)
+    q, k, v = (torch.tensor(a) for a in arrays)
     torch.testing.assert_close(
         fa_ops.flash_attention(q, k, v, causal=False),
         attention_ref(q, k, v, causal=False), atol=0, rtol=0)
+    q2 = _attn_inputs(8, 16)[0]
     for kw in (dict(causal=True), dict(causal=False, window=8)):
         with pytest.raises(ValueError, match="Sq=32 > Skv=16"):
             fa_ops.flash_attention(q, k, v, **kw)
-        with pytest.raises(NotImplementedError, match="continuation"):
-            layers.chunked_attention(q, k, v, **kw)
-    q2 = torch.tensor(_attn_inputs(8, 16)[0])
-    with pytest.raises(NotImplementedError, match="continuation"):
-        layers.chunked_attention(q2, k, v, causal=True)
+        for qa in (arrays[0], q2):
+            got = layers.chunked_attention(torch.tensor(qa), k, v, **kw)
+            with pytest.MonkeyPatch.context() as mp:
+                mp.delenv("REPRO_FORCE_PALLAS", raising=False)
+                want = jax_chunked(*(jnp.asarray(a) for a in
+                                     (qa, arrays[1], arrays[2])),
+                                   q_chunk=8, kv_chunk=8, **kw)
+            _close(got, want, 2e-5, scaled=False)
 
 
 # -- the model ----------------------------------------------------------------
@@ -416,9 +424,11 @@ def test_remat_and_gradients_raise():
         transformer.forward(m.cfg, params, t, RunConfig(), m.extras())
     with torch.no_grad():
         transformer.forward(m.cfg, params, t, RunConfig(), m.extras())
-    with pytest.raises(NotImplementedError, match="decode_inplace_cache"):
-        transformer.forward(m.cfg, m.params, t,
-                            RunConfig(decode_inplace_cache=True), m.extras())
+    # the in-place decode runs now (tests/test_torch_perf_variants.py
+    # holds the VLM's to the reference); the multi-card knobs still raise
+    with pytest.raises(NotImplementedError, match="fsdp"):
+        transformer.forward(m.cfg, m.params, t, RunConfig(fsdp=True),
+                            m.extras())
 
 
 def test_new_modules_import_without_jax():
@@ -435,7 +445,7 @@ import repro_torch.launch.serve
 import repro_torch.configs.whisper_tiny, repro_torch.configs.xlstm_125m
 import repro_torch.configs.llama_3_2_vision_90b
 from repro_torch.config import list_archs
-assert len(list_archs()) == 7, list_archs()
+assert len(list_archs()) == 10, list_archs()
 bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not bad, bad
 """

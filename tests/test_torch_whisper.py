@@ -373,6 +373,50 @@ def test_remat_and_gradients_raise():
                                     m.params)
     with pytest.raises(NotImplementedError, match="gradients"):
         whisper.forward(m.cfg, params, t, RunConfig(), m.extras())
-    with pytest.raises(NotImplementedError, match="decode_inplace_cache"):
-        whisper.init_cache(m.cfg, 1, 8, RunConfig(decode_inplace_cache=True),
+    # the in-place decode runs now (test_inplace_decode_matches_reference);
+    # the multi-card knobs still raise
+    with pytest.raises(NotImplementedError, match="shard_kv_seq"):
+        whisper.init_cache(m.cfg, 1, 8, RunConfig(shard_kv_seq=True),
                            device="cpu")
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_inplace_decode_matches_reference(kv_dtype):
+    """decode_inplace_cache: the reference's in-place branch (self
+    attention over the cache as it was, the new token out of band, in
+    plain torch; the cross attention through the decode kernel's
+    wrapper), STEPS greedy steps on std-0.02 weights against the
+    reference's (Pallas forced): logits within 1e-4 of the largest,
+    tokens equal, the written self caches at CACHE_TOL; one decode
+    launch a layer (the cross one) is what the card would count, none
+    on the CPU."""
+    m = _model()
+    knobs = dict(kv_cache_dtype=kv_dtype, decode_inplace_cache=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_FORCE_PALLAS", "1")
+        jrun = JaxRun(**knobs)
+        _, jc = jax_api.make_prefill_step(m.jcfg, jrun, MAX_LEN)(
+            m.jp, jnp.asarray(m.toks), m.jextras())
+        step = jax_api.make_decode_step(m.jcfg, jrun)
+        tok, want = jnp.asarray(m.toks[:, -1:]), []
+        for _ in range(STEPS):
+            logits, jc = step(m.jp, tok, jc, m.jextras())
+            want.append(logits)
+            tok = jnp.argmax(logits[:, -1], -1)[:, None]
+    run = RunConfig(**knobs)
+    t = torch.tensor(m.toks, dtype=torch.int64)
+    _, c = api.make_prefill_step(m.cfg, run, MAX_LEN)(m.params, t,
+                                                      m.extras())
+    step = api.make_decode_step(m.cfg, run)
+    tok, got = t[:, -1:], []
+    for _ in range(STEPS):
+        logits, c = step(m.params, tok, c, m.extras())
+        got.append(logits)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+    for g, w in zip(got, want):
+        _close(g, w, LOGIT_TOL)
+    for a, b in zip(_tokens([(g, None) for g in got]),
+                    _tokens([(w, None) for w in want])):
+        np.testing.assert_array_equal(a, b)
+    for name in ("k", "v"):
+        _close(c[name], jc[name], CACHE_TOL[kv_dtype])

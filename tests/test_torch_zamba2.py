@@ -251,9 +251,12 @@ def test_schema_and_cache_shapes_at_full_width():
 
 
 def test_unported_knobs_raise():
+    """remat (the reference checkpoints each group) and the multi-card
+    knobs raise; the in-place decode, which used to, is held to the
+    reference by test_inplace_decode_matches_reference."""
     cfg, _ = configs("smoke")
     params = api.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
-    for knob, value in (("decode_inplace_cache", True), ("remat", "block")):
+    for knob, value in (("remat", "block"), ("fsdp", True)):
         with pytest.raises(NotImplementedError, match=knob):
             api.make_prefill_step(cfg, RunConfig(**{knob: value}), MAX_LEN)(
                 params, torch.zeros((1, 4), dtype=torch.int64))
@@ -263,6 +266,33 @@ def test_unported_knobs_raise():
         ssd_ops.ssd_scan(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2),
                          torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
                          torch.zeros(1, 2, 8, 8))
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_inplace_decode_matches_reference(kv_dtype):
+    """decode_inplace_cache (the shared block attends over the cache as
+    it was, the new token out of band, plain torch in both): prefill and
+    one decode step against the reference's in-place branch, Pallas
+    forced for its prefill; logits at the file's tolerances, the written
+    caches too; no decode kernel launch, and the buffers passed in are
+    the ones returned."""
+    m = _model("smoke")
+    knobs = dict(kv_cache_dtype=kv_dtype, decode_inplace_cache=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_FORCE_PALLAS", "1")
+        jrun = JaxRun(**knobs)
+        _, jcache = jax_api.make_prefill_step(m.jcfg, jrun, MAX_LEN)(
+            m.jp, jnp.asarray(m.toks))
+        jdl, jcache2 = jax_api.make_decode_step(m.jcfg, jrun)(
+            m.jp, jnp.asarray(m.toks[:, -1:]), jcache)
+    run = RunConfig(**knobs)
+    t = torch.tensor(m.toks, dtype=torch.int64)
+    _, cache = api.make_prefill_step(m.cfg, run, MAX_LEN)(m.params, t)
+    dl, cache2 = api.make_decode_step(m.cfg, run)(m.params, t[:, -1:], cache)
+    assert cache2["k"] is cache["k"] and cache2["v"] is cache["v"]
+    _close(dl, jdl, TOL[kv_dtype])
+    for name in ("k", "v"):
+        _close(cache2[name], jcache2[name], TOL[kv_dtype], scaled=True)
 
 
 def test_engine_batch_mixing_conv_state_types_matches_reference():
