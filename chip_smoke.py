@@ -229,6 +229,56 @@ Then training, on full-width TinyLlama-1.1B (f32 weights, TF32 off):
                  launches join the kernels line's rmsnorm and
                  flash_attention counts (``launches_by_path``).
 
+Then training for every other family (f32 weights, TF32 off, synthetic
+data from seed 0, lr 1e-3):
+
+ 11b. train-families -- (a) zamba2-2.7b at full width and all 54
+                 layers, remat="group" (each group, the shared block and
+                 its 6 Mamba2 layers, recomputed in the backward), B=8,
+                 S=512: 5 steps of train_loop from the launcher's init,
+                 every loss finite, after step 1 every leaf's .grad
+                 finite and non-zero, launches exact (127 rmsnorm, 9
+                 flash, 54 ssd_scan a forward, and the recompute's 126,
+                 9 and 54); the median step of steps 2-5, tokens/s
+                 against the bound (fam_step_bound), peak memory, one
+                 more step split into forward, backward and AdamW; then
+                 remat "none" against "group" at B=2, S=512 from the
+                 same init: the same loss, grads within 1e-6 of each
+                 leaf's max |g|, extras drawn, every leaf's grad
+                 non-zero.  (b) whisper-tiny and xlstm-125m at full
+                 width and depth, B=8, S=512, whisper over the
+                 reference's zero stub frames (B, 1500, 384): the same,
+                 5 steps each (over the zero frames the encoder's
+                 products and the cross keys and values get a zero
+                 gradient, reported; the non-zero witness runs in the
+                 remat comparison, on drawn frames), plus "none"
+                 against remat="block" at B=8 (xLSTM at S=128).  Over
+                 the zero frames whisper's gradient norm overflows
+                 float32, as in the reference: reported.  (c)
+                 deepseek-moe-16b at
+                 full width and 4 of its 28 layers, B=4, S=512, 5 steps;
+                 the (b, s, k) expert choices that differ between the
+                 card and the CPU for step 1's forward reported; peak
+                 memory and the split step.  (d) card against CPU, loss
+                 within 1e-4 relative, every grad leaf within 1e-3 x its
+                 max |g|, on 2-layer full-width zamba2 (two groups),
+                 whisper, xLSTM and deepseek and on the VLM's smoke
+                 config, std-0.02 weights, the VLM's gates drawn in
+                 [0.5, 1], extras drawn normal(0, 1), B=2, S=128;
+                 deepseek's grads gated only where no expert choice
+                 flipped.  The sLSTM's input-gate bias, whose gradient
+                 is zero in exact arithmetic, is held to 1e-6 of the
+                 largest |g| on both sides.  (e) each Function at every
+                 shape (a)-(d) gave it: forward within 2e-5 (ssd_scan
+                 3e-5) of the plain version, grads == autograd through
+                 the plain version.  (f) python -m
+                 repro_torch.launch.train --arch whisper-tiny and
+                 --arch xlstm-125m (3 steps, S=128, B=2, checkpoints
+                 restored with checkpoint.restore) and --arch
+                 zamba2-2.7b --remat group (no checkpoint: ~27 GiB) in
+                 child processes.  The phase's launches join the
+                 kernels line under ``launches_by_path["train-families"]``.
+
 Then the planner, which runs none of the kernels above:
 
  12. plan    -- the device planner engine (repro_torch.core.torchplan)
@@ -1139,10 +1189,14 @@ def _plain_llm():
             "ssd_scan": ssd_scan_ref}
 
 
-def expected_launches(cfg, prefills: int, decodes: int, run=None):
-    """Kernel launches of ``prefills`` prefills and ``decodes`` decode
-    steps of ``cfg`` under ``run`` (a RunConfig; default the default
-    one): the transformer (dense and MoE: routing and the experts launch
+def expected_launches(cfg, prefills: int, decodes: int, run=None,
+                      train_steps: int = 0):
+    """Kernel launches of ``prefills`` prefills, ``decodes`` decode
+    steps and ``train_steps`` training steps of ``cfg`` under ``run``
+    (a RunConfig; default the default one).  A training step's forward
+    launches what a prefill does, and its backward under ``run.remat``
+    launches the recomputed segments' kernels again
+    (``recompute_launches``).  Per forward: the transformer (dense and MoE: routing and the experts launch
     none of these kernels) has 2 RMSNorms per layer and the final one
     per forward where its norm is RMSNorm (none where it is layernorm:
     minitron, granite), 2 more per layer with per-head q/k norm (qwen3),
@@ -1156,6 +1210,44 @@ def expected_launches(cfg, prefills: int, decodes: int, run=None):
     counts a cross layer as a layer.  Under ``decode_inplace_cache``
     self attention decodes in plain torch and launches no
     decode_attention: only whisper's and the VLM's cross layers do."""
+    out = _serving_launches(cfg, prefills + train_steps, decodes, run)
+    if train_steps:
+        again = recompute_launches(cfg, run.remat if run else "none")
+        out = {k: v + train_steps * again[k] for k, v in out.items()}
+    return out
+
+
+def recompute_launches(cfg, remat: str):
+    """Kernel launches the backward of one training step re-runs under
+    ``remat``, where the reference ``jax.checkpoint``s: "block" each
+    layer of the dense and MoE transformer (its norms and attention),
+    each self layer of the VLM, each decoder layer of whisper (self and
+    cross attention); "group" each group of the VLM (its self layers
+    and the cross layer); "block" and "group" each group of zamba2 (the
+    shared block and its Mamba2 layers) and of xLSTM; every segment's
+    kernels all run again, but the final norm (an RMSNorm in zamba2, a
+    layernorm in xLSTM), outside every segment.  Otherwise none."""
+    zero = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+            "ssd_scan": 0}
+    if cfg.family == "audio":
+        return dict(zero, flash_attention=2 * cfg.num_layers
+                    * (remat == "block"))
+    if cfg.family in ("hybrid", "ssm"):
+        if remat not in ("block", "group"):
+            return zero
+        fwd = _serving_launches(cfg, 1, 0, None)
+        return dict(fwd, rmsnorm=fwd["rmsnorm"] - (cfg.norm == "rmsnorm"))
+    fwd = _serving_launches(cfg, 1, 0, None)
+    L = cfg.num_layers
+    if cfg.cross_attn_every:
+        L -= L % cfg.cross_attn_every
+    redo = {"block": L - L // cfg.cross_attn_every if cfg.cross_attn_every
+            else L, "group": L if cfg.cross_attn_every else 0}.get(remat, 0)
+    per_layer = (fwd["rmsnorm"] - (cfg.norm == "rmsnorm")) // L
+    return dict(zero, rmsnorm=per_layer * redo, flash_attention=redo)
+
+
+def _serving_launches(cfg, prefills: int, decodes: int, run):
     L, n = cfg.num_layers, prefills + decodes
     inplace = run is not None and run.decode_inplace_cache
     if cfg.family == "audio":
@@ -2125,24 +2217,50 @@ MOE_LAUNCHER = ("--arch", "deepseek-moe-16b", "--requests", "6")
 MOE_LAUNCHER_TIMEOUT = 600
 
 
-def _moe_probs(cfg, params, prompt, device):
-    """The router probabilities (float32, on the CPU) of every MoE call
-    in a prefill of ``prompt`` and the first decode step, in call
-    order."""
+@contextlib.contextmanager
+def _moe_spy(rec):
+    """Record the router probabilities (float32, on the CPU) of every
+    MoE call inside, in call order."""
     import torch
     from repro_torch.models import transformer
-    real, rec = transformer.apply_moe, []
+    real = transformer.apply_moe
 
     def spy(cfg_, p, x, **kw):
-        rec.append(torch.softmax(x.float() @ p["router"].float(),
+        rec.append(torch.softmax(x.detach().float()
+                                 @ p["router"].detach().float(),
                                  dim=-1).cpu())
         return real(cfg_, p, x, **kw)
     transformer.apply_moe = spy
     try:
-        _greedy_logits(cfg, params, prompt, [0], device)
+        yield rec
     finally:
         transformer.apply_moe = real
+
+
+def _moe_probs(cfg, params, prompt, device):
+    """The router probabilities (float32, on the CPU) of every MoE call
+    in a prefill of ``prompt`` and the first decode step, in call
+    order."""
+    with _moe_spy([]) as rec:
+        _greedy_logits(cfg, params, prompt, [0], device)
     return rec
+
+
+def _flips(card, cpu, K):
+    """(flipped (b, s, k) expert choices, all choices, the smallest
+    margin between the K-th and the (K+1)-th probability on the CPU) of
+    two devices' router probabilities, call by call, each ranking its
+    own (top-K, ties to the lower index)."""
+    import torch
+    flips = total = 0
+    margin = math.inf
+    for a, b in zip(card, cpu, strict=True):
+        ia = torch.sort(a, dim=-1, descending=True, stable=True)[1][..., :K]
+        vb, ib = torch.sort(b, dim=-1, descending=True, stable=True)
+        flips += int((ia != ib[..., :K]).sum())
+        total += ia.numel()
+        margin = min(margin, float((vb[..., K - 1] - vb[..., K]).min()))
+    return flips, total, margin
 
 
 def routing_flips(cfg, params, cpu_params, prompt):
@@ -2151,21 +2269,11 @@ def routing_flips(cfg, params, cpu_params, prompt):
     ranking its own probabilities (top-K, ties to the lower index):
     (flipped (b, s, k) choices, all choices, the smallest margin between
     the K-th and the (K+1)-th probability on the CPU)."""
-    import torch
-    K = cfg.experts_per_token
     card = _moe_probs(cfg, params, prompt, "cuda")
     cpu = _moe_probs(cfg, cpu_params, prompt, "cpu")
     check(len(card) == len(cpu) == 2 * cfg.num_layers,
           f"{len(card)} / {len(cpu)} MoE calls")
-    flips = total = 0
-    margin = math.inf
-    for a, b in zip(card, cpu):
-        ia = torch.sort(a, dim=-1, descending=True, stable=True)[1][..., :K]
-        vb, ib = torch.sort(b, dim=-1, descending=True, stable=True)
-        flips += int((ia != ib[..., :K]).sum())
-        total += ia.numel()
-        margin = min(margin, float((vb[..., K - 1] - vb[..., K]).min()))
-    return flips, total, margin
+    return _flips(card, cpu, cfg.experts_per_token)
 
 
 def phase_moe(card):
@@ -2892,8 +3000,9 @@ def _leaf_items(tree, prefix=""):
     return [(prefix.rstrip("/"), tree)]
 
 
-def _loss_and_grads(cfg, params, toks, labels, run):
-    """Loss of one batch and each leaf's gradient (as left in .grad)."""
+def _loss_and_grads(cfg, params, toks, labels, run, extras=None):
+    """Loss of one batch and each leaf's gradient (as left in .grad);
+    ``extras`` go to the params' device."""
     import torch
     from repro_torch.training import train
     train.trainable(params)
@@ -2902,7 +3011,7 @@ def _loss_and_grads(cfg, params, toks, labels, run):
     dev = _leaf_items(params)[0][1].device
     loss, _ = train.make_loss_fn(cfg, run)(
         params, torch.as_tensor(toks, device=dev),
-        torch.as_tensor(labels, device=dev))
+        torch.as_tensor(labels, device=dev), train.extras_on(extras, dev))
     loss.backward()
     return float(loss.detach()), {k: p.grad for k, p in _leaf_items(params)}
 
@@ -2971,16 +3080,19 @@ def _fresh_params(cfg):
                           "cuda")
 
 
-def _split_step(cfg, run, params, state, launches):
+def _split_step(cfg, run, params, state, launches, batch=TRAIN_B,
+                seq=TRAIN_S, extras=None, seen=None):
     """One more step, split into forward, backward and AdamW (host
     clock, a sync at each boundary), with device memory at each: GiB
-    allocated after it and the peak inside it.  Checks ``launches``."""
+    allocated after it and the peak inside it.  Checks ``launches`` (the
+    kernels it names).  ``seen``: record the kernel calls by shape
+    (``_recording_flagged``)."""
     import torch
     from repro_torch.training import optimizer as opt
     from repro_torch.training import train
     _zero_llm_counts()
     toks, labels = (torch.as_tensor(a, device="cuda")
-                    for a in next(_train_data(cfg, TRAIN_B, TRAIN_S)))
+                    for a in next(_train_data(cfg, batch, seq)))
     for p in opt.leaves(train.trainable(params)):
         p.grad = None
     out, gib = {}, 2.0 ** 30
@@ -2996,17 +3108,20 @@ def _split_step(cfg, run, params, state, launches):
         out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / gib
         out[f"{name}_end_gib"] = torch.cuda.memory_allocated() / gib
         return res
-    loss, _ = part("forward", lambda: train.make_loss_fn(cfg, run)(
-        params, toks, labels))
-    part("backward", loss.backward)
+    with (_recording_flagged(seen, memory_len(cfg)) if seen is not None
+          else contextlib.nullcontext()):
+        loss, _ = part("forward", lambda: train.make_loss_fn(cfg, run)(
+            params, toks, labels, extras))
+        part("backward", loss.backward)
     del loss
     part("adamw", lambda: opt.apply_updates(
         _ocfg(), params, opt.tree_map(lambda p: p.grad, params), state))
-    got = {k: _llm_counts()[k] for k in TRAIN_KERNELS}
+    got = {k: _llm_counts()[k] for k in launches}
     check(got == launches, f"split step launched {got}, expected "
           f"{launches}")
     out["launches"] = got
-    log(f"[train] one step, remat={run.remat!r}, split: " + ", ".join(
+    log(f"[train] {cfg.name}: one step, remat={run.remat!r}, split: "
+        + ", ".join(
         f"{n} {out[n + '_ms']:.1f} ms (peak {out[n + '_peak_gib']:.2f} "
         f"GiB, then {out[n + '_end_gib']:.2f})"
         for n in ("forward", "backward", "adamw"))
@@ -3127,7 +3242,8 @@ def train_full(cfg, seen):
     remat_s = time.perf_counter() - t0
     remat_peak = torch.cuda.max_memory_allocated()
     rcounts = {k: _llm_counts()[k] for k in TRAIN_KERNELS}
-    recompute = {"rmsnorm": 2 * L, "flash_attention": L}
+    recompute = {k: v for k, v in recompute_launches(cfg, "block").items()
+                 if k in TRAIN_KERNELS}
     want = {k: (per_fwd[k] + recompute[k]) * TRAIN_REMAT_STEPS
             for k in TRAIN_KERNELS}
     check(rcounts == want, f"remat steps launched {rcounts}, expected "
@@ -3161,74 +3277,92 @@ def train_full(cfg, seen):
                                        for k, v in recompute.items()}))
 
 
-def train_kernels(seen):
-    """Each Function at every shape the training runs gave it: forward
-    within TOL of the plain version, every input's gradient ``==``
-    autograd through the plain version (which is its backward)."""
+def train_kernels(seen, names=TRAIN_KERNELS, tag="train kernels"):
+    """Each Function at every shape the training runs gave it (``seen``:
+    keys of ``_recording`` or ``_recording_flagged``, flash_attention
+    causal or unmasked by the flag): forward within TOL (ssd_scan
+    SSD_TOL, both outputs) of the plain version, every input's gradient
+    ``==`` autograd through the plain version (which is its backward).
+    ``names``: the kernels the runs may call, each at least once."""
     import torch
     ops, plain = _llm_ops(), _plain_llm()
     err = collections.defaultdict(dict)
     shapes = collections.defaultdict(list)
-    for (name, sig), _calls in sorted(seen.items()):
-        check(name in TRAIN_KERNELS, f"training path called {name}")
-        if sig in shapes[name]:
+    for key in sorted(seen, key=repr):
+        name, sig, causal, _ = _key_parts(key)
+        check(name in names, f"training path called {name}")
+        if (sig, causal) in shapes[name]:
             continue
-        shapes[name].append(sig)
+        shapes[name].append((sig, causal))
         gen = torch.Generator(device="cuda").manual_seed(len(shapes[name]))
 
         def randn(shape):
             return torch.randn(shape, generator=gen, device="cuda")
+        kw, tols = {}, TOL
         if name == "rmsnorm":
             x = randn(sig[0][0])
             ins = (x, randn(x.shape[-1:]) + 1)
+        elif name == "flash_attention":
+            ins, kw = tuple(randn(s) for s, _ in sig), dict(causal=causal)
         else:
-            ins = tuple(randn(s) for s, _ in sig)
-        dout = randn(sig[0][0])
+            ins, kw, tols = _ssd_inputs(sig, randn), dict(chunk=128), SSD_TOL
+        douts = (randn(sig[0][0]),) + ((randn(sig[4][0]),)
+                                       if name == "ssd_scan" else ())
         outs = {}
         for how, fn in (("kernel", getattr(ops[name], name)),
                         ("plain", plain[name])):
             leaves = [t.clone().requires_grad_() for t in ins]
             before = ops[name].launches
-            y = fn(*leaves)
-            y.backward(dout)
+            y = fn(*leaves, **kw)
+            ys = y if isinstance(y, tuple) else (y,)
+            torch.autograd.backward(ys, douts)
             torch.cuda.synchronize()
             check(ops[name].launches - before == (how == "kernel"),
                   f"{name} under grad ({how}) launched "
                   f"{ops[name].launches - before}")
-            outs[how] = (y.detach(), [t.grad for t in leaves])
-        _check_close(f"{name} under grad {sig}", outs["kernel"][0],
-                     outs["plain"][0], "float32", err[name])
+            outs[how] = ([t.detach() for t in ys], [t.grad for t in leaves])
+        for got, want in zip(outs["kernel"][0], outs["plain"][0]):
+            _check_close(f"{name} under grad {sig} causal={causal}", got,
+                         want, "float32", err[name], tols)
         for i, (g, w) in enumerate(zip(outs["kernel"][1],
                                        outs["plain"][1])):
             check(torch.equal(g, w), f"{name} {sig}: grad of input {i} "
                   f"differs from plain autograd by "
                   f"{float((g - w).abs().max()):.3g}")
     max_err = {n: e["float32"] for n, e in err.items()}
-    check(set(max_err) == set(TRAIN_KERNELS), f"training path called "
-          f"{sorted(max_err)}, expected {TRAIN_KERNELS}")
-    log(f"[train kernels] forward under grad within {TOL['float32']} "
-        f"(max abs err {max_err}), grads == plain autograd, at " + "; ".join(
-            f"{n}: {[tuple(s for s, _ in sig) for sig in v]}"
+    check(set(max_err) == set(names), f"training path called "
+          f"{sorted(max_err)}, expected {sorted(names)}")
+    log(f"[{tag}] forward under grad within {TOL['float32']} (ssd_scan "
+        f"{SSD_TOL['float32']}; max abs err {max_err}), grads == plain "
+        f"autograd, at " + "; ".join(
+            f"{n}: {[(tuple(s for s, _ in sig), c) for sig, c in v]}"
             for n, v in shapes.items()))
     return dict(max_abs_err=max_err,
-                shapes={n: [[list(s) for s, _ in sig] for sig in v]
+                shapes={n: [[[list(s) for s, _ in sig], c] for sig, c in v]
                         for n, v in shapes.items()})
 
 
-def train_launcher(cfg):
-    """``python -m repro_torch.launch.train`` at full width, 3 steps,
-    B=2, S=128, with a checkpoint under build/ (gitignored), restored
-    with the port's ``checkpoint.restore``: step 3, every leaf finite,
-    the moments non-zero.  The file is removed after."""
+def train_launcher(cfg, extra=(), ckpt=True, zero_ok=()):
+    """``python -m repro_torch.launch.train --arch <cfg> [extra]`` at
+    full width, 3 steps, B=2, S=128; with ``ckpt`` a checkpoint under
+    build/ (gitignored), restored with the port's
+    ``checkpoint.restore``: step 3, every leaf finite, the first moments
+    non-zero but at the leaves ``zero_ok`` (those the stub inputs leave
+    without a gradient).  Where every step's gradient norm overflowed
+    float32 (|g| inf: whisper over the reference's zero frames, whose
+    encoder layernorms of an all-zero input scale the gradient by
+    1/sqrt(eps) each), the clip's factor is 0, as in the reference, and
+    every first moment must be zero.  The file is removed after."""
     import numpy as np
     from repro_torch.models import api
     from repro_torch.models.params import map_schema
     from repro_torch.training import checkpoint
     path = ROOT / "build" / "train_launcher_ckpt.npz"
     path.parent.mkdir(exist_ok=True)
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "3",
-           "--seq-len", "128", "--batch", "2", "--log-every", "1",
-           "--ckpt", str(path)]
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           cfg.name, "--steps", "3", "--seq-len", "128", "--batch", "2",
+           "--log-every", "1", *extra] + (["--ckpt", str(path)] if ckpt
+                                          else [])
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                           timeout=600, env=dict(
@@ -3238,6 +3372,9 @@ def train_launcher(cfg):
         log(f"[train launcher] | {line}")
     check(proc.returncode == 0, f"launcher exited {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
+    if not ckpt:
+        log(f"[train launcher] {' '.join(cmd[1:])}: {run_s:.1f} s")
+        return dict(seconds=run_s, stdout=proc.stdout.splitlines())
     try:
         t0 = time.perf_counter()
         shape_of = map_schema(lambda p, _: np.broadcast_to(np.float32(0),
@@ -3254,13 +3391,27 @@ def train_launcher(cfg):
           f"{back['opt']['step']}")
     for key, a in _leaf_items(back):
         check(bool(np.isfinite(a).all()), f"checkpoint {key} not finite")
-    check(all(np.abs(a).max() > 0 for _, a in _leaf_items(back["opt"]["m"])),
-          "checkpoint: a first moment is all zero")
+    steps = [ln for ln in proc.stdout.splitlines() if "|g|" in ln]
+    overflow = len(steps) == 3 and all(ln.endswith("|g| inf")
+                                       for ln in steps)
+    moments = _leaf_items(back["opt"]["m"])
+    zero = [k for k, a in moments if not np.abs(a).max() > 0]
+    if overflow:
+        check(len(zero) == len(moments), f"checkpoint: |g| inf at every "
+              f"step, yet first moments non-zero at "
+              f"{sorted(set(k for k, _ in moments) - set(zero))}")
+        log(f"[train launcher] {cfg.name}: |g| inf at every step (float32 "
+            f"overflow over the stub inputs, as in the reference): the "
+            f"clip's factor is 0 and every first moment is zero")
+    else:
+        check(set(zero) <= set(zero_ok), f"checkpoint: first moments all "
+              f"zero at {sorted(set(zero) - set(zero_ok))}")
     log(f"[train launcher] {' '.join(cmd[1:])}: {run_s:.1f} s; checkpoint "
         f"{size / 2**30:.2f} GiB restored with checkpoint.restore in "
         f"{restore_s:.1f} s (step 3, every leaf finite)")
     return dict(seconds=run_s, restore_seconds=restore_s,
-                checkpoint_bytes=size, stdout=proc.stdout.splitlines())
+                checkpoint_bytes=size, grad_norm_overflow=overflow,
+                stdout=proc.stdout.splitlines())
 
 
 def phase_train(card):
@@ -3287,6 +3438,453 @@ def phase_train(card):
     return launches, dict(parity=parity, full=full, kernels=kernels,
                           launcher=launcher, launches=launches,
                           seconds=secs)
+
+
+# ---------------------------------------------------------------------------
+# Training for every family: zamba2-2.7b, whisper-tiny, xlstm-125m,
+# deepseek-moe-16b and the VLM
+# ---------------------------------------------------------------------------
+
+FAM_STEPS = TRAIN_STEPS
+FAM_DEEPSEEK_LAYERS = 4     # of 28: the full depth is ~270 GB of f32
+                            # params, grads and AdamW moments
+# arch: (batch, seq, remat of the timed steps, remat compared with
+# "none", (batch, seq) of that comparison: zamba2's "none" fits at B=2;
+# xLSTM's 512-step sLSTM loop takes ~25 s for the pair at S=512)
+FAM_RUNS = {"zamba2-2.7b": (8, 512, "group", "group", (2, 512)),
+            "whisper-tiny": (8, 512, "none", "block", (8, 512)),
+            "xlstm-125m": (8, 512, "none", "block", (8, 128)),
+            "deepseek-moe-16b": (4, 512, "none", None, None)}
+FAM_KERNELS = ("rmsnorm", "flash_attention", "ssd_scan")
+# leaves whose gradient is zero in exact arithmetic: a shift of the
+# sLSTM's input-gate bias scales i at every step, and with it c and n
+# alike from their zero start, so h = o c / n does not move
+# (tests/test_torch_training.py ROUNDING_ONLY).  Held to FAM_ROUNDING_TOL
+# x the largest |g| over all leaves instead of being compared.
+FAM_ROUNDING_ONLY = {"xlstm-125m": ("groups/slstm/bi",)}
+FAM_ROUNDING_TOL = 1e-6
+FAM_LAUNCHERS = (("whisper-tiny", (), True), ("xlstm-125m", (), True),
+                 ("zamba2-2.7b", ("--remat", "group"), False))
+
+
+def fam_configs():
+    """The models of (a)-(c) at full width: zamba2-2.7b, whisper-tiny
+    and xlstm-125m at full depth, deepseek at FAM_DEEPSEEK_LAYERS."""
+    from repro_torch.configs.deepseek_moe_16b import CONFIG as DEEPSEEK
+    from repro_torch.configs.whisper_tiny import CONFIG as WHISPER
+    from repro_torch.configs.xlstm_125m import CONFIG as XLSTM
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2
+    return [ZAMBA2, WHISPER, XLSTM,
+            dataclasses.replace(DEEPSEEK, num_layers=FAM_DEEPSEEK_LAYERS)]
+
+
+def fam_parity_configs():
+    """The models of (d): 2-layer full-width variants (zamba2: two
+    groups of one Mamba2 layer, so the shared block's gradient sums over
+    two applications; whisper: 2 encoder and 2 decoder layers; xLSTM:
+    one mLSTM and one sLSTM block) and the VLM's smoke config."""
+    from repro_torch.config import smoke_variant
+    from repro_torch.configs.llama_3_2_vision_90b import CONFIG as VLM
+    two = dict(num_layers=2)
+    cut = {"zamba2-2.7b": dict(two, shared_attn_every=1),
+           "whisper-tiny": dict(two, encoder_layers=2),
+           "xlstm-125m": two, "deepseek-moe-16b": two}
+    return [dataclasses.replace(c, **cut[c.name])
+            for c in fam_configs()] + [smoke_variant(VLM)]
+
+
+def fam_extras(cfg, batch, device, drawn):
+    """The modality inputs at ``batch`` rows on ``device``: the
+    reference's stubs (``api.extra_input_specs``: whisper's zero frames,
+    the VLM's 0.02), or (``drawn``) normal(0, 1) from seed 7 in
+    float32; None for a family that takes none."""
+    import torch
+    from repro_torch.models import api
+    if not drawn:
+        return api.extra_input_specs(cfg, batch, abstract=False,
+                                     device=device)
+    M = memory_len(cfg)
+    if not M:
+        return None
+    key = "audio_frames" if cfg.family == "audio" else "vision_embeds"
+    return {key: torch.randn((batch, M, cfg.d_model),
+                             generator=torch.Generator().manual_seed(7)
+                             ).to(device)}
+
+
+def _grad_witness(tag, cfg, params, nonzero=True):
+    """Every leaf's .grad not None and finite and, with ``nonzero``, not
+    all zero (no detached output on its path), but the
+    FAM_ROUNDING_ONLY leaves, held to FAM_ROUNDING_TOL x the largest
+    |g|.  Returns the leaves whose grad is all zero."""
+    import torch
+    items = _leaf_items(params)
+    for key, p in items:
+        check(p.grad is not None, f"{tag} {key}: grad None")
+        check(bool(torch.isfinite(p.grad).all()),
+              f"{tag} {key}: grad not finite")
+    amax = {k: float(p.grad.abs().max()) for k, p in items}
+    top = max(amax.values())
+    rounding = FAM_ROUNDING_ONLY.get(cfg.name, ())
+    for key in rounding:
+        check(amax[key] <= FAM_ROUNDING_TOL * top, f"{tag} {key}: max "
+              f"|g| {amax[key]:.3g} over {FAM_ROUNDING_TOL} x {top:.3g}")
+    zero = [k for k, a in amax.items() if a == 0 and k not in rounding]
+    check(not (nonzero and zero), f"{tag} grads all zero at {zero}")
+    return zero
+
+
+def _grad_errs(cfg, got, want):
+    """Per leaf max |got - want| / max |want| of two grad dicts, and for
+    the FAM_ROUNDING_ONLY leaves the larger side's max |g| over the
+    largest |g| of ``want``."""
+    top = max(float(w.abs().max()) for w in want.values())
+    rounding = FAM_ROUNDING_ONLY.get(cfg.name, ())
+    errs, small = {}, {}
+    for key, w in want.items():
+        g = got[key].to(w.device)
+        if key in rounding:
+            small[key] = max(float(g.abs().max()),
+                             float(w.abs().max())) / top
+        else:
+            errs[key] = float((g - w).abs().max() / w.abs().max())
+    return errs, small
+
+
+def fam_step_bound(cfg, params, toks, extras):
+    """The least time one training step could take at these inputs:
+    3 x the forward's operations (the backward's two products per
+    forward product) at F32_OPS_PER_S (TF32 is off), and AdamW's bytes
+    (p, g, m, v read and p, m, v written once) at HBM_BYTES_PER_S.  The
+    forward's products are counted by ``torch.utils.flop_counter`` over
+    one forward under no_grad; the kernels' launches are outside its
+    view and add their own: flash_attention 4 D per unmasked (query,
+    key) pair, ssd_scan ``ssd_bound``'s count; the MoE experts count 6 d
+    f per kept choice (what this run's routing needs) in place of the
+    capacity buffer's batched products.  The remat recompute is not the
+    function's work and is not counted."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.config import RunConfig
+    from repro_torch.models import api, moe
+    calls, kept = collections.Counter(), [0]
+    real = moe._dispatch
+
+    def spy(cfg_, x, router, cf):
+        out = real(cfg_, x, router, cf)
+        kept[0] += int((out[0] < out[1].shape[1] * out[1].shape[2]).sum())
+        return out
+    counter = FlopCounterMode(display=False)
+    moe._dispatch = spy
+    try:
+        with torch.no_grad(), counter, \
+                _recording_flagged(calls, memory_len(cfg)):
+            api.get_model(cfg).forward(cfg, params, toks, RunConfig(),
+                                       extras)
+    finally:
+        moe._dispatch = real
+    products = counter.get_total_flops()
+    if cfg.is_moe:
+        products += kept[0] * 6 * cfg.d_model * cfg.d_ff_expert - sum(
+            v for op, v in counter.get_flop_counts()["Global"].items()
+            if "bmm" in str(op))
+    kernels = 0
+    for key, n in calls.items():
+        name, sig, causal, _ = _key_parts(key)
+        meta = [torch.empty(s, device="meta") for s, _ in sig]
+        if name == "flash_attention":
+            kernels += n * (flash_bound if causal
+                            else flash_bound_full)(meta[0], meta[1])[2]
+        elif name == "ssd_scan":
+            kernels += n * ssd_bound(meta[0], meta[2], meta[4], 128)[2]
+    ops = 3 * (products + kernels)
+    n_all = sum(p.numel() for _, p in _leaf_items(params))
+    adamw_bytes = 7 * 4 * n_all
+    return dict(step_ops=ops, forward_product_ops=products,
+                forward_kernel_ops=kernels, kept_choices=kept[0],
+                step_bound_ms=ops / F32_OPS_PER_S * 1e3, params=n_all,
+                adamw_bytes=adamw_bytes,
+                adamw_bound_ms=adamw_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def fam_routing(cfg, params, toks, extras):
+    """deepseek's expert choices on the card against the CPU for the
+    first step's forward (no grad, the launcher's init): ``_flips`` over
+    every MoE call."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.models import api
+    probs = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else _tree_to(params, "cpu")
+        with torch.no_grad(), _moe_spy(probs.setdefault(dev, [])):
+            api.get_model(cfg).forward(cfg, p, toks.to(dev), RunConfig(),
+                                       extras)
+        del p
+    flips, total, margin = _flips(probs["cuda"], probs["cpu"],
+                                  cfg.experts_per_token)
+    log(f"[train-families {cfg.name}] step-1 forward, card vs CPU: "
+        f"{flips} of {total} (b, s, k) expert choices differ; smallest "
+        f"CPU top-K margin {margin:.3g} (reported, not gated)")
+    return dict(flips=flips, choices=total, min_margin=margin)
+
+
+def fam_train(cfg, batch, seq, remat, seen):
+    """FAM_STEPS steps of ``train_loop`` of ``cfg`` from the launcher's
+    init (seed 0) at (batch, seq) under ``remat``, over the reference's
+    stub modality inputs, lr TRAIN_LR: every loss finite; after step 1
+    every leaf's .grad finite and (but over whisper's zero frames, which
+    leave the encoder's products and the cross keys and values without
+    input) non-zero; launches exact, the recompute's counted; the median
+    step of steps 2-FAM_STEPS, tokens/s against ``fam_step_bound``, peak
+    memory; one more step split into forward, backward and AdamW
+    (kernel calls recorded by shape in ``seen``); deepseek's expert
+    choices on the card against the CPU for step 1's forward."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.training import train
+    tag = f"[train-families {cfg.name}]"
+    run = RunConfig(remat=remat)
+    extras = fam_extras(cfg, batch, "cuda", drawn=False)
+    stub_zero = cfg.family == "audio"
+    marks, out = [], {}
+    params = _fresh_params(cfg)
+    toks = torch.as_tensor(next(_train_data(cfg, batch, seq))[0],
+                           device="cuda")
+    bounds = fam_step_bound(cfg, params, toks, extras)
+    if cfg.is_moe:
+        out["routing"] = fam_routing(cfg, params, toks, extras)
+
+    def callback(entry):
+        t = time.perf_counter()
+        check(math.isfinite(entry["loss"]), f"{tag} step {entry['step']}: "
+              f"loss {entry['loss']}")
+        if entry["step"] == 0:
+            out["zero_grad_leaves"] = _grad_witness(tag, cfg, params,
+                                                    nonzero=not stub_zero)
+        marks.append((t, time.perf_counter()))
+
+    want = {k: v for k, v in expected_launches(
+        cfg, 0, 0, run, train_steps=FAM_STEPS).items() if k in FAM_KERNELS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_llm_counts()
+    t0 = time.perf_counter()
+    params, state, hist = train.train_loop(
+        cfg, run, _train_data(cfg, batch, seq), steps=FAM_STEPS,
+        ocfg=_ocfg(), params=params, device="cuda", log_every=1,
+        extras=extras, callback=callback)
+    counts = _llm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: counts[k] for k in FAM_KERNELS}
+    check(launches == want and counts["decode_attention"] == 0,
+          f"{tag} {FAM_STEPS} steps launched {counts}, expected {want}")
+    starts = [t0] + [end for _, end in marks[:-1]]
+    step_s = [t - s for (t, _), s in zip(marks, starts)]
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tokens = batch * seq
+    log(f"{tag} {cfg.num_layers} layers, B={batch} S={seq}, "
+        f"remat={remat!r}: losses "
+        + ", ".join(f"{h['loss']:.4f}" for h in hist)
+        + "; step s " + ", ".join(f"{x:.4f}" for x in step_s)
+        + "; |g| " + ", ".join(f"{h['grad_norm']:.4g}" for h in hist)
+        + f"; median of steps 2-{FAM_STEPS} {med * 1e3:.1f} ms = "
+        f"{tokens / med:.0f} tokens/s; bound {bounds['step_bound_ms']:.1f} "
+        f"ms ({bounds['step_ops']:.4g} f32 operations at 67 TFLOP/s), "
+        f"{bounds['step_bound_ms'] / (med * 1e3):.3f} of it; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}"
+        + (f"; grads all zero over the stub frames at "
+           f"{out['zero_grad_leaves']}" if stub_zero else ""))
+    per_step = {k: v // FAM_STEPS for k, v in want.items()}
+    split = _split_step(cfg, run, params, state, per_step, batch, seq,
+                        extras, seen)
+    log(f"{tag} AdamW bound {bounds['adamw_bound_ms']:.2f} ms "
+        f"({bounds['adamw_bytes'] / 1e9:.2f} GB at 3.35 TB/s) against "
+        f"{split['adamw_ms']:.1f} ms")
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(out, layers=cfg.num_layers, batch=batch, seq=seq,
+                remat=remat, losses=[h["loss"] for h in hist],
+                grad_norms=[h["grad_norm"] for h in hist],
+                step_seconds=step_s, median_step_ms=med * 1e3,
+                tokens_per_s=tokens / med,
+                bound_share=bounds["step_bound_ms"] / (med * 1e3), **bounds,
+                peak_memory_bytes=peak, split=split, launches=launches,
+                total_launches={k: launches[k] + split["launches"][k]
+                                for k in FAM_KERNELS})
+
+
+def fam_remat(cfg, batch, seq, remat, seen):
+    """Loss and grads of one batch (drawn extras) from the launcher's
+    init under "none" and under ``remat``: every leaf's grad non-zero
+    (the detach witness, here where every input carries signal), the
+    same loss (==), grads within TRAIN_REMAT_TOL x each leaf's max |g|,
+    launches exact with the recompute's, peak memory of each."""
+    import torch
+    from repro_torch.config import RunConfig
+    tag = f"[train-families {cfg.name} remat]"
+    params = _fresh_params(cfg)
+    toks, labels = next(_train_data(cfg, batch, seq))
+    extras = fam_extras(cfg, batch, "cuda", drawn=True)
+    out, launches = {}, collections.Counter()
+    for r in ("none", remat):
+        run = RunConfig(remat=r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _zero_llm_counts()
+        t0 = time.perf_counter()
+        with _recording_flagged(seen, memory_len(cfg)):
+            loss, grads = _loss_and_grads(cfg, params, toks, labels, run,
+                                          extras)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: _llm_counts()[k] for k in FAM_KERNELS}
+        want = {k: v for k, v in expected_launches(
+            cfg, 0, 0, run, train_steps=1).items() if k in FAM_KERNELS}
+        check(got == want, f"{tag} remat={r!r} launched {got}, expected "
+              f"{want}")
+        launches.update(got)
+        if r == "none":
+            _grad_witness(tag, cfg, params)
+        out[r] = (loss, grads, torch.cuda.max_memory_allocated(), secs,
+                  held)
+    check(out[remat][0] == out["none"][0], f"{tag} loss remat={remat!r} "
+          f"{out[remat][0]} != {out['none'][0]}")
+    errs, small = _grad_errs(cfg, out[remat][1], out["none"][1])
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= TRAIN_REMAT_TOL, f"{tag} grads: {worst} "
+          f"{errs[worst]:.3g} of its max |g|, over {TRAIN_REMAT_TOL}")
+    check(all(v <= FAM_ROUNDING_TOL for v in small.values()),
+          f"{tag} rounding-only leaves {small}")
+    log(f"{tag} B={batch} S={seq}, extras drawn: loss {out['none'][0]:.6f} "
+        f"equal under remat={remat!r}; grads max err / leaf max |g| "
+        f"{errs[worst]:.3g} at {worst} (tol {TRAIN_REMAT_TOL}); peak "
+        f"memory none {out['none'][2] / 2**30:.2f} GiB, {remat} "
+        f"{out[remat][2] / 2**30:.2f} GiB (above what each run found "
+        f"allocated, params and the other run's grads: "
+        f"{(out['none'][2] - out['none'][4]) / 2**30:.2f} / "
+        f"{(out[remat][2] - out[remat][4]) / 2**30:.2f}); "
+        f"forward+backward {out['none'][3]:.2f} / {out[remat][3]:.2f} s")
+    peaks = {r: dict(peak_bytes=out[r][2], held_bytes=out[r][4],
+                     seconds=out[r][3]) for r in ("none", remat)}
+    del params, grads, out[remat], out["none"]
+    torch.cuda.empty_cache()
+    return dict(remat=remat, batch=batch, seq=seq, grad_rel_err=errs,
+                rounding_only=small, launches=dict(launches), runs=peaks)
+
+
+def fam_parity(cfg, seen):
+    """``cfg`` (a fam_parity_configs model) on the card (the kernels'
+    Functions) and on the CPU (plain versions), TRAIN_PARITY's batch,
+    std-0.02 weights (``_family_parity_params``: the VLM's gates drawn
+    in FAMILY_GATES), extras drawn normal(0, 1): loss within
+    TRAIN_LOSS_TOL relative, every grad leaf within TRAIN_GRAD_TOL x its
+    max |g| (FAM_ROUNDING_ONLY leaves within FAM_ROUNDING_TOL of the
+    largest on both sides); for the MoE the expert choices that differ
+    between the devices are reported, and the grads gated only where
+    none did.  Launches exact."""
+    import torch
+    from repro_torch.config import RunConfig
+    tag = f"[train-families parity {cfg.name}]"
+    B, S = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"]
+    params = _family_parity_params(cfg)
+    cpu_params = _tree_to(params, "cpu")
+    toks, labels = next(_train_data(cfg, B, S))
+    extras = fam_extras(cfg, B, "cpu", drawn=True)
+    res, probs = {}, {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        _zero_llm_counts()
+        t0 = time.perf_counter()
+        with _moe_spy(probs.setdefault(dev, [])), (
+                _recording_flagged(seen, memory_len(cfg)) if dev == "cuda"
+                else contextlib.nullcontext()):
+            res[dev] = _loss_and_grads(cfg, p, toks, labels, RunConfig(),
+                                       extras)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: _llm_counts()[k] for k in FAM_KERNELS}
+            want = {k: v for k, v in expected_launches(
+                cfg, 0, 0, RunConfig(), train_steps=1).items()
+                if k in FAM_KERNELS}
+            check(launches == want, f"{tag} launched {launches}, expected "
+                  f"{want}")
+        res[dev] += (time.perf_counter() - t0,)
+    (loss_card, g_card, _), (loss_cpu, g_cpu, cpu_s) = res["cuda"], res["cpu"]
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    check(loss_err <= TRAIN_LOSS_TOL, f"{tag} loss card {loss_card} vs CPU "
+          f"{loss_cpu}: relative err {loss_err:.3g} over {TRAIN_LOSS_TOL}")
+    errs, small = _grad_errs(cfg, g_card, g_cpu)
+    worst = max(errs, key=errs.get)
+    routing = None
+    if cfg.is_moe:
+        flips, total, margin = _flips(probs["cuda"], probs["cpu"],
+                                      cfg.experts_per_token)
+        routing = dict(flips=flips, choices=total, min_margin=margin)
+    gated = routing is None or routing["flips"] == 0
+    if gated:
+        check(errs[worst] <= TRAIN_GRAD_TOL, f"{tag} grad {worst} card vs "
+              f"CPU {errs[worst]:.3g} of its max |g|, over {TRAIN_GRAD_TOL}")
+        check(all(v <= FAM_ROUNDING_TOL for v in small.values()),
+              f"{tag} rounding-only leaves {small}")
+    log(f"{tag} {cfg.num_layers} layers, d {cfg.d_model}, B={B} S={S}, "
+        f"weights normal(0, {LLM_PARITY_STD})"
+        + (f", gates uniform{FAMILY_GATES}" if cfg.cross_attn_every else "")
+        + (", extras normal(0, 1)" if memory_len(cfg) else "")
+        + f": loss card {loss_card:.7f} CPU {loss_cpu:.7f} (relative err "
+        f"{loss_err:.3g}, tol {TRAIN_LOSS_TOL}); grads max err / leaf max "
+        f"|g| {errs[worst]:.3g} at {worst} (tol {TRAIN_GRAD_TOL}"
+        + ("" if gated else ", not gated: expert choices flipped") + ")"
+        + (f"; rounding-only leaves {small}" if small else "")
+        + (f"; expert choices differing {routing['flips']} of "
+           f"{routing['choices']}, smallest CPU top-K margin "
+           f"{routing['min_margin']:.3g}" if routing else "")
+        + f"; launches {launches}; CPU {cpu_s:.1f} s")
+    del params, cpu_params, res, g_card, g_cpu
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, loss_card=loss_card,
+                loss_cpu=loss_cpu, loss_rel_err=loss_err,
+                grad_rel_err=errs, rounding_only=small, gated=gated,
+                routing=routing, launches=launches, cpu_seconds=cpu_s)
+
+
+def phase_train_families(card):
+    """Training for every family on the card (see the module docstring,
+    phase 11b).  Returns {kernel: launches on the phase's training
+    paths} and the phase's details."""
+    import torch
+    t0 = time.perf_counter()
+    seen = collections.Counter()
+    launches = collections.Counter()
+    details = {}
+    for cfg in fam_configs():
+        batch, seq, remat, cmp_remat, cmp_shape = FAM_RUNS[cfg.name]
+        det = fam_train(cfg, batch, seq, remat, seen)
+        launches.update(det["total_launches"])
+        if cmp_remat:
+            det["remat_check"] = fam_remat(cfg, *cmp_shape, cmp_remat, seen)
+            launches.update(det["remat_check"]["launches"])
+        details[cfg.name] = det
+        torch.cuda.empty_cache()
+    details["parity"] = {}
+    for cfg in fam_parity_configs():
+        det = fam_parity(cfg, seen)
+        launches.update(det["launches"])
+        details["parity"][cfg.name] = det
+    details["kernels"] = train_kernels(seen, FAM_KERNELS,
+                                       "train-families kernels")
+    torch.cuda.empty_cache()
+    by_name = {c.name: c for c in fam_configs()}
+    details["launchers"] = {
+        arch: train_launcher(by_name[arch], extra, ckpt,
+                             details[arch].get("zero_grad_leaves", ()))
+        for arch, extra, ckpt in FAM_LAUNCHERS}
+    launches = {k: launches[k] for k in FAM_KERNELS}
+    details["launches"] = launches
+    details["seconds"] = time.perf_counter() - t0
+    log(f"[done] phase train-families {details['seconds']:.1f} s on {card}; "
+        f"launches on its paths {launches}")
+    return launches, details
 
 
 PLAN_TOL = 1e-9            # mean FID, the planner engines' contract
@@ -3950,6 +4548,7 @@ def main() -> int:
     llm_kernels = merge_kernel_summaries({**per_model, **moe_models,
                                           **family_models, **dense_models})
     train_launches, train = phase_train(card)
+    fam_launches, train_families = phase_train_families(card)
     plan = phase_plan(card)
     for entry in llm_kernels:
         name = entry["name"]
@@ -3965,6 +4564,12 @@ def main() -> int:
             entry["launches"] += train_launches[name]
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        train["kernels"]["max_abs_err"][name])
+        if name in fam_launches:
+            entry["launches_by_path"]["train-families"] = fam_launches[name]
+            entry["launches"] += fam_launches[name]
+            entry["max_abs_err"] = max(
+                entry["max_abs_err"],
+                train_families["kernels"]["max_abs_err"][name])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
@@ -3973,7 +4578,7 @@ def main() -> int:
         parity=parity, bucketed=bucketed, closed=closed, fleet=fleet,
         llm_kernels=llm_kernels, llm=llm, moe=moe, families=families,
         dense=dense,
-        train=train, plan=plan,
+        train=train, train_families=train_families, plan=plan,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

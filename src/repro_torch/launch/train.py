@@ -4,7 +4,9 @@ full config.
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --smoke --steps 50 [--ckpt /tmp/ck.npz] [--device cpu]
 
-The port of ``repro.launch.train`` with its options, plus ``--device``
+The port of ``repro.launch.train`` with its options, every arch of the
+reference (whisper and the VLM over the reference's stub modality
+inputs) and ``--remat`` none / block / group / full, plus ``--device``
 (default ``cuda``; without a card it raises unless ``--device cpu``).
 It prints the reference's lines, with the card's name and power limit,
 tokens/s and peak device memory.  The checkpoint holds {"params",
@@ -79,7 +81,8 @@ def main(argv=None):
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                     global_batch=args.batch)
     data = batches(dc)
-    extras = api.extra_input_specs(cfg, args.batch, abstract=False)
+    extras = api.extra_input_specs(cfg, args.batch, abstract=False,
+                                   device=dev)
     step_fn = make_train_step(cfg, run, ocfg)
 
     if dev.type == "cuda":

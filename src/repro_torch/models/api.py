@@ -54,7 +54,9 @@ def extra_input_specs(cfg: ModelConfig, batch: int, abstract: bool = True,
 def make_train_step(cfg: ModelConfig, run: RunConfig):
     """``loss_fn(params, tokens, labels, extras=None) -> (loss, nll)``:
     the mean next-token negative log-likelihood of ``forward``'s logits
-    (in float32) plus the model's aux loss, as the reference's."""
+    (in float32) plus the model's aux loss (MoE), as the reference's,
+    for every family; ``extras`` are the modality inputs ``forward``
+    reads (whisper's ``audio_frames``, the VLM's ``vision_embeds``)."""
     mod = get_model(cfg)
 
     def loss_fn(params, tokens, labels, extras=None):

@@ -42,15 +42,15 @@ knobs of ``RunConfig`` follow the reference:
   flash kernel already runs every q tile in parallel (the reference
   vectorises its jnp path's q chunks with it).
 
-``forward`` is differentiable (the training path):
-``RunConfig.remat="block"`` recomputes each layer in the backward
-(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
-its scan body), and ``"full"`` and ``"group"`` do what they do in the
-reference's dense transformer without cross-attention: nothing.
-``fsdp`` and ``shard_kv_seq`` (sharding over several cards) raise
-``NotImplementedError`` (``check_run``).  The VLM family serves only:
-under ``remat`` or with a parameter that needs a gradient it raises
-(``check_inference``).
+``forward`` is differentiable in every family here (the training
+path), with the reference's ``remat``, each checkpoint a
+``torch.utils.checkpoint`` in place of its ``jax.checkpoint``:
+``"block"`` recomputes each self layer in the backward (the reference's
+scan body); ``"group"`` recomputes each of the VLM's groups, its self
+layers and its cross layer (the reference's group body), and does
+nothing without cross-attention; ``"full"`` does nothing.  ``fsdp`` and
+``shard_kv_seq`` (sharding over several cards) raise
+``NotImplementedError`` (``check_run``).
 """
 
 from __future__ import annotations
@@ -69,7 +69,6 @@ from repro_torch.models.layers import (
     out_project, q_project, qkv_project, rope_tables, unembed)
 from repro_torch.models.moe import apply_moe, moe_schema
 from repro_torch.models.params import P, map_schema
-from repro_torch.training.optimizer import leaves
 
 # RunConfig fields the port does not implement, with the value that
 # means "off" (the reference's default): sharding over several cards
@@ -77,34 +76,27 @@ from repro_torch.training.optimizer import leaves
 _UNPORTED_KNOBS = {"fsdp": False, "shard_kv_seq": False}
 
 
+def segment(recompute: bool, fn, *args, **kw):
+    """``fn(*args, **kw)``, recomputed in the backward when
+    ``recompute`` (``torch.utils.checkpoint``, in place of the
+    reference's ``jax.checkpoint``).  The models draw no random numbers,
+    so no RNG state is kept."""
+    if recompute:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return fn(*args, **kw)
+
+
 def check_run(cfg: ModelConfig, run: RunConfig) -> None:
-    """Raise for what this port of the transformer does not implement."""
+    """Raise for what the port's models do not implement, in every
+    family: the knobs of sharding over several cards."""
     for name, off in _UNPORTED_KNOBS.items():
         if getattr(run, name) != off:
             raise NotImplementedError(
                 f"RunConfig.{name}={getattr(run, name)!r} is not ported "
-                f"(only {off!r})")
+                f"(only {off!r}; sharding is ROADMAP queue 1 item 9)")
     if run.prefill_logits not in ("all", "last"):
         raise ValueError(f"prefill_logits={run.prefill_logits!r}")
-
-
-def check_inference(cfg: ModelConfig, run: RunConfig, params) -> None:
-    """``check_run`` for the audio, ssm and vlm families, which are
-    ported for serving only: raise under ``remat`` too, and when grad
-    mode is on and a parameter needs a gradient.  Their training is
-    ROADMAP queue 1 item 6."""
-    check_run(cfg, run)
-    if run.remat != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: RunConfig.remat={run.remat!r} is not ported for "
-            f"the {cfg.family} family (serving only; its training is "
-            f"ROADMAP queue 1 item 6)")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in leaves(params)):
-        raise NotImplementedError(
-            f"{cfg.name}: gradients through the {cfg.family} family are "
-            f"not ported (serving only; its training is ROADMAP queue 1 "
-            f"item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -315,10 +307,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
     prefill cache; in the VLM ((k, v) each (G, n_self, B, S, KV, D),
     (ck, cv) each (G, B, Tv, KV, D)), as the reference's scan stacks
     them.  The VLM reads ``extras["vision_embeds"]`` (B, Tv, d)."""
-    if cfg.cross_attn_every:
-        check_inference(cfg, run, params)
-    else:
-        check_run(cfg, run)
+    check_run(cfg, run)
     S = tokens.shape[1]
     x = embed(params["embed"], tokens)
     positions = torch.arange(S, dtype=torch.float32,
@@ -327,13 +316,23 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
     tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
     def layer(lp, x):
-        if run.remat == "block":
-            # recomputed in the backward; the blocks draw no random
-            # numbers, so no RNG state is kept
-            return checkpoint(block_seq, cfg, lp, x, positions, tab, run,
-                              window=window, use_reentrant=False,
-                              preserve_rng_state=False)
-        return block_seq(cfg, lp, x, positions, tab, run, window=window)
+        return segment(run.remat == "block", block_seq, cfg, lp, x,
+                       positions, tab, run, window=window)
+
+    def group(gself, gcross, x, memory):
+        """One VLM group: its self layers, then its cross layer.
+        Returns (x, aux, its stacked self (k, v) and its cross (k, v),
+        or None without collect_kv)."""
+        aux, gk, gv = 0.0, [], []
+        for lp in unstack(gself):
+            x, a, (k, v) = layer(lp, x)
+            aux = aux + a
+            gk.append(k)
+            gv.append(v)
+        x, ckv = cross_attn_seq(cfg, gcross, x, memory)
+        if not collect_kv:
+            return x, aux, None
+        return x, aux, ((torch.stack(gk), torch.stack(gv)), ckv)
 
     ks, vs, cks, cvs, aux = [], [], [], [], 0.0
     if cfg.cross_attn_every:
@@ -341,16 +340,13 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
         groups = params["groups"]
         for gself, gcross in zip(unstack(groups["self"]),
                                  unstack(groups["cross"])):
-            gk, gv = [], []
-            for lp in unstack(gself):
-                x, a, (k, v) = layer(lp, x)
-                aux = aux + a
-                gk.append(k)
-                gv.append(v)
-            x, (ck, cv) = cross_attn_seq(cfg, gcross, x, memory)
+            x, a, kvs = segment(run.remat == "group", group, gself, gcross,
+                                x, memory)
+            aux = aux + a
             if collect_kv:
-                ks.append(torch.stack(gk))
-                vs.append(torch.stack(gv))
+                (gk, gv), (ck, cv) = kvs
+                ks.append(gk)
+                vs.append(gv)
                 cks.append(ck)
                 cvs.append(cv)
     else:
@@ -469,10 +465,7 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     shared with it); the one passed in is left as it was.  Under
     ``decode_inplace_cache`` the k and v buffers passed in are written
     in place and returned (``pos`` is new either way)."""
-    if cfg.cross_attn_every:
-        check_inference(cfg, run, params)
-    else:
-        check_run(cfg, run)
+    check_run(cfg, run)
     pos = cache["pos"]
     x = embed(params["embed"], token)
     kc_all, vc_all = step_buffers(cache, run)

@@ -24,8 +24,11 @@ decoder layer (one, the cross one, under ``decode_inplace_cache``), the
 cross one over the cross cache with ``cur_len = num_audio_frames``.  Whisper's norms are layernorms: no RMSNorm launch.
 The cache holds ``pos``, the self k/v (L, B, max_len, KV, D) and the
 cross k/v (L, B, num_audio_frames, KV, D), written once at prefill.
-Serving only: ``remat`` and gradients raise
-(``transformer.check_inference``).
+``forward`` is differentiable, the frames and the encoder included;
+``remat="block"`` recomputes each decoder layer in the backward (a
+``torch.utils.checkpoint`` where the reference ``jax.checkpoint``s its
+decoder scan body; the encoder is not recomputed, as in the reference),
+and "group" and "full" do nothing.
 """
 
 from __future__ import annotations
@@ -41,9 +44,8 @@ from repro_torch.models.layers import (
     embed, embed_schema, mlp_schema, norm_schema, out_project, q_project,
     qkv_project, rope_tables, unembed)
 from repro_torch.models.transformer import (
-    check_inference, check_run, decode_inplace, layer_params,
-    stack_schema, stacked_kv, step_buffers,
-    unstack, write_stacked)
+    check_run, decode_inplace, layer_params, segment, stack_schema,
+    stacked_kv, step_buffers, unstack, write_stacked)
 
 
 def _enc_layer_schema(cfg):
@@ -77,13 +79,31 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor, run: RunConfig):
     return apply_norm(cfg, params["enc_norm"], x)
 
 
+def _dec_layer_seq(cfg: ModelConfig, lp, x, enc_out, positions, tab,
+                   run: RunConfig):
+    """One decoder layer over the sequence: causal self attention, cross
+    attention to the encoder output, the MLP.  Returns (x, (k, v, ck,
+    cv))."""
+    h = apply_norm(cfg, lp["ln1"], x)
+    q, k, v = qkv_project(cfg, lp["attn"], h, positions=positions,
+                          rope_tab=tab)
+    o = chunked_attention(q, k, v, causal=True, window=run.decode_window)
+    x = x + out_project(lp["attn"], o)
+    h = apply_norm(cfg, lp["ln_cross"], x)
+    cq, ck, cv = qkv_project(cfg, lp["cross"], h, kv_x=enc_out, rope=False)
+    x = x + out_project(lp["cross"],
+                        chunked_attention(cq, ck, cv, causal=False))
+    x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+    return x, (k, v, ck, cv)
+
+
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
             extras: Optional[dict] = None, collect_kv: bool = False,
             last_only: bool = False):
     """Teacher-forced decoder over the encoded frames: tokens (B, S) ->
     (logits, 0.0, kvs or None); kvs (when collect_kv) are the stacked
     (k, v, ck, cv), each (L, B, ·, KV, D)."""
-    check_inference(cfg, run, params)
+    check_run(cfg, run)
     S = tokens.shape[1]
     enc_out = encode(cfg, params, extras["audio_frames"], run)
     x = embed(params["embed"], tokens)
@@ -92,20 +112,10 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
     tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     kvs = []
     for lp in unstack(params["dec_layers"]):
-        h = apply_norm(cfg, lp["ln1"], x)
-        q, k, v = qkv_project(cfg, lp["attn"], h, positions=positions,
-                              rope_tab=tab)
-        o = chunked_attention(q, k, v, causal=True,
-                              window=run.decode_window)
-        x = x + out_project(lp["attn"], o)
-        h = apply_norm(cfg, lp["ln_cross"], x)
-        cq, ck, cv = qkv_project(cfg, lp["cross"], h, kv_x=enc_out,
-                                 rope=False)
-        x = x + out_project(lp["cross"],
-                            chunked_attention(cq, ck, cv, causal=False))
-        x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+        x, kv = segment(run.remat == "block", _dec_layer_seq, cfg, lp, x,
+                        enc_out, positions, tab, run)
         if collect_kv:
-            kvs.append((k, v, ck, cv))
+            kvs.append(kv)
     if last_only:
         x = x[:, -1:].contiguous()
     x = apply_norm(cfg, params["final_norm"], x)
@@ -152,7 +162,7 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     written in place); the cross k/v, which a step only reads, are
     shared with the cache passed in, which is otherwise left as it
     was."""
-    check_inference(cfg, run, params)
+    check_run(cfg, run)
     pos = cache["pos"]
     x = embed(params["embed"], token)
     kc_all, vc_all = step_buffers(cache, run)

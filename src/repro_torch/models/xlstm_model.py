@@ -14,8 +14,11 @@ state, O(1) in the sequence length:
 
 Per forward or decode step: one RMSNorm launch per block (the blocks'
 inner norms; the pre-norms and the final norm are xlstm-125m's
-layernorms), no attention.  Serving only: ``remat`` and gradients raise
-(``transformer.check_inference``).
+layernorms), no attention.  ``forward`` is differentiable (the per-head
+``ssd_chunked`` and the sLSTM time loop are plain torch); ``remat``
+"block" and "group" recompute each group in the backward (a
+``torch.utils.checkpoint`` where the reference ``jax.checkpoint``s its
+group body), and "full" does nothing.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from repro_torch.config import ModelConfig, RunConfig
 from repro_torch.models.layers import (apply_norm, embed, embed_schema,
                                        norm_schema, unembed)
 from repro_torch.models.transformer import (
-    check_inference, check_run, layer_params, stack_schema, unstack)
+    check_run, layer_params, segment, stack_schema, unstack)
 from repro_torch.models.xlstm import (
     mlstm_forward, mlstm_init_state, mlstm_schema, mlstm_step,
     slstm_forward, slstm_init_state, slstm_schema, slstm_step)
@@ -67,22 +70,27 @@ def _index(tree, g: int):
     return layer_params(tree, g)
 
 
+def _group_seq(cfg: ModelConfig, gp, x):
+    """One group over the sequence: the mLSTM block, then the sLSTM
+    block.  Returns (x, mLSTM state, sLSTM state)."""
+    h, m = mlstm_forward(cfg, gp["mlstm"], apply_norm(cfg, gp["m_ln"], x))
+    x = x + h
+    h, s = slstm_forward(cfg, gp["slstm"], apply_norm(cfg, gp["s_ln"], x))
+    return x + h, m, s
+
+
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
             extras: Optional[dict] = None, collect_kv: bool = False,
             last_only: bool = False):
     """tokens: (B, S) -> (logits, 0.0, states or None); states (when
     collect_kv) are (mlstm, slstm) stacked over groups, the prefill
     cache's."""
-    check_inference(cfg, run, params)
+    check_run(cfg, run)
     x = embed(params["embed"], tokens)
     mst, sst = [], []
     for gp in unstack(params["groups"]):
-        h, m = mlstm_forward(cfg, gp["mlstm"],
-                             apply_norm(cfg, gp["m_ln"], x))
-        x = x + h
-        h, s = slstm_forward(cfg, gp["slstm"],
-                             apply_norm(cfg, gp["s_ln"], x))
-        x = x + h
+        x, m, s = segment(run.remat in ("block", "group"), _group_seq, cfg,
+                          gp, x)
         mst.append(m)
         sst.append(s)
     if last_only:
@@ -121,7 +129,7 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
                 run: RunConfig, extras: Optional[dict] = None):
     """token: (B, 1) -> (logits (B, 1, V), updated cache): a new cache of
     new states; the one passed in is left as it was."""
-    check_inference(cfg, run, params)
+    check_run(cfg, run)
     x = embed(params["embed"], token)
     mst, sst = [], []
     for g in range(_groups(cfg)):

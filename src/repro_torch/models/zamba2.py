@@ -27,10 +27,13 @@ the activations' type after a decode step (as the reference's), and
 ``ssm`` ``(G, E, B, H, P, N)`` float32.  As in the reference, only
 the in-place branch honours ``decode_slice_reads``.  ``RunConfig`` knobs
 the port does not implement raise ``NotImplementedError``
-(``transformer.check_run``), and so does ``remat`` "block" or "group"
-(the reference checkpoints each group there; not ported).  ``forward``
-is differentiable: the ``ssd_scan``, ``rmsnorm`` and flash-attention
-wrappers carry a gradient on the card.
+(``transformer.check_run``).  ``forward`` is differentiable: the
+``ssd_scan``, ``rmsnorm`` and flash-attention wrappers carry a gradient
+on the card.  ``remat`` "block" and "group" recompute each group, the
+shared block and its Mamba2 layers, in the backward (a
+``torch.utils.checkpoint`` where the reference ``jax.checkpoint``s its
+group body): a step then launches each group's kernels twice, all but
+the final norm; "full" does nothing, as in the reference.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.ssm import (mamba2_forward, mamba2_init_state,
                                     mamba2_schema, mamba2_step)
 from repro_torch.models.transformer import (
-    block_decode, block_seq, check_run as _check_dense, layer_params,
+    block_decode, block_seq, check_run, layer_params, segment,
     stack_schema, stacked_kv, step_buffers, unstack, write_stacked)
 
 
@@ -71,41 +74,43 @@ def schema(cfg: ModelConfig):
     }
 
 
-def check_run(cfg: ModelConfig, run: RunConfig) -> None:
-    """``transformer.check_run``, and raise for ``remat``, which zamba2
-    does not port."""
-    _check_dense(cfg, run)
-    if run.remat in ("block", "group"):
-        raise NotImplementedError(
-            f"{cfg.name}: RunConfig.remat={run.remat!r} is not ported for "
-            f"zamba2 (only 'none' and 'full', which do nothing)")
-
-
 def _mamba_params(params, g: int, i: int):
     return layer_params(layer_params(params["groups"], g), i)
 
 
+def _group_seq(cfg: ModelConfig, shared, group, x, positions, tab,
+               run: RunConfig):
+    """One group: the shared block, then the group's Mamba2 layers.
+    Returns (x, the shared block's (k, v), each Mamba2 layer's final
+    states)."""
+    x, _, kv = block_seq(cfg, shared, x, positions, tab, run,
+                         window=run.decode_window or 0)
+    states = []
+    for lp in unstack(group):
+        h, st = mamba2_forward(cfg, lp["mamba"], apply_norm(cfg, lp["ln"], x))
+        x = x + h
+        states.append(st)
+    return x, kv, states
+
+
 def _backbone(cfg: ModelConfig, params, tokens: torch.Tensor,
               run: RunConfig):
-    """Embed, then per group the shared block and its Mamba2 layers.
-    Returns x (B, S, d), the shared block's (k, v) per group and each
-    Mamba2 layer's final states, in layer order."""
+    """Embed, then per group the shared block and its Mamba2 layers,
+    each group recomputed in the backward under ``remat`` "block" or
+    "group".  Returns x (B, S, d), the shared block's (k, v) per group
+    and each Mamba2 layer's final states, in layer order."""
     S = tokens.shape[1]
     x = embed(params["embed"], tokens)
     positions = torch.arange(S, dtype=torch.float32,
                              device=tokens.device)[None]
     tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    window = run.decode_window or 0
     kvs, states = [], []
     for group in unstack(params["groups"]):
-        x, _, kv = block_seq(cfg, params["shared"], x, positions, tab,
-                             run, window=window)
+        x, kv, st = segment(run.remat in ("block", "group"), _group_seq,
+                            cfg, params["shared"], group, x, positions, tab,
+                            run)
         kvs.append(kv)
-        for lp in unstack(group):
-            h, st = mamba2_forward(cfg, lp["mamba"],
-                                   apply_norm(cfg, lp["ln"], x))
-            x = x + h
-            states.append(st)
+        states.extend(st)
     return x, kvs, states
 
 

@@ -5,11 +5,22 @@ need a gradient (``train_step`` marks them); the backward fills their
 ``.grad``, which stays until the next step clears it, and AdamW updates
 them in place.  A leaf the backward did not reach raises, as JAX would
 fail to build its gradient tree; ``train_loop`` returns the params
-released (no ``.grad``, no need of one), ready to serve.  On the card
-the forward launches the rmsnorm and flash-attention kernels (and
-ssd_scan on zamba2) through ``kernels.KernelFunction``, whose backward
-is the plain version's autograd.  An explicit ``torch.Generator`` takes
-the place of the reference's PRNG key.
+released (no ``.grad``, no need of one), ready to serve.  Every family
+trains, the modality inputs (``extras``: whisper's ``audio_frames``, the
+VLM's ``vision_embeds``) passed to the loss on the params' device.  On
+the card the forward launches these kernels through
+``kernels.KernelFunction``, whose backward is the plain version's
+autograd (under ``remat`` the recompute launches them again):
+
+  * dense, MoE and the VLM: rmsnorm (where the config's norm is RMSNorm)
+    and flash_attention (self, and the VLM's cross attention);
+  * zamba2: rmsnorm, flash_attention (the shared block) and ssd_scan;
+  * whisper: flash_attention (encoder, causal self, cross), no rmsnorm;
+  * xLSTM: rmsnorm (each block's inner norm); its per-head scan and the
+    sLSTM loop are plain torch.
+
+An explicit ``torch.Generator`` takes the place of the reference's PRNG
+key.
 """
 
 from __future__ import annotations
@@ -63,11 +74,19 @@ def _grads(params, prefix=""):
     return params.grad
 
 
+def extras_on(extras, device):
+    """The modality inputs ``extras`` (None, or a dict of tensors or
+    arrays) as tensors on ``device``."""
+    if extras is None:
+        return None
+    return {k: torch.as_tensor(v, device=device) for k, v in extras.items()}
+
+
 def make_train_step(cfg: ModelConfig, run: RunConfig,
                     ocfg: Optional[opt.AdamWConfig] = None):
     """``train_step(params, opt_state, tokens, labels, extras=None) ->
     (params, opt_state, metrics)``; metrics {"grad_norm", "lr", "loss",
-    "nll"} are device tensors."""
+    "nll"} are device tensors.  ``extras`` go to the params' device."""
     ocfg = ocfg or opt.AdamWConfig()
     loss_fn = make_loss_fn(cfg, run)
 
@@ -75,7 +94,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
         leaves = opt.leaves(trainable(params))
         for p in leaves:
             p.grad = None
-        loss, nll = loss_fn(params, tokens, labels, extras)
+        loss, nll = loss_fn(params, tokens, labels,
+                            extras_on(extras, leaves[0].device))
         loss.backward()
         grads = _grads(params)
         params, opt_state, metrics = opt.apply_updates(
@@ -92,7 +112,9 @@ def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *,
                device="cuda", log_every: int = 10, extras=None,
                callback=None):
     """Single-device training loop.  ``data_iter`` yields numpy
-    (tokens, labels); ``params`` None draws them with ``generator``
+    (tokens, labels); ``extras`` (the modality inputs of whisper and the
+    VLM) go with every step, on ``device``.  ``params`` None draws them
+    with ``generator``
     (default: seed 0 on ``device``).  Every ``log_every`` steps and at
     the last, an entry of the metrics as floats (a host sync) goes to
     the history and to ``callback``, where the step's ``.grad`` can
@@ -105,6 +127,7 @@ def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *,
         params = api.init_model(cfg, generator, dev)
     opt_state = opt.init_state(params)
     step_fn = make_train_step(cfg, run, ocfg)
+    extras = extras_on(extras, dev)
     history = []
     for i in range(steps):
         tokens, labels = next(data_iter)

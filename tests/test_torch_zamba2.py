@@ -251,15 +251,24 @@ def test_schema_and_cache_shapes_at_full_width():
 
 
 def test_unported_knobs_raise():
-    """remat (the reference checkpoints each group) and the multi-card
-    knobs raise; the in-place decode, which used to, is held to the
-    reference by test_inplace_decode_matches_reference."""
+    """remat "block" and "group" (each group recomputed in the backward,
+    as the reference checkpoints each group) now run and give the
+    prefill logits of "none" (``==``; tests/test_torch_training.py
+    holds their gradients); the multi-card knobs raise, naming ROADMAP
+    queue 1 item 9; the in-place decode, which used to raise, is held to
+    the reference by test_inplace_decode_matches_reference."""
     cfg, _ = configs("smoke")
     params = api.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
-    for knob, value in (("remat", "block"), ("fsdp", True)):
-        with pytest.raises(NotImplementedError, match=knob):
-            api.make_prefill_step(cfg, RunConfig(**{knob: value}), MAX_LEN)(
-                params, torch.zeros((1, 4), dtype=torch.int64))
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    base, _ = api.make_prefill_step(cfg, RunConfig(), MAX_LEN)(params, toks)
+    for remat in ("block", "group"):
+        got, _ = api.make_prefill_step(cfg, RunConfig(remat=remat),
+                                       MAX_LEN)(params, toks)
+        assert torch.equal(got, base), remat
+    for knob in ("fsdp", "shard_kv_seq"):
+        with pytest.raises(NotImplementedError, match=f"{knob}.*item 9"):
+            api.make_prefill_step(cfg, RunConfig(**{knob: True}), MAX_LEN)(
+                params, toks)
     # per-head (4-D) B/C, the xLSTM form, runs in plain torch; the
     # ssd_scan kernel's wrapper refuses it
     with pytest.raises(NotImplementedError, match="per-head"):
