@@ -279,6 +279,32 @@ data from seed 0, lr 1e-3):
                  child processes.  The phase's launches join the
                  kernels line under ``launches_by_path["train-families"]``.
 
+Then the dry run (``repro_torch.launch.dryrun``: each step traced on
+the meta device under ``launch.trace_cost.TraceCost``):
+
+ 11c. dryrun -- (a) on the host, the sweep of every arch x shape, base
+                 and --opt, but xLSTM's train_4k and prefill_32k
+                 (DRYRUN_SKIP: the sLSTM's loop over S takes minutes to
+                 trace), in a child process started before the build
+                 and waited for here: one line a record (fits one
+                 card, dominant term, roofline ms, trace seconds),
+                 every record's
+                 kernel calls == expected_launches.  (b) the prediction
+                 against the card: full-width TinyLlama-1.1B and
+                 Zamba2-2.7B on bf16 params, prefill at B=8, S=512 (a
+                 1024-row cache) and a decode step over that cache, and
+                 TinyLlama one f32 train step at B=8, S=512 (remat
+                 "block", run_for's); each traced at its shapes, run
+                 once untimed, then once with the counters zeroed and
+                 the peak reset: each kernel's calls == the counters'
+                 deltas and the argument bytes == the card's (gated);
+                 then DRYRUN_REPEATS timed runs; predicted against
+                 measured peak and the median step time, with its
+                 spread, against the roofline (printed, with the
+                 card).  The
+                 phase's launches join the kernels line under
+                 ``launches_by_path["dryrun"]``.
+
 Then the planner, which runs none of the kernels above:
 
  12. plan    -- the device planner engine (repro_torch.core.torchplan)
@@ -310,21 +336,27 @@ import contextlib
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
-TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense (data
-                                   # sheet); flash_attention and
-                                   # ssd_scan keep f32
-TF32_PER_F32_OP = 3                # precision with 3xTF32: lo*hi + hi*lo
-                                   # + hi*hi per f32 product
-GN_OPS_PER_ELEMENT = 12            # mean 1, variance 3, normalize 4, SiLU 4
+sys.path.insert(0, str(ROOT / "src"))
+# the H100 SXM data sheet's rates (repro_torch.kernels) and each kernel's
+# count of its work (the wrappers' cost(...))
+from repro_torch.kernels import (F32_OPS_PER_S, HBM_BYTES_PER_S,  # noqa: E402
+                                 TF32_PER_F32_OP, KernelCost, nbytes)
+from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.groupnorm_silu import ops as gn_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+
+GN_OPS_PER_ELEMENT = gn_ops.OPS_PER_ELEMENT
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}   # tests/test_kernels.py sweep
 PARITY_TOL = 1e-3
@@ -433,9 +465,7 @@ def gn_time_row(ops, B, H, W, C, G, calls=1, plain=True):
     s = torch.randn(C, generator=gen, device="cuda")
     b = torch.randn(C, generator=gen, device="cuda")
     xn = x.permute(0, 3, 1, 2).contiguous()
-    nbytes = 2 * x.numel() * 4 + 2 * C * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = GN_OPS_PER_ELEMENT * x.numel() / F32_OPS_PER_S * 1e3
+    bound = gn_ops.cost(x, s, b, G)
     row = dict(shape=[B, H, W, C], calls=calls,
                ms=device_time_ms(lambda: ops.groupnorm_silu(x, s, b, G)),
                plain_ms=device_time_ms(
@@ -443,9 +473,8 @@ def gn_time_row(ops, B, H, W, C, G, calls=1, plain=True):
                else None,
                group_norm_ms=device_time_ms(
                    lambda: F.group_norm(xn, G, s, b, 1e-6)),
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes=nbytes)
+               bound_ms=bound.ms, bound_by=bound.bound_by,
+               bytes=bound.bytes)
     if hasattr(ops, "plan"):
         row["plan"] = dataclasses.asdict(
             ops.plan(B, H * W, C, ops.num_groups_for(C, G), 4))
@@ -1165,7 +1194,7 @@ LLM_WINDOW = 48                    # its start falls mid-tile in both kernels
 LLM_PARITY_TOL = 2e-2              # logits, card vs CPU, bf16 KV cache,
                                    # relative to the largest |logit|
 LLM_PARITY_STD = 0.02              # parity weights: Llama's init range
-RMS_OPS_PER_ELEMENT = 4            # x*x+acc, /d+eps (per row), *rsqrt, *w
+RMS_OPS_PER_ELEMENT = rms_ops.OPS_PER_ELEMENT
 
 
 def _llm_ops():
@@ -1372,10 +1401,8 @@ def llm_shapes(cfg, params):
 
 
 def _bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    c = KernelCost(ops, nbytes, ops_per_s)
+    return c.ms, c.bound_by
 
 
 F32_PEAK = "67 TFLOP/s f32 (CUDA cores)"
@@ -1388,25 +1415,20 @@ def flash_bound(q, k):
     shaped like ``k``, ends aligned at Sq = Skv: q, o, k and v moved
     once at HBM_BYTES_PER_S against 4 D f32 operations per unmasked
     (query, key) pair, each TF32_PER_F32_OP tensor-core operations at
-    TF32_OPS_PER_S.  Returns (ms, "bytes" or "operations", f32 ops)."""
-    B, S, H, D = q.shape
-    flops = 4 * D * (S * (S + 1) // 2) * B * H
-    bound, by = _bound(_nbytes(q, q, k, k), TF32_PER_F32_OP * flops,
-                       TF32_OPS_PER_S)
-    return bound, by, flops
+    TF32_OPS_PER_S (``flash_attention.ops.cost``).  Returns (ms, "bytes"
+    or "operations", f32 ops)."""
+    c = fa_ops.cost(q, k, k)
+    return c.ms, c.bound_by, c.flops
 
 
 def flash_bound_full(q, k):
     """Bound of one flash_attention call without a mask (cross or
     encoder attention), q (B,Sq,H,D) over k, v (B,Skv,KV,D): q, o, k and
     v moved once against 4 D f32 operations per (query, key) pair, each
-    TF32_PER_F32_OP tensor-core operations.  Returns (ms, "bytes" or
-    "operations", f32 ops)."""
-    B, Sq, H, D = q.shape
-    flops = 4 * D * Sq * k.shape[1] * B * H
-    bound, by = _bound(_nbytes(q, q, k, k), TF32_PER_F32_OP * flops,
-                       TF32_OPS_PER_S)
-    return bound, by, flops
+    TF32_PER_F32_OP tensor-core operations (``flash_attention.ops.cost``
+    unmasked).  Returns (ms, "bytes" or "operations", f32 ops)."""
+    c = fa_ops.cost(q, k, k, causal=False)
+    return c.ms, c.bound_by, c.flops
 
 
 def ssd_bound(x, bmat, h0, chunk):
@@ -1414,26 +1436,10 @@ def ssd_bound(x, bmat, h0, chunk):
     h0 (B,H,P,N), chunks of Q = min(chunk, S): x, y, a (taken in x's
     type), B, C, h0 and h_final moved once at HBM_BYTES_PER_S, against
     the f32 operations, each TF32_PER_F32_OP tensor-core operations at
-    TF32_OPS_PER_S (all four products run on 3xTF32).  Per (b, h) and
-    chunk: 2QPN for C h^T and 2QPN for the state update; per causal (q,
-    k) pair a decay multiply and 2P for the product with x.  The scores
-    C B^T are the same for every head, so the function needs their 2N
-    per pair once per batch row.  Returns (ms, "bytes" or "operations",
-    f32 ops, bytes)."""
-    B, S, H, P = x.shape
-    N = bmat.shape[-1]
-    Q = min(chunk, S)
-    pairs = B * (S // Q) * Q * (Q + 1) // 2
-    flops = (B * H * (S // Q) * 4 * Q * P * N + (2 * P + 1) * H * pairs
-             + 2 * N * pairs)
-    nb = (_nbytes(x, x, bmat, bmat, h0, h0)
-          + B * S * H * x.element_size())
-    bound, by = _bound(nb, TF32_PER_F32_OP * flops, TF32_OPS_PER_S)
-    return bound, by, flops, nb
-
-
-def _nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
+    TF32_OPS_PER_S (``ssd_scan.ops.cost``, with a as x[..., 0]).
+    Returns (ms, "bytes" or "operations", f32 ops, bytes)."""
+    c = ssd_ops.cost(x, x[..., 0], bmat, bmat, h0, chunk=chunk)
+    return c.ms, c.bound_by, c.flops, c.bytes
 
 
 def _check_close(name, got, want, tol_key, err, tols=TOL):
@@ -1574,11 +1580,11 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8, causal=True,
     if name == "rmsnorm":
         (xs, _), = sig
         x, w = randn((B,) + xs), randn(xs[-1:])
-        nb = _nbytes(x, x, w)
-        bound, by = _bound(nb, RMS_OPS_PER_ELEMENT * x.numel())
+        c = rms_ops.cost(x, w)
         p = _llm_ops()[name].plan(xs[-1], x.element_size())
         return dict(kernel=name, shape=[B, *xs], types="float32",
-                    calls=calls, bound_ms=bound, bound_by=by, bytes=nb,
+                    calls=calls, bound_ms=c.ms, bound_by=c.bound_by,
+                    bytes=c.bytes,
                     plan=dict(threads=p.threads, nv=p.nv, vec=p.vec,
                               chunks=p.chunks),
                     ms=device_time_ms(lambda: run(x, w)),
@@ -1594,7 +1600,7 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8, causal=True,
         return dict(kernel=name, shape=[B, *qs], kv_shape=[B, *ks],
                     types="float32", causal=causal, calls=calls,
                     bound_ms=bound, bound_by=by, peak=TC_PEAK,
-                    bytes=_nbytes(q, q, k, v), flops=flops,
+                    bytes=nbytes(q, q, k, v), flops=flops,
                     ms=device_time_ms(lambda: run(q, k, v, causal=causal)),
                     plain_ms=device_time_ms(
                         lambda: plain(q, k, v, causal=causal)),
@@ -1612,9 +1618,7 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8, causal=True,
                        device="cuda")
     if full_rows:
         cur = torch.full((B,), S, dtype=torch.int32, device="cuda")
-    valid = int(cur.clamp(max=S).sum())
-    nb = _nbytes(q, q, cur) + 2 * valid * KV * D * kb.element_size()
-    bound, by = _bound(nb, 4 * D * H * valid)
+    c = dec_ops.cost(q, kb, vb, cur)
     qt = q.to(torch.bfloat16).transpose(1, 2).contiguous()
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kb, vb))
     mask = (torch.arange(S, device="cuda")[None]
@@ -1625,8 +1629,8 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8, causal=True,
     return dict(kernel=name, shape=[B, *qs], cache_shape=[B, *cs],
                 splits=splits, grid=[splits, rows, B],
                 types="float32 q, bfloat16 cache", calls=calls,
-                cur_len=cur.tolist(), bound_ms=bound, bound_by=by,
-                bytes=nb, flops=4 * D * H * valid,
+                cur_len=cur.tolist(), bound_ms=c.ms, bound_by=c.bound_by,
+                bytes=c.bytes, flops=c.flops,
                 ms=device_time_ms(lambda: run(q, kb, vb, cur)),
                 plain_ms=device_time_ms(lambda: plain(q, kb, vb, cur)),
                 library_ms=device_time_ms(
@@ -3887,6 +3891,239 @@ def phase_train_families(card):
     return launches, details
 
 
+# ---------------------------------------------------------------------------
+# The dry run: the trace's prediction of a step, held against the card
+# ---------------------------------------------------------------------------
+
+# xLSTM's sLSTM steps through the sequence in Python, one step a time
+# (the reference's lax.scan), so its train_4k and prefill_32k traces run
+# 6 x 4096 and 6 x 32768 cell steps on meta tensors: ~300 s and ~900 s
+# on the host (PERF.md); the whole sweep would take over 180 s, so phase
+# dryrun leaves those two out (README gives their command)
+DRYRUN_SKIP = {("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k")}
+DRYRUN_B, DRYRUN_S, DRYRUN_CACHE = 8, 512, 1024
+DRYRUN_REPEATS = 5         # timed runs a step after the counted one
+DRYRUN_GATED = ("rmsnorm", "flash_attention", "decode_attention",
+                "ssd_scan")
+
+
+def dryrun_sweep(echo=log):
+    """Phase dryrun (a): ``launch.dryrun.analyze`` of every arch x shape
+    but DRYRUN_SKIP, base and ``--opt``, on the host (no card): one line
+    a record; every record's flops and bytes positive, its dominant term
+    compute or memory, its kernel calls ``expected_launches``'."""
+    from repro_torch.config import SHAPES, get_config, list_archs
+    from repro_torch.launch import dryrun
+    recs = []
+    for opt in (False, True):
+        for arch in list_archs():
+            if arch == "ddim-cifar10":
+                continue
+            cfg = get_config(arch)
+            for name, shape in SHAPES.items():
+                if (arch, name) in DRYRUN_SKIP:
+                    continue
+                rec = dryrun.analyze(arch, name, opt)
+                n = {"train": (0, 0, 1), "prefill": (1, 0, 0),
+                     "decode": (0, 1, 0)}[shape.kind]
+                want = expected_launches(cfg, n[0], n[1],
+                                         dryrun.run_for(cfg, shape, opt),
+                                         train_steps=n[2])
+                got = {k: rec["kernels"].get(k, {}).get("calls", 0)
+                       for k in want}
+                check(got == want, f"dryrun {arch} {name} opt={opt}: "
+                      f"kernel calls {got}, expected {want}")
+                check(rec["hlo_flops_per_chip"] > 0
+                      and rec["hlo_bytes_per_chip"] > 0
+                      and rec["roofline"]["dominant"] in ("compute_s",
+                                                          "memory_s"),
+                      f"dryrun {arch} {name}: {rec['roofline']}")
+                echo(f"[dryrun] {dryrun.summary(rec)}")
+                recs.append(rec)
+    return recs
+
+
+DRYRUN_SWEEP_OUT = ROOT / "build" / "dryrun_sweep.json"
+
+
+def _dryrun_sweep_child(path):
+    t0 = time.perf_counter()
+    lines = []
+    recs = dryrun_sweep(echo=lines.append)
+    Path(path).write_text(json.dumps(dict(
+        records=recs, lines=lines, seconds=time.perf_counter() - t0)))
+
+
+def start_dryrun_sweep():
+    """Phase dryrun (a) in a child process (the host only, no card),
+    started before the build so that its traces overlap the build and
+    the first phases; ``phase_dryrun`` waits for it.  A daemon: it ends
+    with this process."""
+    DRYRUN_SWEEP_OUT.parent.mkdir(exist_ok=True)
+    DRYRUN_SWEEP_OUT.unlink(missing_ok=True)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_dryrun_sweep_child, args=(str(DRYRUN_SWEEP_OUT),),
+        daemon=True)
+    proc.start()
+    return proc
+
+
+def finish_dryrun_sweep(proc):
+    """The child's records, its lines printed; fails if it failed."""
+    proc.join()
+    check(proc.exitcode == 0, f"dryrun sweep: the child process exited "
+          f"with {proc.exitcode}")
+    out = json.loads(DRYRUN_SWEEP_OUT.read_text())
+    for line in out["lines"]:
+        log(line)
+    return out["records"], out["seconds"]
+
+
+def _dryrun_step(cfg, kind, dtype, card, seen):
+    """Phase dryrun (b) for one step of ``cfg`` at B=DRYRUN_B on
+    ``dtype`` params: the trace's record at the step's shapes, then the
+    step once on the card (after one untimed run) with the launch
+    counters zeroed and the peak reset, then DRYRUN_REPEATS timed runs.
+    Gated: each kernel's calls in the counted run equal the counters'
+    deltas, the predicted argument bytes the card's.  Printed: predicted
+    against measured peak, and the roofline against the median step
+    time of the timed runs (host clock, synchronized), with their
+    spread."""
+    import torch
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.training import optimizer as optim
+    seq = DRYRUN_CACHE if kind == "decode" else DRYRUN_S
+    shape = ShapeConfig(f"{kind}_card", seq, DRYRUN_B, kind)
+    max_len = DRYRUN_CACHE if kind == "prefill" else None
+    rec = dryrun.analyze(cfg.name, shape, dtype=dtype, max_len=max_len)
+    run = dryrun.run_for(cfg, shape)
+    step = dryrun.build_step(cfg, shape, run, max_len)
+    params, cache = seen["params"], seen.get("cache")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    if kind == "decode":
+        batch = {"token": seen["token"], "cache": cache}
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (DRYRUN_B, seq),
+                             generator=gen, device="cuda",
+                             dtype=torch.int32)
+        batch = {"tokens": toks}
+        if kind == "train":
+            batch["labels"] = torch.roll(toks, -1, dims=1)
+    args = (params, batch)
+    if kind == "train":
+        args = (params, optim.init_state(params), batch)
+    argument = dryrun.tree_bytes(*args)
+    def timed():
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # one untimed run first (the process's first bf16 products pick their
+    # kernels there); a train step's grads are dropped after each run
+    warm = step(*args)
+    del warm
+    for p in optim.leaves(params):
+        p.grad = None
+    ops = _llm_ops()
+    for m in ops.values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, first_ms = timed()
+    peak = torch.cuda.max_memory_allocated() - (before - argument)
+    launches = {k: ops[k].launches for k in DRYRUN_GATED}
+    times = []
+    for _ in range(DRYRUN_REPEATS):
+        for p in optim.leaves(params):
+            p.grad = None
+        times.append(timed()[1])
+    ms = statistics.median(times)
+    calls = {k: rec["kernels"].get(k, {}).get("calls", 0)
+             for k in DRYRUN_GATED}
+    tag = f"[dryrun {cfg.name} {kind} {str(dtype).replace('torch.', '')}]"
+    check(launches == calls, f"{tag} the card launched {launches}, the "
+          f"trace predicted {calls}")
+    mem = rec["memory_analysis"]
+    check(mem["argument_bytes"] == argument, f"{tag} argument bytes: "
+          f"predicted {mem['argument_bytes']}, the card's {argument}")
+    r = rec["roofline"]
+    roof_ms = max(r["compute_s"], r["memory_s"]) * 1e3
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    if kind == "train":
+        finite = bool(torch.isfinite(out[2]["loss"]))
+    else:
+        finite = bool(torch.isfinite(out[0].float()).all())
+        seen["cache"] = out[1]
+        seen["token"] = out[0][:, -1].argmax(-1, keepdim=True).to(
+            torch.int32)
+    check(finite, f"{tag} output not finite")
+    log(f"{tag} B={DRYRUN_B} S={seq}: launches {launches} == predicted; "
+        f"argument bytes {argument} == predicted; peak predicted "
+        f"{predicted / 2**30:.3f} GiB, measured {peak / 2**30:.3f} GiB "
+        f"(measured / predicted {peak / predicted:.3f}); step median "
+        f"{ms:.2f} ms of {DRYRUN_REPEATS} (min {min(times):.2f}, max "
+        f"{max(times):.2f}; counted run {first_ms:.2f}) on {card}, "
+        f"roofline {roof_ms:.3f} ms ({r['dominant']}; H100 SXM data "
+        f"sheet), {roof_ms / ms:.3f} of it ({roof_ms / max(times):.3f}-"
+        f"{roof_ms / min(times):.3f}); traced in "
+        f"{rec['trace_seconds']:.2f} s")
+    del out
+    return dict(kind=kind, dtype=str(dtype), B=DRYRUN_B, S=seq,
+                launches=launches, argument_bytes=argument,
+                predicted_peak_bytes=predicted, peak_bytes=peak,
+                step_ms=ms, step_ms_runs=times, counted_run_ms=first_ms,
+                roofline_ms=roof_ms, dominant=r["dominant"],
+                roofline_share=roof_ms / ms, record=rec)
+
+
+def phase_dryrun(card, sweep):
+    """Phase dryrun: (a) the dry-run sweep on the host (``sweep``, the
+    child process of ``start_dryrun_sweep``); (b) the trace's
+    prediction held against the card: full-width TinyLlama-1.1B and
+    zamba2-2.7b on bfloat16 params, prefill at B=8, S=512 (a 1024-row
+    cache), then a decode step over that cache; TinyLlama one train step
+    at B=8, S=512 on float32 params (run_for's remat, "block").
+    Returns {kernel: launches in (b)} and the phase's details."""
+    import torch
+    from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    recs, sweep_s = finish_dryrun_sweep(sweep)
+    log(f"[dryrun] sweep: {len(recs)} records (base and --opt; left out "
+        f"{sorted(DRYRUN_SKIP)}) traced in {sweep_s:.1f} s on the host, "
+        f"in a child process beside the earlier phases; waited "
+        f"{time.perf_counter() - t0:.1f} s for it here")
+    launches = collections.Counter()
+    steps = []
+    for cfg, kinds, dtype in ((TINYLLAMA, ("prefill", "decode"),
+                               torch.bfloat16),
+                              (ZAMBA2, ("prefill", "decode"),
+                               torch.bfloat16),
+                              (TINYLLAMA, ("train",), torch.float32)):
+        seen = {"params": api.init_model(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+            dtype)}
+        for kind in kinds:
+            st = _dryrun_step(cfg, kind, dtype, card, seen)
+            launches.update(st["launches"])
+            steps.append(dict(st, model=cfg.name))
+        del seen
+        torch.cuda.empty_cache()
+    details = dict(sweep=[{k: r[k] for k in (
+        "arch", "shape", "opt", "fits_one_card", "roofline",
+        "hlo_flops_per_chip", "hlo_bytes_per_chip", "memory_analysis",
+        "trace_seconds", "kernels")} for r in recs],
+        sweep_seconds=sweep_s, steps=steps, launches=dict(launches),
+        seconds=time.perf_counter() - t0)
+    log(f"[done] phase dryrun {details['seconds']:.1f} s (sweep "
+        f"{sweep_s:.1f} s) on {card}; launches {dict(launches)}")
+    return dict(launches), details
+
+
 PLAN_TOL = 1e-9            # mean FID, the planner engines' contract
 PLAN_SIZES = (1024, 10_000)  # single-scenario T* searches
 PLAN_MANY = dict(S=1000, K=20)
@@ -4511,6 +4748,7 @@ def main() -> int:
     from repro_torch.configs.ddim_cifar10 import CONFIG
 
     t_start = time.perf_counter()
+    sweep = start_dryrun_sweep()
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     phase_build()
@@ -4549,6 +4787,7 @@ def main() -> int:
                                           **family_models, **dense_models})
     train_launches, train = phase_train(card)
     fam_launches, train_families = phase_train_families(card)
+    dry_launches, dry = phase_dryrun(card, sweep)
     plan = phase_plan(card)
     for entry in llm_kernels:
         name = entry["name"]
@@ -4570,6 +4809,9 @@ def main() -> int:
             entry["max_abs_err"] = max(
                 entry["max_abs_err"],
                 train_families["kernels"]["max_abs_err"][name])
+        if dry_launches.get(name):
+            entry["launches_by_path"]["dryrun"] = dry_launches[name]
+            entry["launches"] += dry_launches[name]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
@@ -4578,7 +4820,7 @@ def main() -> int:
         parity=parity, bucketed=bucketed, closed=closed, fleet=fleet,
         llm_kernels=llm_kernels, llm=llm, moe=moe, families=families,
         dense=dense,
-        train=train, train_families=train_families, plan=plan,
+        train=train, train_families=train_families, dryrun=dry, plan=plan,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -30,14 +30,17 @@ not shard across cards.
 scenario shape (fleet / multi-server / online / static) and returns
 exactly what the matching facade's ``run()`` returns.
 
-The port of ``repro.api.base``.  Its deprecated positional shims are
-not ported: the port has no callers of the old signatures.
+The port of ``repro.api.base``, with its deprecation shim:
+``Provisioner``, ``OnlineProvisioner`` and ``MultiServerProvisioner``
+still take their components positionally after the scenario
+(``_legacy_positionals``), warning with ``DeprecationWarning``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import inspect
+import warnings
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -87,25 +90,6 @@ def report_dict(kind: str, *, mean_fid: float, outage_rate: float,
     return out
 
 
-def display_name(spec: Any) -> str:
-    """Human-readable name of a component: the string itself, or a
-    callable/instance's best-effort name (report headers use this)."""
-    if isinstance(spec, str):
-        return spec
-    return getattr(spec, "__name__", type(spec).__name__)
-
-
-def resolve(table: Dict[str, Any], spec: Any, kind: str) -> Any:
-    """Look a name up in one of the port's component dicts; pass a
-    callable or instance through."""
-    if not isinstance(spec, str):
-        return spec
-    if spec not in table:
-        raise ValueError(f"unknown {kind} {spec!r}; expected one of "
-                         f"{sorted(table)}")
-    return table[spec]
-
-
 class BaseProvisioner:
     """Common constructor surface and helpers of the four facades."""
 
@@ -134,6 +118,36 @@ class BaseProvisioner:
         if execute is None:
             return self.execute_default
         return self._check_execute(execute)
+
+    @classmethod
+    def _legacy_positionals(cls, args: tuple, given: Dict[str, Any]) \
+            -> Dict[str, Any]:
+        """Deprecation shim: map old positional component arguments
+        onto their keywords (``cls._LEGACY``, in order).  ``given``
+        holds the keyword values as received, so a positional and a
+        keyword for one argument fail loudly (against
+        ``cls._LEGACY_DEFAULTS``)."""
+        if not args:
+            return given
+        names = cls._LEGACY
+        if len(args) > len(names):
+            raise TypeError(
+                f"{cls.__name__}() takes at most {1 + len(names)} "
+                f"positional arguments ({1 + len(args)} given)")
+        shown = ", ".join(names[:len(args)])
+        warnings.warn(
+            f"positional {cls.__name__}(scenario, {shown}) is "
+            f"deprecated; pass component arguments as keywords",
+            DeprecationWarning, stacklevel=3)
+        out = dict(given)
+        for name, val in zip(names, args):
+            default = cls._LEGACY_DEFAULTS.get(name)
+            if given.get(name, default) != default:
+                raise TypeError(
+                    f"{cls.__name__}() got multiple values for "
+                    f"argument '{name}'")
+            out[name] = val
+        return out
 
     @contextlib.contextmanager
     def _planning(self):

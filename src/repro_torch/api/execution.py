@@ -1,12 +1,11 @@
-"""Closed-loop plan execution behind the ``EXECUTORS`` table.
+"""Closed-loop plan execution behind the ``EXECUTORS`` registry.
 
 The port of ``repro.api.execution``.  ``EXECUTORS`` maps executor names
 to *session factories*: a session is a stepwise execution handle
 (``run_batch`` / ``retarget`` / ``finish``, see ``core/execution.py``)
 that ``ExecutionLoop`` drives batch by batch, measuring wall-clock,
-refitting the delay model and replanning on drift.  The port has no
-registries: the table is a plain dict, and a caller may pass a factory
-of its own in place of a name.
+refitting the delay model and replanning on drift.  A caller may pass
+a factory of its own in place of a name.
 
 Entries:
 
@@ -37,19 +36,24 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
-from repro_torch.api.workloads import WorkloadOutput
+from repro_torch.api.protocols import WorkloadOutput
+from repro_torch.api.registry import (ALLOCATORS, EXECUTORS, SCHEDULERS,
+                                      register_executor)
 from repro_torch.core.delay_model import DelayModel
 from repro_torch.core.execution import (ExecutionLoop, ExecutionResult,
                                         SimulatedSession)
 from repro_torch.core.plan import BatchPlan
 
 
+@register_executor("diffusion")
+@register_executor("llm_decode")
 def _workload_session(workload, plan, generator, **kw):
     """The workload's own session; ``DecodeWorkload.open_session``
     refuses an ``exec_engine`` other than the dict one."""
     return workload.open_session(plan, generator, **kw)
 
 
+@register_executor("simulated")
 def _simulated_session(workload, plan, generator, *,
                        true_delay: DelayModel, noise: float = 0.0,
                        seed: int = 0, exec_engine: Optional[str] = None):
@@ -58,11 +62,6 @@ def _simulated_session(workload, plan, generator, *,
                          f"exec_engine={exec_engine!r} (the bucketed "
                          f"engine is diffusion-only)")
     return SimulatedSession(plan, true_delay, noise=noise, seed=seed)
-
-
-EXECUTORS = {"diffusion": _workload_session,
-             "llm_decode": _workload_session,
-             "simulated": _simulated_session}
 
 
 def make_session(workload, plan: BatchPlan, generator=None, *,
@@ -75,13 +74,8 @@ def make_session(workload, plan: BatchPlan, generator=None, *,
         if executor is None:
             raise ValueError(
                 "no executor: attach a named workload or pass "
-                f"executor= (known: {sorted(EXECUTORS)})")
-    factory = executor
-    if isinstance(executor, str):
-        if executor not in EXECUTORS:
-            raise ValueError(f"unknown executor {executor!r}; expected "
-                             f"one of {sorted(EXECUTORS)}")
-        factory = EXECUTORS[executor]
+                f"executor= (registered: {EXECUTORS.names()})")
+    factory = EXECUTORS.resolve(executor)
     return factory(workload, plan, generator, **(executor_kwargs or {}))
 
 
@@ -105,8 +99,6 @@ def execute_plan(scenario, plan: BatchPlan, alloc, workload=None, *,
     in the result telemetry.  ``engine`` pins the planning engine of
     every replan (``repro_torch.core.arrays``; ``"torch"`` runs on
     ``torchplan.device_scope``'s device)."""
-    from repro_torch.api.base import resolve
-    from repro_torch.api.provisioner import ALLOCATORS, SCHEDULERS
     if exec_engine is not None:
         executor_kwargs = dict(executor_kwargs or {})
         executor_kwargs.setdefault("exec_engine", exec_engine)
@@ -114,8 +106,8 @@ def execute_plan(scenario, plan: BatchPlan, alloc, workload=None, *,
                            executor_kwargs=executor_kwargs)
     loop = ExecutionLoop(
         scenario, plan, alloc, session, delay=delay, quality=quality,
-        scheduler=resolve(SCHEDULERS, scheduler, "scheduler"),
-        allocator=resolve(ALLOCATORS, allocator, "allocator"),
+        scheduler=SCHEDULERS.resolve(scheduler),
+        allocator=ALLOCATORS.resolve(allocator),
         mode=mode, window=window, drift_tol=drift_tol,
         min_batches=min_batches, max_replans=max_replans,
         headroom=headroom, validate=validate, engine=engine,
@@ -131,8 +123,7 @@ def execute_report(report, workload=None, *, mode: str = "closed",
     instance (``None`` works with ``executor="simulated"``); remaining
     keywords are ``execute_plan``'s (``device=`` reaches a workload
     built from its name)."""
-    from repro_torch.api.provisioner import (ALLOCATORS, SCHEDULERS,
-                                             make_workload)
+    from repro_torch.api.provisioner import make_workload
     wl = make_workload(workload, kwargs.pop("device", "cuda"))
     scheduler = kwargs.pop("scheduler", None)
     if scheduler is None:

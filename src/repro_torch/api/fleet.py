@@ -11,7 +11,7 @@
     print(report.summary())
 
 ``make_fleet_scenario`` builds a ``core/fleet.py`` ``FleetScenario``
-from names: the dict ``ARRIVALS`` maps traffic-model names
+from names: the registry ``ARRIVALS`` maps traffic-model names
 ("poisson", "diurnal", "flash_crowd", "inhomogeneous", "trace") to the
 ``core/traffic.py`` constructors, so scenario configs stay plain
 strings + kwargs like every other pipeline component.  Cell
@@ -27,8 +27,8 @@ streaming aggregates only, never per-service rows.  With
 ``engine="torch"`` every concurrent replan of the fleet goes to
 ``torchplan.replan_many`` on the facade's ``device``.
 
-The port of ``repro.api.fleet``; the reference's registry is the plain
-dict ``ARRIVALS`` here, with its aliases.
+The port of ``repro.api.fleet``; the arrival processes are registered
+under the reference's names and aliases.
 """
 
 from __future__ import annotations
@@ -39,8 +39,9 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 
-from repro_torch.api.base import (BaseProvisioner, display_name,
-                                  report_dict, resolve)
+from repro_torch.api.base import BaseProvisioner, report_dict
+from repro_torch.api.registry import (ARRIVALS, display_name,
+                                      register_arrival)
 from repro_torch.core.delay_model import DelayModel
 from repro_torch.core.fleet import (FleetCell, FleetResult, FleetScenario,
                                     simulate_fleet)
@@ -53,13 +54,12 @@ from repro_torch.core.traffic import (ArrivalProcess, DiurnalPoisson,
 # Each entry is a *factory* (name -> constructor); make_fleet_scenario
 # instantiates it with the user's kwargs, so configs serialize as
 # ("diurnal", {"base_rate": 0.4}) rather than live objects.
-#: arrival-process name -> factory; aliases map to the same object
-ARRIVALS = {"poisson": PoissonProcess, "homogeneous": PoissonProcess,
-            "inhomogeneous": InhomogeneousPoisson,
-            "diurnal": DiurnalPoisson,
-            "flash_crowd": FlashCrowd, "flash": FlashCrowd,
-            "trace": load_trace, "csv": load_trace, "json": load_trace,
-            "trace_times": TraceArrivals}
+register_arrival("poisson", PoissonProcess, aliases=("homogeneous",))
+register_arrival("inhomogeneous", InhomogeneousPoisson)
+register_arrival("diurnal", DiurnalPoisson)
+register_arrival("flash_crowd", FlashCrowd, aliases=("flash",))
+register_arrival("trace", load_trace, aliases=("csv", "json"))
+register_arrival("trace_times", TraceArrivals)
 
 
 ArrivalSpec = Union[None, str, ArrivalProcess, Callable]
@@ -73,7 +73,7 @@ def _make_process(spec: ArrivalSpec, kwargs: Optional[dict]) -> \
     (shared-stream-only cell)."""
     if spec is None:
         return None
-    obj = resolve(ARRIVALS, spec, "arrival process")
+    obj = ARRIVALS.resolve(spec)
     if not isinstance(obj, type) and hasattr(obj, "sample"):
         if kwargs:
             raise ValueError(
@@ -91,7 +91,7 @@ def _with_rate(spec: ArrivalSpec, kwargs: Optional[dict],
     take no rate and for conflicts with explicit kwargs."""
     if spec is None:
         return kwargs
-    obj = resolve(ARRIVALS, spec, "arrival process")
+    obj = ARRIVALS.resolve(spec)
     if not isinstance(obj, type) and hasattr(obj, "sample"):
         raise ValueError(
             f"rate= cannot be applied to the already constructed "

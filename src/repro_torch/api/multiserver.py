@@ -33,13 +33,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.api.base import (BaseProvisioner, display_name,
-                                  report_dict, resolve)
+from repro_torch.api.base import BaseProvisioner, report_dict
 from repro_torch.api.execution import with_kwargs
-from repro_torch.api.online import ADMISSIONS
-from repro_torch.api.placements import PLACEMENTS
-from repro_torch.api.provisioner import (ALLOCATORS, SCHEDULERS,
-                                         ProvisionReport)
+from repro_torch.api.provisioner import ProvisionReport
+from repro_torch.api.registry import (ADMISSIONS, ALLOCATORS, PLACEMENTS,
+                                      SCHEDULERS, display_name)
 from repro_torch.core.delay_model import DelayModel
 from repro_torch.core.multiserver import (MultiOnlineResult, MultiSimResult,
                                           provision_multi,
@@ -183,9 +181,20 @@ class MultiServerProvisioner(BaseProvisioner):
     time with its own ``online_placement`` hook (default
     earliest-free), since a static placement cannot see arrivals it
     does not know about yet.
+
+    The components may still come positionally after the scenario, in
+    ``_LEGACY``'s order: deprecated (``BaseProvisioner``'s shim).
     """
 
-    def __init__(self, scenario: Scenario, *,
+    _LEGACY = ("placement", "scheduler", "allocator", "delay", "quality",
+               "placement_kwargs", "allocator_kwargs", "engine")
+    _LEGACY_DEFAULTS = {"placement": "least_loaded",
+                        "scheduler": "stacking", "allocator": "pso",
+                        "delay": None, "quality": None,
+                        "placement_kwargs": None,
+                        "allocator_kwargs": None, "engine": None}
+
+    def __init__(self, scenario: Scenario, *args,
                  placement="least_loaded", scheduler="stacking",
                  allocator="pso", delay: Optional[DelayModel] = None,
                  quality: Optional[QualityModel] = None,
@@ -193,14 +202,24 @@ class MultiServerProvisioner(BaseProvisioner):
                  allocator_kwargs: Optional[dict] = None,
                  engine: Optional[str] = None, device="cuda",
                  seed: Optional[int] = None, execute=None):
-        super().__init__(scenario, engine=engine, device=device,
+        kw = self._legacy_positionals(args, dict(
+            placement=placement, scheduler=scheduler, allocator=allocator,
+            delay=delay, quality=quality,
+            placement_kwargs=placement_kwargs,
+            allocator_kwargs=allocator_kwargs, engine=engine))
+        placement, scheduler = kw["placement"], kw["scheduler"]
+        allocator, delay, quality = (kw["allocator"], kw["delay"],
+                                     kw["quality"])
+        placement_kwargs, allocator_kwargs = (kw["placement_kwargs"],
+                                              kw["allocator_kwargs"])
+        super().__init__(scenario, engine=kw["engine"], device=device,
                          seed=seed, execute=execute)
         self.placement_name = display_name(placement)
         self.scheduler_name = display_name(scheduler)
         self.allocator_name = display_name(allocator)
-        self.placement = resolve(PLACEMENTS, placement, "placement")
-        self.scheduler = resolve(SCHEDULERS, scheduler, "scheduler")
-        self.allocator = resolve(ALLOCATORS, allocator, "allocator")
+        self.placement = PLACEMENTS.resolve(placement)
+        self.scheduler = SCHEDULERS.resolve(scheduler)
+        self.allocator = ALLOCATORS.resolve(allocator)
         self.delay = delay if delay is not None else DelayModel()
         self.quality = quality if quality is not None else PowerLawFID()
         self.placement_kwargs = dict(placement_kwargs or {})
@@ -276,14 +295,13 @@ class MultiServerProvisioner(BaseProvisioner):
         every cell).  The constructor's static ``placement`` does NOT
         apply here — it solves a full assignment, which has no meaning
         when requests are revealed one at a time.  ``admission`` takes
-        ``ADMISSIONS`` names or callables as in ``OnlineProvisioner``.
+        registered names or callables as in ``OnlineProvisioner``.
         ``handoff=True`` lets pending not-yet-started services migrate
         to a strictly better cell at each replan instant (the report's
         ``handoffs`` counts the moves).
         """
         self._check_no_execute(execute)
-        adm = with_kwargs(resolve(ADMISSIONS, admission, "admission"),
-                          admission_kwargs)
+        adm = with_kwargs(ADMISSIONS.resolve(admission), admission_kwargs)
         with self._planning():
             result = simulate_online_multi(
                 self.scenario, self.scheduler, self._allocator(),

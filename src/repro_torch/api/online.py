@@ -26,9 +26,8 @@ with the reference's aliases:
                                 bar (default 50.0; ``admission_kwargs``)
 
 A policy may also be passed as a callable
-``(svc, projected, states) -> bool``.  The port of ``repro.api.online``;
-its registry is a plain dict here, as ``SCHEDULERS`` and ``ALLOCATORS``
-are.
+``(svc, projected, states) -> bool``, and a new one registered by name
+(``register_admission``).  The port of ``repro.api.online``.
 """
 
 from __future__ import annotations
@@ -38,11 +37,11 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.api.base import (BaseProvisioner, display_name,
-                                  report_dict, resolve)
+from repro_torch.api.base import BaseProvisioner, report_dict
 from repro_torch.api.execution import replay_result, with_kwargs
-from repro_torch.api.provisioner import (ALLOCATORS, SCHEDULERS,
-                                         make_workload)
+from repro_torch.api.provisioner import make_workload
+from repro_torch.api.registry import (ADMISSIONS, ALLOCATORS, SCHEDULERS,
+                                      display_name, register_admission)
 from repro_torch.core.delay_model import DelayModel
 from repro_torch.core.online import OnlineResult, simulate_online
 from repro_torch.core.quality_model import PowerLawFID, QualityModel
@@ -52,26 +51,22 @@ from repro_torch.core.simulator import ServiceOutcome
 
 # -- admission policies ---------------------------------------------------
 
+@register_admission("admit_all", aliases=("all",))
 def admit_all(svc: ServiceRequest, projected: ServiceOutcome,
               states: Dict) -> bool:
     return True
 
 
+@register_admission("deadline_feasible", aliases=("feasible",))
 def deadline_feasible(svc: ServiceRequest, projected: ServiceOutcome,
                       states: Dict) -> bool:
     return projected.steps > 0 and projected.met_deadline
 
 
+@register_admission("fid_threshold")
 def fid_threshold(svc: ServiceRequest, projected: ServiceOutcome,
                   states: Dict, *, threshold: float = 50.0) -> bool:
     return projected.steps > 0 and projected.fid <= threshold
-
-
-#: admission policy name -> callable; aliases map to the same object
-ADMISSIONS = {"admit_all": admit_all, "all": admit_all,
-              "deadline_feasible": deadline_feasible,
-              "feasible": deadline_feasible,
-              "fid_threshold": fid_threshold}
 
 
 # -- report + facade ------------------------------------------------------
@@ -143,9 +138,18 @@ class OnlineProvisioner(BaseProvisioner):
     or an instance.  ``engine``/``device``/``seed``/``execute``
     are the shared facade kwargs (``api/base.py``);
     ``execute=True`` replays the committed batch sequence on the
-    workload's executor after the simulation (``replay_result``)."""
+    workload's executor after the simulation (``replay_result``).
+    The components may still come positionally after the scenario, in
+    ``_LEGACY``'s order: deprecated (``BaseProvisioner``'s shim)."""
 
-    def __init__(self, scenario: Scenario, *, scheduler="stacking",
+    _LEGACY = ("scheduler", "allocator", "admission", "delay", "quality",
+               "allocator_kwargs", "admission_kwargs", "engine")
+    _LEGACY_DEFAULTS = {"scheduler": "stacking", "allocator": "pso",
+                        "admission": "admit_all", "delay": None,
+                        "quality": None, "allocator_kwargs": None,
+                        "admission_kwargs": None, "engine": None}
+
+    def __init__(self, scenario: Scenario, *args, scheduler="stacking",
                  allocator="pso", admission="admit_all",
                  delay: Optional[DelayModel] = None,
                  quality: Optional[QualityModel] = None,
@@ -154,15 +158,25 @@ class OnlineProvisioner(BaseProvisioner):
                  engine: Optional[str] = None, workload=None,
                  device="cuda", seed: Optional[int] = None,
                  execute=None, execute_kwargs: Optional[dict] = None):
-        super().__init__(scenario, engine=engine, device=device,
+        kw = self._legacy_positionals(args, dict(
+            scheduler=scheduler, allocator=allocator, admission=admission,
+            delay=delay, quality=quality,
+            allocator_kwargs=allocator_kwargs,
+            admission_kwargs=admission_kwargs, engine=engine))
+        scheduler, allocator = kw["scheduler"], kw["allocator"]
+        admission, delay, quality = (kw["admission"], kw["delay"],
+                                     kw["quality"])
+        allocator_kwargs, admission_kwargs = (kw["allocator_kwargs"],
+                                              kw["admission_kwargs"])
+        super().__init__(scenario, engine=kw["engine"], device=device,
                          seed=seed, execute=execute,
                          execute_kwargs=execute_kwargs)
         self.scheduler_name = display_name(scheduler)
         self.allocator_name = display_name(allocator)
         self.admission_name = display_name(admission)
-        self.scheduler = resolve(SCHEDULERS, scheduler, "scheduler")
-        self.allocator = resolve(ALLOCATORS, allocator, "allocator")
-        self.admission = resolve(ADMISSIONS, admission, "admission")
+        self.scheduler = SCHEDULERS.resolve(scheduler)
+        self.allocator = ALLOCATORS.resolve(allocator)
+        self.admission = ADMISSIONS.resolve(admission)
         wl = make_workload(workload, device)
         self.workload = wl
         self.delay = delay if delay is not None else (

@@ -1,4 +1,4 @@
-"""Multi-server assignment strategies, named in ``PLACEMENTS``.
+"""Multi-server assignment strategies, registered in ``PLACEMENTS``.
 
 A placement has the uniform signature
 
@@ -22,10 +22,9 @@ the given allocator (the per-cell P1).  All strategies respect
                         with per-cell bandwidth refinement by the
                         existing ``coordinate`` allocator.
 
-The port of ``repro.api.placements``: the reference's registry is the
-plain dict ``PLACEMENTS`` here, with its aliases (``rr``,
-``coord_desc``).  Too little capacity raises ``ValueError`` where the
-reference asserts.  tests/test_torch_multiserver.py holds every
+The port of ``repro.api.placements``, registered under the reference's
+names and aliases (``rr``, ``coord_desc``).  Too little capacity raises
+``ValueError`` where the reference asserts.  tests/test_torch_multiserver.py holds every
 assignment ``==`` to the reference's.
 """
 
@@ -36,7 +35,8 @@ from typing import Dict, FrozenSet, List, Tuple
 
 import numpy as np
 
-from repro_torch.api.provisioner import ALLOCATORS
+from repro_torch.api.registry import (get_allocator, get_placement,
+                                      register_placement)
 from repro_torch.core.delay_model import DelayModel
 from repro_torch.core.multiserver import cell_objective
 from repro_torch.core.quality_model import QualityModel
@@ -56,6 +56,7 @@ def _eligible(counts: List[int], scn: Scenario) -> List[int]:
             if sv.has_room(counts[m])]
 
 
+@register_placement("round_robin", aliases=("rr",))
 def round_robin(scn: Scenario, scheduler=None, allocator=None,
                 delay: DelayModel = None, quality: QualityModel = None,
                 **_) -> np.ndarray:
@@ -78,6 +79,7 @@ def round_robin(scn: Scenario, scheduler=None, allocator=None,
     return out
 
 
+@register_placement("least_loaded")
 def least_loaded(scn: Scenario, scheduler=None, allocator=None,
                  delay: DelayModel = None, quality: QualityModel = None,
                  **_) -> np.ndarray:
@@ -126,6 +128,7 @@ class _CellCache:
         return self._memo[key]
 
 
+@register_placement("greedy_fid")
 def greedy_fid(scn: Scenario, scheduler=None, allocator=None,
                delay: DelayModel = None, quality: QualityModel = None,
                **_) -> np.ndarray:
@@ -157,13 +160,14 @@ def greedy_fid(scn: Scenario, scheduler=None, allocator=None,
     return out
 
 
+@register_placement("alternating", aliases=("coord_desc",))
 def alternating(scn: Scenario, scheduler=None, allocator=None,
                 delay: DelayModel = None, quality: QualityModel = None,
                 *, init: str = "least_loaded", sweeps: int = 2,
                 inner_rounds: int = 1, **_) -> np.ndarray:
     """Placement <-> bandwidth coordinate descent.
 
-    Starts from ``init`` (any ``PLACEMENTS`` name), then alternates:
+    Starts from ``init`` (any registered placement), then alternates:
     the bandwidth coordinate is re-optimized per cell by the existing
     ``coordinate`` allocator (pairwise-transfer hill climb with
     ``inner_rounds`` sweeps), and the placement coordinate tries moving
@@ -180,9 +184,9 @@ def alternating(scn: Scenario, scheduler=None, allocator=None,
     """
     _capacities_ok(scn)
     delay = delay if delay is not None else DelayModel()
-    assign = np.asarray(PLACEMENTS[init](
+    assign = np.asarray(get_placement(init)(
         scn, scheduler, allocator, delay, quality)).copy()
-    refine = functools.partial(ALLOCATORS["coordinate"],
+    refine = functools.partial(get_allocator("coordinate"),
                                rounds=inner_rounds)
     cache = _CellCache(scn, scheduler, refine, delay, quality)
     servers = scn.server_list
@@ -216,8 +220,3 @@ def alternating(scn: Scenario, scheduler=None, allocator=None,
             break
     return assign
 
-
-#: placement name -> callable; aliases map to the same object
-PLACEMENTS = {"round_robin": round_robin, "rr": round_robin,
-              "least_loaded": least_loaded, "greedy_fid": greedy_fid,
-              "alternating": alternating, "coord_desc": alternating}

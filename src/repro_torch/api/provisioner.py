@@ -11,9 +11,9 @@ in a ``ProvisionReport``.  Omitting the workload gives the analytic
 pipeline alone.  ``execute="open"``/``"closed"`` drives the plan through
 ``core/execution.py``'s ``ExecutionLoop`` (measure -> refit ->
 replan).  The port of ``repro.api.provisioner.Provisioner``'s static
-path; components are chosen by name from the plain dicts
-``SCHEDULERS`` (``api/schedulers.py``) and ``ALLOCATORS`` below, or
-passed as callables.  ``engine=`` picks the planner engine
+path; components are chosen by name from the registries
+(``api/registry.py``: ``SCHEDULERS``, ``ALLOCATORS``, ``WORKLOADS``),
+or passed as callables.  ``engine=`` picks the planner engine
 (``repro_torch.core.arrays``) for the whole run; ``"torch"`` plans on
 the Provisioner's ``device``.  The shared facade kwargs (``seed=``,
 ``execute=``) come from ``api/base.py``.
@@ -27,14 +27,12 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api.base import BaseProvisioner, display_name, resolve
+from repro_torch.api.base import BaseProvisioner
 from repro_torch.api.execution import execute_plan, with_kwargs
-from repro_torch.api.schedulers import SCHEDULERS
-from repro_torch.api.workloads import (DecodeWorkload, DiffusionWorkload,
-                                       WorkloadOutput)
-from repro_torch.core.bandwidth import (coordinate_refine, equal_allocate,
-                                        inv_se_allocate, make_plan,
-                                        pso_allocate)
+from repro_torch.api.protocols import WorkloadOutput
+from repro_torch.api.registry import (ALLOCATORS, SCHEDULERS, WORKLOADS,
+                                      display_name)
+from repro_torch.core.bandwidth import make_plan
 from repro_torch.core.delay_model import DelayModel, fit
 from repro_torch.core.execution import ExecutionResult
 from repro_torch.core.plan import BatchPlan
@@ -44,38 +42,11 @@ from repro_torch.core.simulator import SimResult, simulate
 from repro_torch.core.torchplan import device_scope
 
 
-def _equal(scn, scheduler=None, delay=None, quality=None, **_):
-    return equal_allocate(scn)
-
-
-def _inv_se(scn, scheduler=None, delay=None, quality=None, **_):
-    return inv_se_allocate(scn)
-
-
-def _pso(scn, scheduler, delay, quality, *, seed: int = 0, **kw):
-    # seed is explicit so a facade's seed= finds it by signature
-    return pso_allocate(scn, scheduler, delay, quality, seed=seed,
-                        **kw).alloc
-
-
-def _coordinate(scn, scheduler, delay, quality, *, init="inv_se", **kw):
-    """Hill-climb refinement of a closed-form split (``init``: an
-    allocator name, default ``inv_se``)."""
-    start = ALLOCATORS[init](scn, scheduler, delay, quality)
-    return coordinate_refine(scn, start, scheduler, delay, quality,
-                             **kw).alloc
-
-
-ALLOCATORS = {"equal": _equal, "inv_se": _inv_se, "pso": _pso,
-              "coordinate": _coordinate}
-WORKLOADS = {"diffusion": DiffusionWorkload, "llm_decode": DecodeWorkload}
-
-
 def make_workload(workload, device):
     """A workload instance: a ``WORKLOADS`` name built on ``device``, or
     the given instance (``None`` for the analytic pipeline)."""
     if isinstance(workload, str):
-        return resolve(WORKLOADS, workload, "workload")(device=device)
+        return WORKLOADS.get(workload)(device=device)
     return workload
 
 
@@ -172,9 +143,18 @@ class Provisioner(BaseProvisioner):
     ``"scalar"``, ``"torch"``; ``None`` = the process default) around
     allocation, planning and every closed-loop replan; the ``"torch"``
     engine runs on ``device``.  ``seed`` reaches a seeded allocator
-    (``pso``) and is the default generator of ``run``."""
+    (``pso``) and is the default generator of ``run``.  The components
+    may still come positionally after the scenario, in ``_LEGACY``'s
+    order: deprecated (``BaseProvisioner``'s shim)."""
 
-    def __init__(self, scenario: Scenario, *, workload=None,
+    _LEGACY = ("workload", "scheduler", "allocator", "delay", "quality",
+               "allocator_kwargs", "engine")
+    _LEGACY_DEFAULTS = {"workload": None, "scheduler": "stacking",
+                        "allocator": "pso", "delay": None,
+                        "quality": None, "allocator_kwargs": None,
+                        "engine": None}
+
+    def __init__(self, scenario: Scenario, *args, workload=None,
                  scheduler="stacking", allocator="pso",
                  delay: Optional[DelayModel] = None,
                  quality: Optional[QualityModel] = None,
@@ -183,13 +163,21 @@ class Provisioner(BaseProvisioner):
                  execute_kwargs: Optional[dict] = None,
                  engine: Optional[str] = None,
                  seed: Optional[int] = None):
+        kw = self._legacy_positionals(args, dict(
+            workload=workload, scheduler=scheduler, allocator=allocator,
+            delay=delay, quality=quality,
+            allocator_kwargs=allocator_kwargs, engine=engine))
+        workload, scheduler, allocator = (kw["workload"], kw["scheduler"],
+                                          kw["allocator"])
+        delay, quality = kw["delay"], kw["quality"]
+        allocator_kwargs, engine = kw["allocator_kwargs"], kw["engine"]
         super().__init__(scenario, engine=engine, device=device,
                          seed=seed, execute=execute,
                          execute_kwargs=execute_kwargs)
         self.scheduler_name = display_name(scheduler)
         self.allocator_name = display_name(allocator)
-        self.scheduler = resolve(SCHEDULERS, scheduler, "scheduler")
-        self.allocator = resolve(ALLOCATORS, allocator, "allocator")
+        self.scheduler = SCHEDULERS.resolve(scheduler)
+        self.allocator = ALLOCATORS.resolve(allocator)
         wl = make_workload(workload, device)
         self.workload = wl
         self.workload_name = getattr(wl, "name", "") if wl else ""

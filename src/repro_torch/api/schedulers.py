@@ -1,9 +1,10 @@
-"""The scheduler table of the port: the paper's Algorithm 1, its
-Sec.-IV baselines, the balanced ``equal_steps`` baseline, the exact
-``optimal`` search for tiny instances, and the offset-native
-``stacking_offset`` (progress-aware replanning,
-``repro_torch.core.offset``) — every name ``repro.api.schedulers``
-registers, its ``*_jax`` entries read as ``*_torch``.
+"""The scheduler registry entries of the port (``SCHEDULERS``,
+``api/registry.py``): the paper's Algorithm 1, its Sec.-IV baselines,
+the balanced ``equal_steps`` baseline, the exact ``optimal`` search
+for tiny instances, and the offset-native ``stacking_offset``
+(progress-aware replanning, ``repro_torch.core.offset``) — every name
+``repro.api.schedulers`` registers, its ``*_jax`` entries read as
+``*_torch``.
 
 All share the ``Scheduler`` signature
 ``(services, tau_prime, delay, quality) -> BatchPlan``;
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 from typing import Dict, Sequence
 
+from repro_torch.api.registry import register_scheduler
 from repro_torch.core import arrays
 from repro_torch.core.baselines import (fixed_size_batching, greedy_batching,
                                         single_instance)
@@ -104,22 +106,20 @@ def equal_steps(services: Sequence[ServiceRequest],
     return best_plan
 
 
-#: scheduler name -> callable; aliases map to the same object
-SCHEDULERS = {
-    "stacking": stacking,
-    "greedy": greedy_batching,
-    "fixed_size": fixed_size_batching,
-    "fixed": fixed_size_batching,
-    "single_instance": single_instance,
-    "single": single_instance,
-    "optimal": optimal_plan,
-    "stacking_offset": stacking_offset,
-    "offset": stacking_offset,
-    "stacking_offset_scalar": StackingOffset("scalar"),
-    "stacking_offset_torch": StackingOffset("torch"),
-    "stacking_scalar": stacking_scalar,
-    "stacking_torch": stacking_torch,
-    "equal_steps": equal_steps,
-}
-SCHEDULERS["offset_scalar"] = SCHEDULERS["stacking_offset_scalar"]
-SCHEDULERS["offset_torch"] = SCHEDULERS["stacking_offset_torch"]
+register_scheduler("stacking", stacking)
+register_scheduler("greedy", greedy_batching)
+register_scheduler("fixed_size", fixed_size_batching, aliases=("fixed",))
+register_scheduler("single_instance", single_instance, aliases=("single",))
+register_scheduler("optimal", optimal_plan)
+# the OffsetScheduler instance: statically identical to `stacking`
+# (zero offsets delegate), offset-native under online replanning
+register_scheduler("stacking_offset", stacking_offset,
+                   aliases=("offset",))
+# engine-pinned entries: the scalar reference loops and the device engine
+register_scheduler("stacking_offset_scalar", StackingOffset("scalar"),
+                   aliases=("offset_scalar",))
+register_scheduler("stacking_offset_torch", StackingOffset("torch"),
+                   aliases=("offset_torch",))
+register_scheduler("stacking_scalar", stacking_scalar)
+register_scheduler("stacking_torch", stacking_torch)
+register_scheduler("equal_steps", equal_steps)

@@ -15,13 +15,14 @@ that needs them.
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.api.protocols import WorkloadOutput
+from repro_torch.api.registry import register_workload
 from repro_torch.config import RunConfig, get_config, smoke_variant
 from repro_torch.configs.ddim_cifar10 import SMOKE
 from repro_torch.core.delay_model import DelayModel, fit
@@ -34,15 +35,7 @@ from repro_torch.models.params import init_params
 from repro_torch.serving.engine import Request, ServingEngine, TokenQuality
 
 
-@dataclasses.dataclass
-class WorkloadOutput:
-    """What executing a plan produced: per-service content and, when
-    timed, per-batch ``(batch_size, seconds)`` readings."""
-    content: Dict[int, Any]
-    timings: List[Tuple[int, float]] = dataclasses.field(
-        default_factory=list)
-
-
+@register_workload("diffusion")
 class DiffusionWorkload:
     """Batch denoising on the DDIM U-Net (the paper's workload).
 
@@ -128,6 +121,7 @@ class DiffusionWorkload:
                                        exec_engine=exec_engine)
 
 
+@register_workload("llm_decode")
 class DecodeWorkload:
     """Deadline-aware autoregressive decoding on the ``ServingEngine``.
 

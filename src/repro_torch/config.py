@@ -1,6 +1,7 @@
 """Model and run configuration for the port's transformer path.
 
-The port's copy of ``repro.config``'s ``ModelConfig``, ``RunConfig`` and
+The port's copy of ``repro.config``'s ``ModelConfig``, ``RunConfig``,
+``ShapeConfig`` with the dry run's four ``SHAPES``, and
 ``smoke_variant`` (that module is jax-free, but the port imports nothing
 of ``repro``).  The dataclasses are copied whole, so a config built here
 is field-for-field the reference's (``dataclasses.asdict`` compares them
@@ -148,6 +149,26 @@ class ModelConfig:
         all_expert = 3 * d * self.d_ff_expert * self.num_experts * L
         active_expert = 3 * d * self.d_ff_expert * self.experts_per_token * L
         return full - all_expert + active_expert
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the dry run's, ``repro_torch.launch.dryrun``)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 # ---------------------------------------------------------------------------

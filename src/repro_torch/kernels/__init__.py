@@ -24,11 +24,92 @@ Kernels ported: groupnorm_silu (diffusion U-Net hot spot), rmsnorm,
 flash_attention (prefill) and decode_attention (flash-decode over the
 KV cache) on the transformer's serving path, and ssd_scan (the Mamba2
 chunk scan) on zamba2's.  That is every TPU kernel of the reference.
+
+On the meta device (shapes and types, no storage: the dry run,
+``repro_torch.launch.dryrun``) a wrapper makes the same checks, runs
+through ``with_grad`` as on the card, and returns its outputs' shapes
+and types with no arithmetic (``meta_call``).  Each ``ops.py`` has a
+``cost(...)``: the function's operations, the bytes it must move
+(each input read once, each output written once) and the rate its
+operations run at on the card, from its inputs' shapes and types
+(``KernelCost``; the card's rates below).
 """
 
 from __future__ import annotations
 
+import contextvars
+import dataclasses
+
 import torch
+
+# NVIDIA H100 SXM, data sheet (dense rates, 700 W power limit): the
+# bounds of the kernels and the dry run's roofline.  TF32 is off on the
+# port's paths, so float32 products run at the float32 rate.
+CARD = "NVIDIA H100 SXM (data sheet)"
+HBM_BYTES = 80 * 2**30             # device memory, 80 GiB (H100 80GB HBM3)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12              # float32 outside tensor cores
+TF32_OPS_PER_S = 495e12            # TF32 tensor cores; flash_attention and
+                                   # ssd_scan keep f32 with 3xTF32
+BF16_OPS_PER_S = 989e12            # bfloat16 tensor cores
+TF32_PER_F32_OP = 3                # precision with 3xTF32: lo*hi + hi*lo
+                                   # + hi*hi per f32 product
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCost:
+    """One call's work: ``flops`` operations of the function,
+    ``bytes`` moved (each input read once, each output written once),
+    and the card's rate for them: ``per_op`` device operations each at
+    ``ops_per_s``."""
+    flops: int
+    bytes: int
+    ops_per_s: float = F32_OPS_PER_S
+    per_op: int = 1
+
+    def times_ms(self):
+        """(bytes at HBM_BYTES_PER_S, operations at their rate), ms."""
+        return (self.bytes / HBM_BYTES_PER_S * 1e3,
+                self.per_op * self.flops / self.ops_per_s * 1e3)
+
+    @property
+    def ms(self) -> float:
+        """The least time the card could take: the larger term."""
+        return max(self.times_ms())
+
+    @property
+    def bound_by(self) -> str:
+        t_bytes, t_ops = self.times_ms()
+        return "bytes" if t_bytes >= t_ops else "operations"
+
+
+def product_rate(*operands, f32=(TF32_OPS_PER_S, TF32_PER_F32_OP)):
+    """(ops_per_s, per_op) of a kernel's products on ``operands``: all
+    bfloat16, one operation each at BF16_OPS_PER_S (bfloat16 tensor
+    cores, the least time the card could take for them); any float32
+    operand, ``f32``, the kernel's float32 rate (3xTF32 by default)."""
+    if all(t.dtype == torch.bfloat16 for t in operands):
+        return BF16_OPS_PER_S, 1
+    return f32
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# The trace counter of the current context (``launch.trace_cost``), or
+# None: it receives the meta branch's kernel calls.
+TRACE = contextvars.ContextVar("repro_torch_kernel_trace", default=None)
+
+
+def meta_call(name: str, cost, make):
+    """The meta branch of kernel ``name``'s wrapper: ``make()`` returns
+    the outputs on the meta device (``torch.empty_like``: no
+    arithmetic).  Under a trace counter the call is recorded as one call
+    of the kernel at ``cost()`` (a ``KernelCost``), and the ops ``make``
+    runs count as its outputs' memory only."""
+    trace = TRACE.get()
+    return make() if trace is None else trace.kernel_call(name, cost, make)
 
 
 def launch(fn, index: int, *args) -> int:

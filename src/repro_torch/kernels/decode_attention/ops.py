@@ -10,7 +10,9 @@ KV head.  q and the cache may differ in
 type (float32 q over a bfloat16 cache is the serving path's default).
 ``launches`` counts wrapper calls that launched the kernels, one per
 call, so a run can show that its path went through them.  There is no
-gradient: under grad mode a CUDA input that needs one raises.
+gradient: under grad mode a CUDA or meta input that needs one raises.
+A meta tensor gets the output's shape and type, no arithmetic
+(``kernels.meta_call``); ``cost`` is a call's work.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, launch
+from repro_torch.kernels import (F32_OPS_PER_S, KernelCost, build, launch,
+                                 meta_call, nbytes, product_rate)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 launches = 0
@@ -82,7 +85,7 @@ def _check(q, k_cache, v_cache, window):
     if k_cache.device != q.device or v_cache.device != q.device:
         raise ValueError("decode_attention: q and caches on different "
                          "devices")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
@@ -110,6 +113,33 @@ def _cur_tensor(cur_len, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(cur_len), dtype=torch.int32, device=device)
 
 
+def cost(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+         cur_len=None, *, window: int = 0) -> KernelCost:
+    """One call's work: q read, o written, the int32 (B,) cur_len read,
+    and of k and v the rows the call reads, sum over rows of min(cur_len,
+    S) (min(cur_len, window) with a window), against 4 D operations per
+    row read and query head: float32 at F32_OPS_PER_S where q or the
+    cache is float32 (the kernel's CUDA cores), bfloat16 q over a
+    bfloat16 cache at BF16_OPS_PER_S (``product_rate``).  Where the host
+    does not know cur_len (None, or a tensor on the meta device) every
+    row is read whole."""
+    B, _, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    if cur_len is None or (isinstance(cur_len, torch.Tensor)
+                           and cur_len.is_meta):
+        valid = B * (min(S, window) if window else S)
+    else:
+        cur = torch.as_tensor(cur_len).expand(B).clamp(max=S)
+        if window:
+            cur = cur.clamp(max=window)
+        valid = int(cur.sum())
+    return KernelCost(4 * D * H * valid,
+                      nbytes(q, q) + 4 * B
+                      + 2 * valid * KV * D * k_cache.element_size(),
+                      *product_rate(q, k_cache, v_cache,
+                                    f32=(F32_OPS_PER_S, 1)))
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_len, *,
                      window: int = 0) -> torch.Tensor:
@@ -130,6 +160,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             "decode_attention: the kernel has no backward (nor has the TPU "
             "kernel it replaces); call it under torch.no_grad() or on "
             "inputs that need no gradient")
+    if q.device.type == "meta":
+        return meta_call("decode_attention",
+                         lambda: cost(q, k_cache, v_cache, cur,
+                                      window=window),
+                         lambda: torch.empty_like(q))
     S, KV = k_cache.shape[1], k_cache.shape[2]
     qp, kp, vp = q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()
     if (qp | kp | vp) % 16:

@@ -9,7 +9,8 @@ backward the plain version's autograd recomputed from the saved inputs
 (``flash_attention_backward``), since the TPU kernel has no backward to
 port.
 ``launches`` counts kernel launches, so a run can show that its path
-went through the kernel.
+went through the kernel.  A meta tensor gets the output's shape and
+type, no arithmetic (``kernels.meta_call``); ``cost`` is a call's work.
 """
 
 from __future__ import annotations
@@ -18,9 +19,12 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build, launch, plain_backward, with_grad
+from repro_torch.kernels import (KernelCost, build, launch, meta_call,
+                                 nbytes, plain_backward, product_rate,
+                                 with_grad)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
@@ -66,7 +70,7 @@ def _check(q, k, v, causal, window, q_offset):
                         f"{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v on different devices")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
@@ -76,6 +80,37 @@ def _check(q, k, v, causal, window, q_offset):
     if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
         raise ValueError(f"flash_attention: B={B} or H={H} over the grid "
                          f"limit {_MAX_GRID_YZ}")
+
+
+def pairs(Sq: int, Skv: int, causal: bool = True, window: int = 0,
+          q_offset=None) -> int:
+    """The (query, key) pairs the mask leaves: query i at key position
+    i + q_offset (default Skv - Sq) sees key j where j <= its position
+    (``causal``) and its position - j < ``window`` (when set)."""
+    if not (causal or window):
+        return Sq * Skv
+    pos = np.arange(Sq, dtype=np.int64) + (Skv - Sq if q_offset is None
+                                           else q_offset)
+    hi = np.minimum(pos, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: int = 0, q_offset=None) -> KernelCost:
+    """One call's work: q, k, v read and o (q's shape and type) written
+    once, against 4 D operations (q.k and p.v) per (query, key) pair the
+    mask leaves (``pairs``) and head, at the rate of q's type
+    (``product_rate``): float32 as TF32_PER_F32_OP tensor-core
+    operations at TF32_OPS_PER_S (3xTF32), bfloat16 one operation at
+    BF16_OPS_PER_S.  The kernel runs a bfloat16 call on TF32 tensor
+    cores (hi*hi for q.k, two products for p.v: 1.5 per operation at
+    TF32_OPS_PER_S), so its own floor is 3x this bound's operations
+    term."""
+    B, Sq, H, D = q.shape
+    n = pairs(Sq, k.shape[1], causal, window, q_offset)
+    return KernelCost(4 * D * n * B * H, nbytes(q, q, k, v),
+                      *product_rate(q, k, v))
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
@@ -102,8 +137,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
-    return with_grad(_launch, attention_ref, (q, k, v), causal=causal,
+    return with_grad(_launch if q.device.type == "cuda" else _meta,
+                     attention_ref, (q, k, v), causal=causal,
                      window=window, q_offset=q_offset)
+
+
+def _meta(q, k, v, causal, window, q_offset=None):
+    return meta_call("flash_attention",
+                     lambda: cost(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset),
+                     lambda: torch.empty_like(q))
 
 
 def _launch(q, k, v, causal, window, q_offset=None):

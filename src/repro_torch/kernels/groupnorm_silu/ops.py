@@ -3,8 +3,10 @@
 A CPU tensor goes to the plain version (``ref.groupnorm_silu_ref``); a
 CUDA tensor launches the kernel of ``csrc/groupnorm_silu.cu`` or raises.
 ``launches`` counts kernel launches, so a run can show that its path went
-through the kernel.  There is no gradient: under grad mode a CUDA input
-that needs one raises.  ``plan`` chooses the kernel's tiling for a shape: a
+through the kernel.  There is no gradient: under grad mode a CUDA or
+meta input that needs one raises.  A meta tensor gets the output's
+shape and type, no arithmetic (``kernels.meta_call``); ``cost`` is a
+call's work.  ``plan`` chooses the kernel's tiling for a shape: a
 plain function of the shape, so that it can be checked without a card.
 """
 
@@ -17,13 +19,14 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, launch
+from repro_torch.kernels import KernelCost, build, launch, meta_call, nbytes
 from repro_torch.kernels.groupnorm_silu.ref import (groupnorm_silu_ref,
                                                     num_groups_for)
 
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+OPS_PER_ELEMENT = 12       # mean 1, variance 3, normalize 4, SiLU 4
 
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 ROW_BYTES = (128, 64, 32)  # a slab's row per pixel: the widest that fills
@@ -117,7 +120,7 @@ def _entry():
 
 
 def _check(x, scale, bias, num_groups):
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"groupnorm_silu: x must be float32 or bfloat16, "
@@ -141,6 +144,14 @@ def _check(x, scale, bias, num_groups):
     return num_groups_for(C, num_groups)      # divides C by construction
 
 
+def cost(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+         num_groups: int) -> KernelCost:
+    """One call's work: x, scale and bias read, y written once;
+    OPS_PER_ELEMENT f32 operations an element of x."""
+    return KernelCost(OPS_PER_ELEMENT * x.numel(),
+                      nbytes(x, x, scale, bias))
+
+
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    num_groups: int, eps: float = 1e-6) -> torch.Tensor:
     """SiLU(GroupNorm(x) * scale + bias) with G = the largest divisor of
@@ -155,6 +166,10 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             "groupnorm_silu: the kernel has no backward (nor has the TPU "
             "kernel it replaces); call it under torch.no_grad() or on "
             "inputs that need no gradient")
+    if x.device.type == "meta":
+        return meta_call("groupnorm_silu",
+                         lambda: cost(x, scale, bias, num_groups),
+                         lambda: torch.empty_like(x))
     B, H, W, C = x.shape
     y = torch.empty_like(x)
     if x.numel() == 0:

@@ -7,9 +7,10 @@ mode, when x or scale needs a gradient, the launch goes through
 plain version's autograd recomputed from the saved inputs
 (``rmsnorm_backward``), since the TPU kernel has no backward to port.
 ``launches`` counts kernel launches, so a run can show that its path
-went through the kernel.  ``plan`` chooses the kernel's block for a row
-width: a plain function of the width, so that it can be checked without
-a card.
+went through the kernel.  A meta tensor gets the output's shape and
+type, no arithmetic (``kernels.meta_call``); ``cost`` is a call's work.
+``plan`` chooses the kernel's block for a row width: a plain function of
+the width, so that it can be checked without a card.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, launch, plain_backward, with_grad
+from repro_torch.kernels import (KernelCost, build, launch, meta_call,
+                                 nbytes, plain_backward, with_grad)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 launches = 0
+OPS_PER_ELEMENT = 4         # x*x+acc, /d+eps (per row), *rsqrt, *w
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS = 2 ** 31 - 1
@@ -94,10 +97,10 @@ def _entry():
     return fn
 
 
-def _check(x, scale) -> bool:
-    """Raises on what the kernel does not take; True where x and scale
-    are on one CUDA device (the common case is tested first, with no
-    ``torch.device`` built)."""
+def _check(x, scale) -> str:
+    """Raises on what the kernel does not take; returns where x and
+    scale are: "cuda" (one CUDA device: the common case, tested first,
+    with no ``torch.device`` built), "cpu" or "meta"."""
     if x.dtype not in _DTYPES or scale.dtype not in _DTYPES:
         raise TypeError(f"rmsnorm: x and scale must be float32 or bfloat16, "
                         f"got {x.dtype} and {scale.dtype}")
@@ -110,11 +113,17 @@ def _check(x, scale) -> bool:
         if scale.device != x.device:
             raise ValueError(f"rmsnorm: scale on {scale.device}, x on "
                              f"{x.device}")
-        if x.device.type != "cpu":
+        if x.device.type not in ("cpu", "meta"):
             raise ValueError(f"rmsnorm: unsupported device {x.device}")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm: x and scale must be contiguous")
-    return on_card
+    return "cuda" if on_card else x.device.type
+
+
+def cost(x: torch.Tensor, scale: torch.Tensor) -> KernelCost:
+    """One call's work: x and scale read, y written once;
+    OPS_PER_ELEMENT f32 operations an element of x."""
+    return KernelCost(OPS_PER_ELEMENT * x.numel(), nbytes(x, x, scale))
 
 
 def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor,
@@ -128,9 +137,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2, -1) + eps) * scale`` with float32 statistics;
     output in x's type.  x: (..., d), scale: (d,)."""
-    if not _check(x, scale):
+    where = _check(x, scale)
+    if where == "cpu":
         return rmsnorm_ref(x, scale, eps)
-    return with_grad(_launch, rmsnorm_ref, (x, scale), eps=eps)
+    return with_grad(_launch if where == "cuda" else _meta, rmsnorm_ref,
+                     (x, scale), eps=eps)
+
+
+def _meta(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    return meta_call("rmsnorm", lambda: cost(x, scale),
+                     lambda: torch.empty_like(x))
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float):

@@ -9,7 +9,8 @@ Under grad mode, when an input needs a gradient, the launch goes through
 version's autograd recomputed from the saved inputs
 (``ssd_scan_backward``), since the TPU kernel has no backward to port.
 ``launches`` counts kernel launches, so a run can show that its path
-went through the kernel.
+went through the kernel.  A meta tensor gets the outputs' shapes and
+types, no arithmetic (``kernels.meta_call``); ``cost`` is a call's work.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, launch, plain_backward, with_grad
+from repro_torch.kernels import (TF32_OPS_PER_S, TF32_PER_F32_OP,
+                                 KernelCost, build, launch, meta_call,
+                                 nbytes, plain_backward, with_grad)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 launches = 0
@@ -68,10 +71,32 @@ def _check(x, a, bmat, cmat, h0, chunk):
         raise TypeError(f"ssd_scan: h0 must be float32, got {h0.dtype}")
     if any(t.device != x.device for t in (a, bmat, cmat, h0)):
         raise ValueError("ssd_scan: inputs on different devices")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     if not all(t.is_contiguous() for t in (x, a, bmat, cmat, h0)):
         raise ValueError("ssd_scan: inputs must be contiguous")
+
+
+def cost(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+         cmat: torch.Tensor, h0: torch.Tensor, *,
+         chunk: int = 128) -> KernelCost:
+    """One call's work, chunks of Q = min(chunk, S): x, a, B, C and h0
+    read, y and h_final written once, against the f32 operations, each
+    TF32_PER_F32_OP tensor-core operations at TF32_OPS_PER_S (all four
+    products run on 3xTF32; h0 and the state are float32 at every x
+    type, so the products keep float32 precision).  Per (b, h) and chunk: 2QPN for C h^T and
+    2QPN for the state update; per causal (q, k) pair a decay multiply
+    and 2P for the product with x.  The scores C B^T are the same for
+    every head, so the function needs their 2N per pair once per batch
+    row."""
+    B, S, H, P = x.shape
+    N = bmat.shape[-1]
+    Q = min(chunk, S)
+    pairs = B * (S // Q) * Q * (Q + 1) // 2
+    flops = (B * H * (S // Q) * 4 * Q * P * N + (2 * P + 1) * H * pairs
+             + 2 * N * pairs)
+    return KernelCost(flops, nbytes(x, x, bmat, cmat, h0, h0, a),
+                      TF32_OPS_PER_S, TF32_PER_F32_OP)
 
 
 def ssd_scan_backward(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
@@ -92,8 +117,14 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     _check(x, a, bmat, cmat, h0, chunk)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, a, bmat, cmat, h0, chunk=chunk)
-    return with_grad(_launch, ssd_scan_ref, (x, a, bmat, cmat, h0),
-                     chunk=chunk)
+    return with_grad(_launch if x.device.type == "cuda" else _meta,
+                     ssd_scan_ref, (x, a, bmat, cmat, h0), chunk=chunk)
+
+
+def _meta(x, a, bmat, cmat, h0, chunk):
+    return meta_call("ssd_scan",
+                     lambda: cost(x, a, bmat, cmat, h0, chunk=chunk),
+                     lambda: (torch.empty_like(x), torch.empty_like(h0)))
 
 
 def _launch(x, a, bmat, cmat, h0, chunk):

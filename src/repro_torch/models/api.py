@@ -6,16 +6,18 @@ hybrid Mamba2 + shared-attention model (zamba2), whisper (audio) and
 xLSTM (ssm).  Each model module exposes ``schema``, ``forward``,
 ``prefill``, ``decode_step`` and ``init_cache``.  ``make_train_step``
 builds the training loss (the reference's name for it: it returns the
-loss function, not a step).
+loss function, not a step).  ``input_specs`` and ``abstract_model``
+give a step's inputs and params on the meta device, for the dry run
+(``repro_torch.launch.dryrun``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.config import ModelConfig, RunConfig
+from repro_torch.config import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import transformer, whisper, xlstm_model, zamba2
-from repro_torch.models.params import init_params
+from repro_torch.models.params import init_params, map_schema
 
 
 def get_model(cfg: ModelConfig):
@@ -49,6 +51,35 @@ def extra_input_specs(cfg: ModelConfig, batch: int, abstract: bool = True,
             (batch, cfg.num_vision_tokens, cfg.d_model), 0.02, dtype=dtype,
             device=device)
     return extras or None
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, run: RunConfig,
+                abstract: bool = True, device="cuda"):
+    """Every model input of one step at ``shape``, as the reference's:
+    train {tokens, labels}, prefill {tokens}, decode {token (B, 1),
+    cache (seq_len rows, from ``init_cache``)}, each with the family's
+    ``extras``.  Tokens are int32.  On the meta device (shapes and
+    types, no storage) when ``abstract``, else zeros on ``device``."""
+    B, S = shape.global_batch, shape.seq_len
+    device = "meta" if abstract else device
+
+    def tokens(shp):
+        return torch.zeros(shp, dtype=torch.int32, device=device)
+
+    specs = {}
+    if shape.kind == "train":
+        specs["tokens"] = tokens((B, S))
+        specs["labels"] = tokens((B, S))
+    elif shape.kind == "prefill":
+        specs["tokens"] = tokens((B, S))
+    else:              # decode: ONE new token against a seq_len cache
+        specs["token"] = tokens((B, 1))
+        specs["cache"] = get_model(cfg).init_cache(cfg, B, S, run,
+                                                   device=device)
+    extras = extra_input_specs(cfg, B, abstract=abstract, device=device)
+    if extras:
+        specs["extras"] = extras
+    return specs
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig):
@@ -94,3 +125,12 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device,
     (on the generator's device).  Float32 by default, as the
     reference's ``init_model``."""
     return init_params(get_model(cfg).schema(cfg), generator, device, dtype)
+
+
+def abstract_model(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
+    """Params of ``cfg`` on the meta device: every leaf's shape in
+    ``dtype`` (bfloat16 by default, as the reference's) and no
+    storage."""
+    return map_schema(
+        lambda p, _path: torch.empty(p.shape, dtype=dtype, device="meta"),
+        get_model(cfg).schema(cfg))

@@ -161,7 +161,11 @@ def _slstm_cell(cfg, p, xt, carry):
     hh = h.reshape(B, H, d // H)
 
     def rec(g):
-        return torch.einsum("bhx,hxy->bhy", hh, p[f"r{g}"]).reshape(B, d)
+        # jnp.einsum promotes: the f32 carry meets bf16 weights in f32
+        r = p[f"r{g}"]
+        dt = torch.promote_types(hh.dtype, r.dtype)
+        return torch.einsum("bhx,hxy->bhy", hh.to(dt), r.to(dt)).reshape(
+            B, d)
 
     it = xt["i"] + rec("i")
     ft = xt["f"] + rec("f")

@@ -105,16 +105,16 @@ class ServingEngine:
                  max_len: int, delay: Optional[DelayModel] = None,
                  quality: Optional[QualityModel] = None,
                  extras=None, scheduler="stacking", device="cuda"):
-        # lazy import: api.provisioner -> api.workloads -> serving
-        from repro_torch.api.base import resolve
-        from repro_torch.api.provisioner import SCHEDULERS
+        # lazy import: repro_torch.api (which registers the schedulers)
+        # -> api.workloads -> serving
+        from repro_torch.api.registry import SCHEDULERS
         self.cfg, self.run = cfg, run
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.max_len = max_len
         self.delay = delay or DelayModel(a=0.002, b=0.02)
         self.quality = quality or TokenQuality()
-        self.scheduler = resolve(SCHEDULERS, scheduler, "scheduler")
+        self.scheduler = SCHEDULERS.resolve(scheduler)
         self.extras = None if extras is None \
             else _to_device(extras, self.device)
         self.requests: Dict[int, Request] = {}

@@ -214,7 +214,7 @@ class TestExecutionLoop:
                 (js, jd, jex.ExecutionLoop, jex.SimulatedSession,
                  jax_stacking, lambda s, *_: jax_inv_se(s)),
                 (ps, pd, pex.ExecutionLoop, pex.SimulatedSession,
-                 stacking, ALLOCATORS["inv_se"])):
+                 stacking, ALLOCATORS.get("inv_se"))):
             scn = pkg.make_scenario(**kw)
             rep = (JaxProvisioner if pkg is js else Provisioner)(
                 scn, allocator="inv_se",
@@ -257,7 +257,7 @@ class TestExecutionLoop:
 
             def online():
                 return pon.simulate_online(scn, stacking,
-                                           ALLOCATORS["inv_se"],
+                                           ALLOCATORS.get("inv_se"),
                                            engine=engine)
             if engine == "jax":
                 with pytest.raises(ValueError, match="planner engine"):
@@ -297,10 +297,11 @@ class TestExecuteReport:
         _same_execution(r, g)
 
     def test_executor_table(self):
-        assert set(EXECUTORS) == {"diffusion", "llm_decode", "simulated"}
+        assert set(EXECUTORS.names()) == {"diffusion", "llm_decode",
+                                          "simulated"}
         scn = ps.make_scenario(K=3, seed=0)
         rep = Provisioner(scn, allocator="inv_se").run(execute=False)
-        with pytest.raises(ValueError, match="unknown executor"):
+        with pytest.raises(KeyError, match="unknown executor"):
             execute_plan(scn, rep.plan, rep.allocation, executor="gpu")
         with pytest.raises(ValueError, match="no executor"):
             execute_plan(scn, rep.plan, rep.allocation)
@@ -330,7 +331,7 @@ def _online(pkg, scn_kw, allocator, admission):
         return jon.simulate_online(scn, sched, alloc, dm(*TRUE), q,
                                    admission)
     scn = ps.make_scenario(**scn_kw)
-    alloc = ALLOCATORS[allocator]
+    alloc = ALLOCATORS.get(allocator)
     if allocator == "pso":
         alloc = with_kwargs(alloc, dict(num_particles=4, iters=2, seed=1))
     return pon.simulate_online(scn, stacking, alloc, pd.DelayModel(*TRUE),

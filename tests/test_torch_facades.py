@@ -65,16 +65,17 @@ def _reference(fn, *args, **kw):
 
 class TestAdmissionRegistry:
     def test_names_match_reference(self):
-        assert sorted(P.ADMISSIONS) == R.list_admissions()
-        assert P.ADMISSIONS["feasible"] is P.ADMISSIONS["deadline_feasible"]
-        assert P.ADMISSIONS["all"] is P.ADMISSIONS["admit_all"]
-        assert sorted(P.PLACEMENTS) == R.list_placements()
-        assert sorted(P.ARRIVALS) == R.list_arrivals()
-        assert sorted(P.ALLOCATORS) == R.list_allocators()
-        assert sorted(P.WORKLOADS) == R.list_workloads()
+        assert P.ADMISSIONS.names() == R.list_admissions()
+        assert P.ADMISSIONS.get("feasible") is \
+            P.ADMISSIONS.get("deadline_feasible")
+        assert P.ADMISSIONS.get("all") is P.ADMISSIONS.get("admit_all")
+        assert P.PLACEMENTS.names() == R.list_placements()
+        assert P.ARRIVALS.names() == R.list_arrivals()
+        assert P.ALLOCATORS.names() == R.list_allocators()
+        assert P.WORKLOADS.names() == R.list_workloads()
 
     def test_unknown_name_raises_with_candidates(self):
-        with pytest.raises(ValueError, match="unknown admission"):
+        with pytest.raises(KeyError, match="unknown admission"):
             P.OnlineProvisioner(ps.make_scenario(K=2), admission="bouncer")
 
 
@@ -104,7 +105,7 @@ class TestAdmissionPolicies:
         assert got.result.executed_batches == ref.result.executed_batches
         assert got.to_dict() == ref.to_dict()
         assert got.summary() == ref.summary()
-        policy = P.ADMISSIONS[admission]
+        policy = P.ADMISSIONS.get(admission)
         for d in got.result.decisions:
             assert d.admitted == policy(None, d.projected, {},
                                         **(akw or {}))

@@ -91,7 +91,7 @@ class TestMultiserverEquivalence:
         assert len(scn.services) > 30
         cell_of = {s.id: assignment[i] for i, s in enumerate(scn.services)}
         multi = simulate_online_multi(
-            scn, stacking, ALLOCATORS[alloc],
+            scn, stacking, ALLOCATORS.get(alloc),
             placement=lambda svc, sim: cell_of[svc.id], engine="vec")
         assert abs(got.mean_fid - multi.mean_fid) < TOL
         assert abs(got.outage_rate - multi.outage_rate) < 1e-12
@@ -367,8 +367,8 @@ class TestApiFacade:
     def test_arrivals_table(self):
         for name in ("poisson", "diurnal", "flash_crowd", "trace"):
             assert name in ARRIVALS
-        assert ARRIVALS["poisson"] is pt.PoissonProcess
-        with pytest.raises(ValueError, match="unknown arrival"):
+        assert ARRIVALS.get("poisson") is pt.PoissonProcess
+        with pytest.raises(KeyError, match="unknown arrival"):
             make_fleet_scenario(2, 5.0, arrival="teleport")
 
     @pytest.mark.parametrize("kw", [

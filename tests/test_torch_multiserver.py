@@ -163,14 +163,15 @@ class TestSingleServerEquivalence:
         scn = ps.make_scenario(K=8, arrival_rate=0.5, seed=3)
         single = OnlineProvisioner(scn, scheduler="stacking",
                                    allocator="inv_se").run()
-        multi = pm.simulate_online_multi(scn, stacking, ALLOCATORS["inv_se"],
+        multi = pm.simulate_online_multi(scn, stacking,
+                                         ALLOCATORS.get("inv_se"),
                                          DELAY, QUALITY)
         assert multi.result.outcomes == single.result.outcomes
         assert multi.assignment == {o.id: 0
                                     for o in single.result.outcomes}
         static = ps.make_scenario(K=8, seed=6)
         assert pm.simulate_online_multi(
-            static, stacking, ALLOCATORS["inv_se"], DELAY,
+            static, stacking, ALLOCATORS.get("inv_se"), DELAY,
             QUALITY).result.outcomes == Provisioner(
                 static, scheduler="stacking",
                 allocator="inv_se").run().sim.outcomes
@@ -191,8 +192,8 @@ class TestPlacements:
         for name in ("round_robin", "least_loaded", "greedy_fid",
                      "alternating", "rr", "coord_desc"):
             assert name in PLACEMENTS
-        assert PLACEMENTS["rr"] is PLACEMENTS["round_robin"]
-        with pytest.raises(ValueError, match="unknown placement"):
+        assert PLACEMENTS.get("rr") is PLACEMENTS.get("round_robin")
+        with pytest.raises(KeyError, match="unknown placement"):
             MultiServerProvisioner(ps.make_scenario(K=2), placement="x")
 
     @pytest.mark.parametrize("name,kw", PLACE_CASES,
@@ -203,8 +204,8 @@ class TestPlacements:
         ref = jax_placement(name)(ref_scn, jax_stacking,
                                   jax_allocator("inv_se"), JaxDelay(),
                                   JaxFID())
-        got = PLACEMENTS[name](scn, stacking, ALLOCATORS["inv_se"], DELAY,
-                               QUALITY)
+        got = PLACEMENTS.get(name)(scn, stacking, ALLOCATORS.get("inv_se"),
+                                   DELAY, QUALITY)
         assert list(got) == list(ref)
         counts = np.bincount(np.asarray(got), minlength=scn.n_servers)
         for m, sv in enumerate(scn.server_list):
@@ -216,18 +217,18 @@ class TestPlacements:
                                         spectral_eff=7.0) for k in range(4)],
             servers=[ps.EdgeServer(id=0, bandwidth_hz=2e4, speed=1.0),
                      ps.EdgeServer(id=1, bandwidth_hz=2e4, speed=3.0)])
-        assert list(PLACEMENTS["least_loaded"](scn)).count(1) == 3
+        assert list(PLACEMENTS.get("least_loaded")(scn)).count(1) == 3
 
     def test_insufficient_capacity_raises(self):
         scn = ps.make_scenario(K=6, n_servers=2, server_capacity=2, seed=0)
         with pytest.raises(ValueError, match="capacities"):
-            PLACEMENTS["round_robin"](scn)
+            PLACEMENTS.get("round_robin")(scn)
 
     def test_greedy_fid_no_worse_than_round_robin(self):
         scn = ps.make_scenario(**HETERO)
-        alloc = ALLOCATORS["inv_se"]
+        alloc = ALLOCATORS.get("inv_se")
         fids = {p: pm.provision_multi(
-            scn, PLACEMENTS[p](scn, stacking, alloc, DELAY, QUALITY),
+            scn, PLACEMENTS.get(p)(scn, stacking, alloc, DELAY, QUALITY),
             stacking, alloc, DELAY, QUALITY).mean_fid
             for p in ("round_robin", "greedy_fid")}
         assert fids["greedy_fid"] <= fids["round_robin"] + TOL
@@ -266,7 +267,7 @@ class TestMultiProvisionReport:
         for K in (0, 5):
             ref_scn, scn = _pair(K=K, seed=1)
             assert pm.cell_objective(
-                scn, SCHEDULERS["greedy"], ALLOCATORS["equal"], DELAY,
+                scn, SCHEDULERS.get("greedy"), ALLOCATORS.get("equal"), DELAY,
                 QUALITY) == jm.cell_objective(
                     ref_scn, jax_scheduler("greedy"),
                     jax_allocator("equal"), JaxDelay(), JaxFID())
@@ -281,7 +282,7 @@ def _online_pair(kw, allocator="inv_se", placement=None, handoff=False):
         JaxFID(), placement=getattr(jm, placement) if placement else None,
         handoff=handoff)
     got = pm.simulate_online_multi(
-        scn, stacking, ALLOCATORS[allocator], DELAY, QUALITY,
+        scn, stacking, ALLOCATORS.get(allocator), DELAY, QUALITY,
         placement=getattr(pm, placement) if placement else None,
         handoff=handoff)
     return ref, got
@@ -327,7 +328,8 @@ class TestMultiOnline:
         scn = ps.make_scenario(K=4, n_servers=2, server_capacity=1,
                                arrival_rate=1.0, seed=2)
         res = pm.MultiOnlineSimulation(
-            scn, SCHEDULERS["greedy"], ALLOCATORS["equal"], DELAY, QUALITY,
+            scn, SCHEDULERS.get("greedy"), ALLOCATORS.get("equal"), DELAY,
+            QUALITY,
             admission=lambda *a: True, placement=lambda svc, s: 0).run()
         assert list(res.assignment.values()) == [0]
         assert res.reject_rate == pytest.approx(0.75)
@@ -348,7 +350,7 @@ class TestMultiOnline:
         scn = ps.make_scenario(K=12, n_servers=2, tau_min=1.0, tau_max=3.0,
                                arrival_rate=4.0, seed=0,
                                content_bits_range=(65536.0, 262144.0))
-        sim = pm.MultiOnlineSimulation(scn, stacking, ALLOCATORS["inv_se"],
+        sim = pm.MultiOnlineSimulation(scn, stacking, ALLOCATORS.get("inv_se"),
                                        DELAY, QUALITY,
                                        admission=lambda *a: True)
         res = sim.run()

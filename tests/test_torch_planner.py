@@ -272,15 +272,15 @@ class TestEngines:
         assert out.returncode == 0, out.stderr
         want = {n.replace("_jax", "_torch")
                 for n in json.loads(out.stdout)}
-        assert set(SCHEDULERS) == want
+        assert set(SCHEDULERS.names()) == want
         for name, alias in (("fixed_size", "fixed"),
                             ("single_instance", "single"),
                             ("stacking_offset", "offset"),
                             ("stacking_offset_scalar", "offset_scalar"),
                             ("stacking_offset_torch", "offset_torch")):
-            assert SCHEDULERS[name] is SCHEDULERS[alias]
-        assert SCHEDULERS["stacking_offset_torch"].engine == "torch"
-        assert SCHEDULERS["stacking_offset"] is offset.stacking_offset
+            assert SCHEDULERS.get(name) is SCHEDULERS.get(alias)
+        assert SCHEDULERS.get("stacking_offset_torch").engine == "torch"
+        assert SCHEDULERS.get("stacking_offset") is offset.stacking_offset
 
     @pytest.mark.parametrize("name", ["greedy", "fixed_size",
                                       "single_instance", "optimal",
@@ -331,9 +331,9 @@ class TestTorchEngine:
         scn = psvc.make_scenario(K=10, tau_min=2.0, tau_max=6.0, seed=1)
         tp = {s.id: s.deadline * 0.4 for s in scn.services}
         ids = [s.id for s in scn.services]
-        assert abs(mean_fid(SCHEDULERS["stacking"](scn.services, tp, DELAY,
+        assert abs(mean_fid(SCHEDULERS.get("stacking")(scn.services, tp, DELAY,
                                                    QUALITY), ids)
-                   - mean_fid(SCHEDULERS["stacking_torch"](
+                   - mean_fid(SCHEDULERS.get("stacking_torch")(
                        scn.services, tp, DELAY, QUALITY), ids)) < TOL
 
     def test_custom_quality_scores_on_the_host(self):
@@ -452,13 +452,13 @@ class TestTorchEngine:
 
     @pytest.mark.parametrize("name", ["stacking", "stacking_offset"])
     def test_simulate_online(self, name):
-        sched = SCHEDULERS[name]
+        sched = SCHEDULERS.get(name)
         for seed in range(2):
             scn = psvc.make_scenario(K=9, tau_min=3.0, tau_max=8.0,
                                      arrival_rate=1.0, seed=seed)
-            rv = simulate_online(scn, sched, ALLOCATORS["inv_se"],
+            rv = simulate_online(scn, sched, ALLOCATORS.get("inv_se"),
                                  engine="vec")
-            rt = simulate_online(scn, sched, ALLOCATORS["inv_se"],
+            rt = simulate_online(scn, sched, ALLOCATORS.get("inv_se"),
                                  engine="torch")
             assert abs(rv.mean_fid - rt.mean_fid) < TOL
 
@@ -496,7 +496,7 @@ def test_torch_engine_needs_a_card_or_a_cpu_request():
                     engine="torch").run()
     with pytest.raises(RuntimeError, match="cuda"):
         simulate_online(psvc.make_scenario(K=3, seed=0), pstacking.stacking,
-                        ALLOCATORS["inv_se"], engine="torch")
+                        ALLOCATORS.get("inv_se"), engine="torch")
     with device_scope("cpu"):
         res = torchplan.plan_many(np.ones((2, 3)), delay=DELAY,
                                   quality=QUALITY)

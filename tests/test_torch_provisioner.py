@@ -87,9 +87,10 @@ def test_calibrate_fits_a_delay_model():
 
 
 def test_unknown_component_names_raise():
-    with pytest.raises(ValueError):
+    """The registries' KeyError, as the reference's (``Registry.get``)."""
+    with pytest.raises(KeyError, match="unknown scheduler 'greedy_jax'"):
         Provisioner(make_scenario(K=2), scheduler="greedy_jax")
-    with pytest.raises(ValueError):
+    with pytest.raises(KeyError, match="unknown allocator 'nope'"):
         Provisioner(make_scenario(K=2), allocator="nope")
 
 

@@ -115,8 +115,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ops.ssd_scan(x, a, b, c, h0, chunk=48)
     with pytest.raises(AssertionError):
         ssm.ssd_chunked(x, a, b, c, h0, chunk=48)
-    with pytest.raises(ValueError, match="device"):
-        ops.ssd_scan(*(v.to("meta") for v in (x, a, b, c, h0)))
+    # all-meta inputs: the plain version's output shapes and types, no
+    # arithmetic (the dry run's meta branch)
+    ym, hm = ops.ssd_scan(*(v.to("meta") for v in (x, a, b, c, h0)))
+    yp, hp = ssd_scan_ref(x, a, b, c, h0)
+    assert (ym.is_meta, ym.shape, ym.dtype) == (True, yp.shape, yp.dtype)
+    assert (hm.is_meta, hm.shape, hm.dtype) == (True, hp.shape, hp.dtype)
     with pytest.raises(ValueError, match="different devices"):
         ops.ssd_scan(x, a, b, c, h0.to("meta"))
     with pytest.raises(TypeError, match="h0"):

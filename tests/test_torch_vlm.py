@@ -53,7 +53,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api, layers, transformer  # noqa: E402
-from repro_torch.models.params import map_schema, params_from_numpy  # noqa: E402
+from repro_torch.models.params import params_from_numpy  # noqa: E402
 from repro_torch.serving.engine import ServingEngine, TokenQuality  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -359,11 +359,11 @@ def test_schema_and_cache_shapes_at_full_width():
     abstract param and cache shapes, and the engine's batch axes."""
     cfg = dataclasses.replace(VLM, num_layers=10)
     jcfg = dataclasses.replace(JAX_VLM, num_layers=10)
-    params = map_schema(lambda p, _: torch.empty(p.shape, device="meta"),
-                        transformer.schema(cfg))
-    assert jax.tree_util.tree_map(lambda t: tuple(t.shape), params) == \
-        jax.tree_util.tree_map(lambda a: a.shape,
-                               jax_api.abstract_model(jcfg))
+    params = api.abstract_model(cfg)
+    assert jax.tree_util.tree_map(
+        lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+        params) == jax.tree_util.tree_map(
+        lambda a: (a.shape, str(a.dtype)), jax_api.abstract_model(jcfg))
     cache = transformer.init_cache(cfg, 8, 512, RunConfig(), device="meta")
     jcache = jax_api.get_model(jcfg).init_cache(jcfg, 8, 512, JaxRun(),
                                                 abstract=True)

@@ -381,3 +381,78 @@ def test_model_api_maps_ssm_to_xlstm_and_raises_under_grad():
     for knob in ("fsdp", "shard_kv_seq"):
         with pytest.raises(NotImplementedError, match=f"{knob}.*item 9"):
             xlstm_model.forward(m.cfg, params, t, RunConfig(**{knob: True}))
+
+
+# -- bfloat16 params ----------------------------------------------------------
+
+BF16_TOL = 2e-2       # tests/test_kernels.py's bfloat16 tolerance, taken
+                      # relative to the largest |logit|
+
+
+def _bf16_params():
+    """The reference's init in bfloat16, and the same values as the
+    port's bfloat16 params (``params_from_numpy``)."""
+    m = _model()
+    jp = jax_api.init_model(m.jcfg, jax.random.PRNGKey(0), jnp.bfloat16)
+    tree = jax.tree_util.tree_map(np.asarray, jp)
+    return m, jp, params_from_numpy(xlstm_model.schema(m.cfg), tree, "cpu",
+                                    dtype=torch.bfloat16)
+
+
+def test_prefill_and_decode_on_bf16_params_match_reference():
+    """Prefill and STEPS greedy decode steps on bfloat16 params (the dry
+    run's type): the sLSTM's float32 carry meets the bfloat16 recurrent
+    weights in float32, as jnp.einsum promotes.  Logits within BF16_TOL
+    of the largest |logit|; each step is fed the reference's token, and
+    the port's token equals it wherever the reference's top-2 margin
+    exceeds that tolerance."""
+    m, jp, params = _bf16_params()
+    run, jrun = RunConfig(), JaxRun()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_FORCE_PALLAS", "1")
+        jl, jc = jax_api.make_prefill_step(m.jcfg, jrun, MAX_LEN)(
+            jp, jnp.asarray(m.toks))
+        jstep = jax_api.make_decode_step(m.jcfg, jrun)
+        t = torch.tensor(m.toks, dtype=torch.int64)
+        pl, c = api.make_prefill_step(m.cfg, run, MAX_LEN)(params, t)
+        assert pl.dtype == torch.bfloat16
+        _close(pl, jl, BF16_TOL, scaled=True)
+        step = api.make_decode_step(m.cfg, run)
+        jtok = jnp.asarray(m.toks[:, -1:])
+        compared = 0
+        for _ in range(STEPS):
+            jl, jc = jstep(jp, jtok, jc)
+            logits, c = step(params, torch.tensor(np.asarray(jtok),
+                                                  dtype=torch.int64), c)
+            want = _np(jl[:, -1])
+            tol = BF16_TOL * float(np.abs(want).max())
+            np.testing.assert_allclose(_np(logits[:, -1]), want, atol=tol)
+            top2 = np.sort(want, axis=-1)[:, -2:]
+            clear = top2[:, 1] - top2[:, 0] > tol
+            got = _np(logits[:, -1]).argmax(-1)
+            np.testing.assert_array_equal(got[clear],
+                                          want.argmax(-1)[clear])
+            compared += int(clear.sum())
+            jtok = jnp.argmax(jl[:, -1], -1)[:, None]
+    assert compared > 0
+    assert all(np.isfinite(_np(x)).all()
+               for x in jax.tree_util.tree_leaves(c) if x.is_floating_point())
+
+
+def test_train_loss_on_bf16_params_is_finite_as_reference():
+    """The training loss and its gradient on bfloat16 params: finite,
+    the loss within BF16_TOL of the reference's (relative)."""
+    m, jp, params = _bf16_params()
+    labels = np.roll(m.toks, -1, axis=1)
+    jloss, _ = jax_api.make_train_step(m.jcfg, JaxRun())(
+        jp, jnp.asarray(m.toks), jnp.asarray(labels))
+    for p in jax.tree_util.tree_leaves(params):
+        p.requires_grad_(True)
+    loss, nll = api.make_train_step(m.cfg, RunConfig())(
+        params, torch.tensor(m.toks), torch.tensor(labels))
+    loss.backward()
+    assert np.isfinite(float(jloss)) and torch.isfinite(loss)
+    assert abs(float(loss.detach()) - float(jloss)) \
+        <= BF16_TOL * abs(float(jloss))
+    assert all(torch.isfinite(p.grad).all()
+               for p in jax.tree_util.tree_leaves(params))
