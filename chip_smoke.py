@@ -324,6 +324,27 @@ Then the planner, which runs none of the kernels above:
                  engine="torch").run(execute="closed") on the simulated
                  executor against engine="vec", with a replan.
 
+Then the sharding layer (launch/mesh.py, launch/shardings.py) on the
+one card:
+
+ 13. sharded -- an NCCL world of one (file store) and the (data 1,
+                 model 1) mesh of make_host_mesh; params as DTensors
+                 placed by shardings.model_param_pspecs, the kernels
+                 reached through local_map on each rank's block.
+                 Full-width, full-depth tinyllama-1.1b: one train step
+                 (AdamW) at B=8, S=512, remat "block", unsharded and
+                 sharded from the same draw (loss and every updated
+                 leaf within 1e-5 relative); a prefill of 128 and 8
+                 greedy decode steps at B=8 on the same params both ways
+                 (tokens equal, logits within 1e-5 of the largest);
+                 deepseek-moe-16b at full width and 4 of 28 layers, the
+                 same serving check; plan_many_sharded and
+                 replan_many_sharded (devices=None, S=1000) == the
+                 unsharded calls.  Both times of each step are printed
+                 with the card; the sharded runs' launches must equal
+                 the unsharded counts and join the kernels line under
+                 ``launches_by_path["sharded"]``.
+
 The last lines are the card (nvidia-smi), one JSON object with the
 kernels' numbers and, last, {"ok": true, "device": {...}}.  Details go
 to chiprun_out/chip_smoke.json.
@@ -2017,7 +2038,7 @@ def parity_params(cfg):
     from repro_torch.models import api
     from repro_torch.models.params import P, init_params, map_schema
     sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
-                     else P(p.shape, scale=LLM_PARITY_STD),
+                     else P(p.shape, p.axes, scale=LLM_PARITY_STD),
                      api.get_model(cfg).schema(cfg))
     return init_params(sch, torch.Generator(device="cuda").manual_seed(5),
                        "cuda")
@@ -4738,6 +4759,234 @@ def phase_fleet(wl, g, card):
                 launches=execution["launches"], seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# Sharding over a device mesh (phase 13)
+# ---------------------------------------------------------------------------
+
+SHARD_TRAIN = dict(batch=8, seq=512, remat="block")
+SHARD_SERVE = dict(batch=8, prompt=128, steps=8)
+SHARD_MOE_LAYERS = 4        # deepseek-moe-16b at full width, 4 of 28
+SHARD_TOL = 1e-5            # of the largest |logit|, against unsharded
+SHARD_PLAN = dict(S=1000, K=20)
+
+
+def _sharded_rules(cfg, mesh, run):
+    from repro_torch.config import sharding_rules_for
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    return sharding_rules_for(cfg, mesh_axis_sizes(mesh), run)
+
+
+def _timed(fn):
+    """(host ms with a sync on each side, result)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def sharded_train(cfg, mesh, card):
+    """One train step (``training.train.make_train_step``, AdamW) of
+    ``cfg`` at SHARD_TRAIN unsharded, then on DTensor params on the mesh
+    from the same draw: loss, |g| and every updated leaf compared, both
+    step times, the sharded step's launches (== expected)."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models.params import use_rules
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train import make_train_step, release
+    run = RunConfig(remat=SHARD_TRAIN["remat"])
+    rules = _sharded_rules(cfg, mesh, run)
+    toks, labels = (torch.as_tensor(a, device="cuda") for a in next(
+        _train_data(cfg, SHARD_TRAIN["batch"], SHARD_TRAIN["seq"])))
+    step = make_train_step(cfg, run, _ocfg())
+    out, updated = {}, {}
+    for key in ("unsharded", "sharded"):
+        params = _fresh_params(cfg)
+        if key == "sharded":
+            params = shd.distribute(params, mesh, shd.model_param_pspecs(
+                cfg, rules, run.fsdp))
+        state = opt.init_state(params)
+        _zero_llm_counts()
+        with use_rules(rules if key == "sharded" else None):
+            ms, (params, state, m) = _timed(
+                lambda: step(params, state, toks, labels))
+        out[f"{key}_ms"] = ms
+        out[f"{key}_launches"] = _llm_counts()
+        out[f"{key}_loss"] = float(m["loss"])
+        out[f"{key}_grad_norm"] = float(m["grad_norm"])
+        del state
+        updated[key] = [_full(p).detach() for p in
+                        opt.leaves(release(params))]
+        del params
+        torch.cuda.empty_cache()
+    want = expected_launches(cfg, 0, 0, run, train_steps=1)
+    check(out["sharded_launches"] == want,
+          f"sharded train step launched {out['sharded_launches']}, "
+          f"expected {want}")
+    err = max(float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+              for a, b in zip(updated["unsharded"], updated["sharded"]))
+    loss_err = abs(out["sharded_loss"] - out["unsharded_loss"]) \
+        / abs(out["unsharded_loss"])
+    check(loss_err <= SHARD_TOL and err <= SHARD_TOL,
+          f"sharded train step off the unsharded one: loss {loss_err:.3g}, "
+          f"params {err:.3g} (relative)")
+    del updated
+    torch.cuda.empty_cache()
+    out.update(loss_rel_err=loss_err, params_rel_err=err)
+    log(f"[sharded] {cfg.name} train step B={SHARD_TRAIN['batch']} "
+        f"S={SHARD_TRAIN['seq']} remat={run.remat!r}: unsharded "
+        f"{out['unsharded_ms']:.1f} ms, sharded {out['sharded_ms']:.1f} ms "
+        f"on {card}; loss {out['sharded_loss']:.6f} (rel err "
+        f"{loss_err:.3g}), |g| {out['sharded_grad_norm']:.4f}, updated "
+        f"params rel err {err:.3g}; launches {out['sharded_launches']}")
+    return out
+
+
+def sharded_serve(cfg, mesh, card):
+    """A prefill of SHARD_SERVE["prompt"] tokens and SHARD_SERVE["steps"]
+    greedy decode steps at batch SHARD_SERVE["batch"], unsharded and on
+    DTensor views of the same params (no copy on the one-card mesh):
+    tokens equal, logits within SHARD_TOL of the largest, each step's
+    time, the sharded run's launches (== expected)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models import api
+    from repro_torch.models.params import use_rules
+    run = RunConfig()
+    rules = _sharded_rules(cfg, mesh, run)
+    B, S, n = (SHARD_SERVE[k] for k in ("batch", "prompt", "steps"))
+    params = _fresh_params(cfg)
+    toks = torch.tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int64, device="cuda")
+    out, logits_by = {}, {}
+    for key in ("unsharded", "sharded"):
+        p = params if key == "unsharded" else shd.distribute(
+            params, mesh, shd.model_param_pspecs(cfg, rules, False))
+        prefill = api.make_prefill_step(cfg, run, S + n)
+        decode = api.make_decode_step(cfg, run)
+        _zero_llm_counts()
+        got, toks_out, dec_ms = [], [], []
+        with use_rules(rules if key == "sharded" else None), \
+                torch.no_grad():
+            ms, (logits, cache) = _timed(lambda: prefill(p, toks))
+            for i in range(n + 1):
+                full = _full(logits)[:, -1].float()
+                got.append(full.cpu())
+                tok = full.argmax(-1)[:, None]
+                toks_out.append(tok.cpu())
+                if i < n:
+                    t, (logits, cache) = _timed(
+                        lambda: decode(p, tok, cache))
+                    dec_ms.append(t)
+        out[f"{key}_prefill_ms"] = ms
+        out[f"{key}_decode_ms"] = statistics.median(dec_ms)
+        out[f"{key}_launches"] = _llm_counts()
+        logits_by[key] = (got, torch.cat(toks_out, dim=1))
+        del cache, logits
+    want = expected_launches(cfg, 1, n, run)
+    check(out["sharded_launches"] == want,
+          f"sharded serving launched {out['sharded_launches']}, expected "
+          f"{want}")
+    (ug, ut), (sg, st) = logits_by["unsharded"], logits_by["sharded"]
+    err = max(float((a - b).abs().max() / a.abs().max())
+              for a, b in zip(ug, sg))
+    check(torch.equal(ut, st) and err <= SHARD_TOL,
+          f"{cfg.name}: sharded tokens equal {torch.equal(ut, st)}, logits "
+          f"{err:.3g} of the largest off the unsharded run")
+    out["logits_rel_err"] = err
+    del params
+    torch.cuda.empty_cache()
+    log(f"[sharded] {cfg.name} ({cfg.num_layers} layers) prefill "
+        f"{S} + {n} decode steps at B={B}: prefill unsharded "
+        f"{out['unsharded_prefill_ms']:.1f} ms, sharded "
+        f"{out['sharded_prefill_ms']:.1f} ms; decode step (median) "
+        f"unsharded {out['unsharded_decode_ms']:.2f} ms, sharded "
+        f"{out['sharded_decode_ms']:.2f} ms on {card}; tokens equal, "
+        f"logits {err:.3g} of the largest; launches "
+        f"{out['sharded_launches']}")
+    return out
+
+
+def sharded_plan(card):
+    """plan_many_sharded and replan_many_sharded (devices=None: every
+    card) ``==`` the unsharded calls at S=1000, K=20."""
+    import numpy as np
+    from repro_torch.core.delay_model import DelayModel
+    from repro_torch.core.quality_model import PowerLawFID
+    from repro_torch.core.torchplan import (plan_many, plan_many_sharded,
+                                            replan_many, replan_many_sharded)
+    D, Q = DelayModel(), PowerLawFID()
+    S, K = SHARD_PLAN["S"], SHARD_PLAN["K"]
+    rng = np.random.default_rng(4)
+    taus = rng.uniform(7, 20, size=(S, K))
+    offs = rng.integers(0, 9, size=(S, K))
+    res_taus = taus - 10.0
+    doomed = (offs > 0) & (res_taus < 0)
+    out = {}
+    for name, one, many, kw in (
+            ("plan_many", plan_many, plan_many_sharded, {}),
+            ("replan_many", replan_many, replan_many_sharded,
+             dict(offsets=offs, doomed=doomed))):
+        t = res_taus if kw else taus
+        ms1, a = _ms(lambda: one(t, delay=D, quality=Q, **kw))
+        msn, b = _ms(lambda: many(t, delay=D, quality=Q, devices=None,
+                                  **kw))
+        same = all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in ("best_level", "steps", "mean_fid", "makespan"))
+        check(same, f"{name}_sharded differs from {name}")
+        out[name] = dict(unsharded_ms=ms1, sharded_ms=msn)
+        log(f"[sharded] {name}_sharded S={S} K={K} devices=None == "
+            f"{name}: unsharded {ms1:.2f} ms, sharded {msn:.2f} ms on "
+            f"{card}")
+    return out
+
+
+def phase_sharded(card):
+    """Phase sharded (see the module docstring, phase 13): an NCCL world
+    of one over a file store, a (1, 1) mesh from ``make_host_mesh``.
+    Returns the kernels' launches on the phase's sharded runs and the
+    details."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.deepseek_moe_16b import CONFIG as DEEPSEEK
+    from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(model=1)
+        details = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        details["tinyllama_train"] = sharded_train(TINYLLAMA, mesh, card)
+        details["tinyllama_serve"] = sharded_serve(TINYLLAMA, mesh, card)
+        moe = dataclasses.replace(DEEPSEEK, num_layers=SHARD_MOE_LAYERS)
+        details["deepseek_serve"] = sharded_serve(moe, mesh, card)
+        details["plan"] = sharded_plan(card)
+    finally:
+        dist.destroy_process_group()
+    launches = collections.Counter()
+    for key in ("tinyllama_train", "tinyllama_serve", "deepseek_serve"):
+        launches.update(details[key]["sharded_launches"])
+    check(all(launches[k] > 0 for k in ("rmsnorm", "flash_attention",
+                                        "decode_attention")),
+          f"phase sharded: a kernel never launched ({dict(launches)})")
+    details["seconds"] = time.perf_counter() - t0
+    log(f"[done] phase sharded {details['seconds']:.1f} s on {card}")
+    return dict(launches), details
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4789,6 +5038,7 @@ def main() -> int:
     fam_launches, train_families = phase_train_families(card)
     dry_launches, dry = phase_dryrun(card, sweep)
     plan = phase_plan(card)
+    shard_launches, sharded = phase_sharded(card)
     for entry in llm_kernels:
         name = entry["name"]
         entry["launches_by_path"] = {
@@ -4812,6 +5062,9 @@ def main() -> int:
         if dry_launches.get(name):
             entry["launches_by_path"]["dryrun"] = dry_launches[name]
             entry["launches"] += dry_launches[name]
+        if shard_launches.get(name):
+            entry["launches_by_path"]["sharded"] = shard_launches[name]
+            entry["launches"] += shard_launches[name]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
@@ -4821,6 +5074,7 @@ def main() -> int:
         llm_kernels=llm_kernels, llm=llm, moe=moe, families=families,
         dense=dense,
         train=train, train_families=train_families, dryrun=dry, plan=plan,
+        sharded=sharded,
         seconds=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -22,9 +22,10 @@ Every facade (``Provisioner``, ``OnlineProvisioner``,
 facades that execute) passes loop tuning through to ``execute_plan``
 (``window``, ``drift_tol``, ...) plus ``exec_engine=`` to pick the
 denoising session engine (``"dict"`` / ``"bucketed"``).  The reference's
-``devices=`` (sharded jax planning) is taken only where it reaches the
-batched planner, ``FleetProvisioner``, and raises there: the port does
-not shard across cards.
+``devices=`` (sharded planning) is taken only where it reaches the
+batched planner, ``FleetProvisioner``: the torch engine splits the
+scenario axis across devices there (``torchplan.plan_many_sharded``),
+and an engine without batching drops it, as the reference does.
 
 ``provision(scenario, ...)`` is the single front door: it dispatches on
 scenario shape (fleet / multi-server / online / static) and returns

@@ -256,8 +256,9 @@ class FleetProvisioner(BaseProvisioner):
     """``simulate_fleet`` behind names — the population-scale sibling
     of ``OnlineProvisioner``.  ``engine``/``device``/``seed``/``execute``
     are the shared facade kwargs (``api/base.py``); ``seed=`` re-seeds
-    the fleet's arrival streams, ``devices=`` goes to ``simulate_fleet``,
-    which raises on it (the port does not shard across cards), and
+    the fleet's arrival streams, ``devices=`` goes to ``simulate_fleet``
+    (the torch engine's batched replans sharded across devices; an
+    engine without batching drops it), and
     execution on a real model is not defined at fleet scale
     (``execute=`` truthy raises).
 

@@ -13,15 +13,23 @@ reference's assigned ones: ``tinyllama-1.1b``, ``codeqwen1.5-7b``,
 ``deepseek-moe-16b``, ``qwen3-moe-30b-a3b``, ``whisper-tiny``,
 ``xlstm-125m`` and ``llama-3.2-vision-90b`` (one module each under
 ``repro_torch/configs/``).  ``get_config`` of a name it does not hold
-raises ``KeyError`` with the name.  The transformer raises
-``NotImplementedError`` for the ``RunConfig`` knobs it does not port
-(``fsdp`` and ``shard_kv_seq``: ``repro_torch.models.transformer.check_run``).
+raises ``KeyError`` with the name.
+
+``DEFAULT_RULES`` and ``sharding_rules_for`` are the reference's
+logical-axis rules, copied: they map each logical axis of the schemas
+and activations to mesh axes, and drop a ``model`` mapping that the
+config's size does not divide.  The port runs them over a
+``torch.distributed`` device mesh (``repro_torch.launch.mesh``,
+``repro_torch.launch.shardings``).  Its models raise
+``NotImplementedError`` for ``shard_kv_seq`` and, under a mesh, for the
+families other than dense and MoE
+(``repro_torch.models.transformer.check_run``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +220,62 @@ class RunConfig:
                                      # scatters
 
 
+# Logical axis -> mesh axes mapping (MaxText-style sharding rules).
+# Values are mesh-axis names or None (replicated).
+DEFAULT_RULES: Tuple[Tuple[str, Optional[Tuple[str, ...]]], ...] = (
+    ("batch", ("pod", "data")),
+    ("seq", None),
+    ("kv_seq", None),
+    ("embed", None),
+    ("heads", ("model",)),
+    ("kv_heads", ("model",)),
+    ("head_dim", None),
+    ("mlp", ("model",)),
+    ("experts", ("model",)),
+    ("vocab", ("model",)),
+    ("ssm_inner", ("model",)),
+    ("ssm_state", None),
+)
+
+
+def sharding_rules_for(cfg: ModelConfig, mesh_axis_sizes: dict,
+                       run: RunConfig = RunConfig()) -> dict:
+    """Resolve DEFAULT_RULES against an arch: drop a 'model' mapping when the
+    corresponding dimension is not divisible by the model-axis size, falling
+    back to replication for that logical axis. This keeps every arch
+    lowerable on the 16-way model axis (e.g. xlstm has 4 heads, whisper has
+    6 heads and vocab 51865)."""
+    model = mesh_axis_sizes.get("model", 1)
+    rules = {}
+    for name, axes in DEFAULT_RULES:
+        if isinstance(axes, (tuple, list)):
+            kept = tuple(a for a in axes if a in mesh_axis_sizes)
+            rules[name] = kept or None
+        else:
+            rules[name] = axes if (axes is None or axes in mesh_axis_sizes) \
+                else None
+
+    def ok(dim: int) -> bool:
+        return dim > 0 and dim % model == 0
+
+    if not ok(cfg.num_heads * cfg.resolved_head_dim) or not ok(cfg.num_heads):
+        rules["heads"] = None
+    if not ok(cfg.num_kv_heads):
+        rules["kv_heads"] = None
+    ff = cfg.d_ff_expert if cfg.is_moe else cfg.d_ff
+    if not ok(ff):
+        rules["mlp"] = None
+    if cfg.is_moe and not ok(cfg.num_experts):
+        rules["experts"] = None
+    if not ok(cfg.vocab_size):
+        rules["vocab"] = None
+    if cfg.family in ("ssm", "hybrid") and not ok(cfg.ssm_expand * cfg.d_model):
+        rules["ssm_inner"] = None
+    if run.shard_kv_seq:
+        rules["kv_seq"] = ("data",)
+    return rules
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
@@ -284,5 +348,6 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     return replace(cfg, **updates)
 
 
-__all__ = ["ModelConfig", "RunConfig", "register", "get_config",
-           "list_archs", "smoke_variant", "replace"]
+__all__ = ["ModelConfig", "RunConfig", "DEFAULT_RULES", "sharding_rules_for",
+           "register", "get_config", "list_archs", "smoke_variant",
+           "replace"]

@@ -791,10 +791,9 @@ def simulate_fleet(fleet: FleetScenario, *,
     ServiceOutcome) -> bool`` (None = admit all); ``engine`` the
     planner engine (``repro_torch.core.arrays`` registry; an engine
     exposing ``replan_many`` — ``"torch"``, on ``torchplan.device_scope``'s
-    device — gets every concurrent replan batched into one call;
-    ``devices``, sharding across cards, is not ported: it raises in
-    ``torchplan`` on the batched path and here on any other, where the
-    reference drops it);
+    device — gets every concurrent replan batched into one call,
+    optionally sharded across devices via ``devices``, which an engine
+    without batching drops, as the reference does);
     ``placement`` routes the fleet's shared stream, if any.  ``epoch``
     defaults to ``horizon / 64``.
     """
@@ -808,11 +807,6 @@ def simulate_fleet(fleet: FleetScenario, *,
         raise ValueError(f"mode must be 'event' or 'epoch', got {mode!r}")
     if not isinstance(quality, PowerLawFID) and batched:
         batched = None       # batched scoring is PowerLawFID-only
-    if devices is not None and batched is None:
-        raise NotImplementedError(
-            "devices= shards the batched replans across cards, which the "
-            "port does not have (ROADMAP.md queue 1 item 9); engine "
-            f"{eng!r} plans each cell on its own and has nothing to shard")
     metrics = FleetMetrics(seed=fleet.seed, reservoir=reservoir)
     cells = [_CellState(c, cfg, delay)
              for c, cfg in enumerate(fleet.cells)]

@@ -23,6 +23,9 @@ Layout:
   through ``arrays.engine_impl("torch")``.
 * ``batched``  — ``plan_many`` / ``replan_many``: the whole T* search
   over ~10^3 stacked scenarios in one call.
+* ``sharded``  — the same with the scenario axis split across devices
+  (``plan_many_sharded``, ``replan_many_sharded``; ``devices=`` of the
+  batched calls routes there).
 * ``optimal``  — the exact DP as a breadth-first sweep.
 
 Equivalence contract: objectives match the NumPy engines within 1e-9
@@ -30,8 +33,7 @@ mean FID, never bit for bit (sums may run in another order and CUDA's
 float64 ``pow`` may differ from libm in the last ulp).  Returned
 ``BatchPlan``s are always materialized by the exact NumPy single-level
 passes, so they satisfy the paper's constraints whatever the engine.
-The reference's ``jaxplan.sharded`` (scenario axis across devices) is
-not ported: ``devices=`` raises.
+The sharded calls are ``==`` to the unsharded ones.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from __future__ import annotations
 import types
 
 from repro_torch.core import arrays as _arrays
-from repro_torch.core.torchplan import backend, batched, kernels, optimal
+from repro_torch.core.torchplan import (backend, batched, kernels, optimal,
+                                        sharded)
 from repro_torch.core.torchplan.backend import (equal_steps, offset_plan,
                                                 stacking)
 from repro_torch.core.torchplan.batched import (PlanManyResult, plan_many,
@@ -47,6 +50,9 @@ from repro_torch.core.torchplan.batched import (PlanManyResult, plan_many,
 from repro_torch.core.torchplan.kernels import device_scope
 from repro_torch.core.torchplan.optimal import (optimal_mean_fid,
                                                 optimal_plan)
+from repro_torch.core.torchplan.sharded import (plan_many_sharded,
+                                                replan_many_sharded,
+                                                resolve_devices)
 
 #: what ``arrays.engine_impl("torch")`` hands to the dispatch sites
 IMPL = types.SimpleNamespace(
@@ -75,6 +81,10 @@ __all__ = [
     "optimal_mean_fid",
     "optimal_plan",
     "plan_many",
+    "plan_many_sharded",
     "replan_many",
+    "replan_many_sharded",
+    "resolve_devices",
+    "sharded",
     "stacking",
 ]

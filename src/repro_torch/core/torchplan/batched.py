@@ -44,14 +44,6 @@ class PlanManyResult:
         return self.best_level.shape[0]
 
 
-def _no_sharding(devices) -> None:
-    if devices is not None:
-        raise NotImplementedError(
-            "devices= shards the scenario axis across cards, which the "
-            "port does not have yet (ROADMAP.md queue 1 item 9); it runs "
-            "on the one card")
-
-
 def _check_inputs(tau_prime: np.ndarray, quality,
                   offsets: Optional[np.ndarray],
                   valid: Optional[np.ndarray]):
@@ -128,10 +120,15 @@ def plan_many(tau_prime: np.ndarray, *, delay: DelayModel,
     steps for replanning sweeps.  ``quality`` must be a ``PowerLawFID``
     (the paper's objective) — scoring runs on the device.
     ``t_star_max=0`` sizes the candidate grid from the loosest budget.
-    It runs on ``kernels.device_scope``'s device (``"cuda"``);
-    ``devices`` (sharding across cards) is not ported and raises.
+    It runs on ``kernels.device_scope``'s device (``"cuda"``); with
+    ``devices`` (not None) the scenario axis is sharded across devices
+    (``sharded.plan_many_sharded``).
     """
-    _no_sharding(devices)
+    if devices is not None:
+        from repro_torch.core.torchplan import sharded
+        return sharded.plan_many_sharded(
+            tau_prime, delay=delay, quality=quality, offsets=offsets,
+            valid=valid, t_star_max=t_star_max, devices=devices)
     dev = kernels.plan_device()
     taup0, off, vd, S, K = _check_inputs(tau_prime, quality, offsets,
                                          valid)
@@ -190,9 +187,14 @@ def replan_many(tau_prime: np.ndarray, *, delay: DelayModel,
     pinned at ``fid(0)`` (pass ``doomed[s, k] = offsets[s, k] > 0 and
     tau_prime[s, k] < 0``), and each scenario's candidate grid is capped
     at its own t_star_max.  The device and ``devices`` as in
-    ``plan_many``.
+    ``plan_many`` (``sharded.replan_many_sharded``).
     """
-    _no_sharding(devices)
+    if devices is not None:
+        from repro_torch.core.torchplan import sharded
+        return sharded.replan_many_sharded(
+            tau_prime, delay=delay, quality=quality, offsets=offsets,
+            doomed=doomed, valid=valid, t_star_max=t_star_max,
+            devices=devices)
     dev = kernels.plan_device()
     taup0, soff, vd, S, K = _check_inputs(tau_prime, quality, offsets,
                                           valid)

@@ -136,17 +136,17 @@ def upsample2x(x):
 # ---------------------------------------------------------------------------
 
 def _conv_p(kh, kw, cin, cout, scale=None):
-    return P((cout, cin, kh, kw), scale=scale, conv=True)
+    return P((cout, cin, kh, kw), (None,) * 4, scale=scale, conv=True)
 
 
 def _res_block_schema(cin, cout, temb_dim):
     return {
-        "gn1_s": P((cin,), init="ones"),
-        "gn1_b": P((cin,), init="zeros"),
+        "gn1_s": P((cin,), (None,), init="ones"),
+        "gn1_b": P((cin,), (None,), init="zeros"),
         "conv1": _conv_p(3, 3, cin, cout),
-        "temb": P((temb_dim, cout)),
-        "gn2_s": P((cout,), init="ones"),
-        "gn2_b": P((cout,), init="zeros"),
+        "temb": P((temb_dim, cout), (None, None)),
+        "gn2_s": P((cout,), (None,), init="ones"),
+        "gn2_b": P((cout,), (None,), init="zeros"),
         "conv2": _conv_p(3, 3, cout, cout, scale=0.05),
         **({"skip": _conv_p(1, 1, cin, cout)} if cin != cout else {}),
     }
@@ -154,12 +154,12 @@ def _res_block_schema(cin, cout, temb_dim):
 
 def _attn_schema(ch):
     return {
-        "gn_s": P((ch,), init="ones"),
-        "gn_b": P((ch,), init="zeros"),
-        "wq": P((ch, ch)),
-        "wk": P((ch, ch)),
-        "wv": P((ch, ch)),
-        "wo": P((ch, ch), scale=0.05),
+        "gn_s": P((ch,), (None,), init="ones"),
+        "gn_b": P((ch,), (None,), init="zeros"),
+        "wq": P((ch, ch), (None, None)),
+        "wk": P((ch, ch), (None, None)),
+        "wv": P((ch, ch), (None, None)),
+        "wo": P((ch, ch), (None, None), scale=0.05),
     }
 
 
@@ -167,11 +167,11 @@ def schema(cfg: UNetConfig):
     ch = cfg.base_channels
     temb = 4 * ch
     s = {
-        "temb1": P((ch, temb)),
-        "temb2": P((temb, temb)),
+        "temb1": P((ch, temb), (None, None)),
+        "temb2": P((temb, temb), (None, None)),
         "conv_in": _conv_p(3, 3, cfg.in_channels, ch),
-        "gn_out_s": P((ch,), init="ones"),
-        "gn_out_b": P((ch,), init="zeros"),
+        "gn_out_s": P((ch,), (None,), init="ones"),
+        "gn_out_b": P((ch,), (None,), init="zeros"),
         "conv_out": _conv_p(3, 3, ch, cfg.in_channels, scale=1e-10),
     }
     res = cfg.image_size

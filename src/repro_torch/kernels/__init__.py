@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextvars
 import dataclasses
+import sys
 
 import torch
 
@@ -110,6 +111,18 @@ def meta_call(name: str, cost, make):
     runs count as its outputs' memory only."""
     trace = TRACE.get()
     return make() if trace is None else trace.kernel_call(name, cost, make)
+
+
+def refuse_dtensor(name: str, *ts) -> None:
+    """Raise for a DTensor among ``ts``: a wrapper hands raw pointers
+    to its kernel (``launch``), and a DTensor's are not its local
+    block's.  Sharded models reach the wrappers through ``local_map``
+    (``repro_torch.models.params.local_call``) with plain local
+    tensors."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is not None and any(isinstance(t, mod.DTensor) for t in ts):
+        raise TypeError(f"{name}: got a DTensor; call the wrapper on each "
+                        f"rank's local block (local_map)")
 
 
 def launch(fn, index: int, *args) -> int:

@@ -24,7 +24,8 @@ import math
 import torch
 
 from repro_torch.kernels import (F32_OPS_PER_S, KernelCost, build, launch,
-                                 meta_call, nbytes, product_rate)
+                                 meta_call, nbytes, product_rate,
+                                 refuse_dtensor)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 launches = 0
@@ -63,6 +64,7 @@ def _entry():
 
 
 def _check(q, k_cache, v_cache, window):
+    refuse_dtensor("decode_attention", q, k_cache, v_cache)
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
             or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: q must be (B,1,H,D) and the "

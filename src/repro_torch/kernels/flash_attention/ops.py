@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels import (KernelCost, build, launch, meta_call,
                                  nbytes, plain_backward, product_rate,
-                                 with_grad)
+                                 refuse_dtensor, with_grad)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
@@ -44,6 +44,7 @@ def _entry():
 
 
 def _check(q, k, v, causal, window, q_offset):
+    refuse_dtensor("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q must be (B,Sq,H,D) and k, v "
                          f"(B,Skv,KV,D), got {tuple(q.shape)}, "

@@ -22,7 +22,8 @@ import functools
 import torch
 
 from repro_torch.kernels import (KernelCost, build, launch, meta_call,
-                                 nbytes, plain_backward, with_grad)
+                                 nbytes, plain_backward, refuse_dtensor,
+                                 with_grad)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 launches = 0
@@ -101,6 +102,7 @@ def _check(x, scale) -> str:
     """Raises on what the kernel does not take; returns where x and
     scale are: "cuda" (one CUDA device: the common case, tested first,
     with no ``torch.device`` built), "cpu" or "meta"."""
+    refuse_dtensor("rmsnorm", x, scale)
     if x.dtype not in _DTYPES or scale.dtype not in _DTYPES:
         raise TypeError(f"rmsnorm: x and scale must be float32 or bfloat16, "
                         f"got {x.dtype} and {scale.dtype}")

@@ -11,9 +11,12 @@ for TPU meshes of 256 and 512 chips on ``ShapeDtypeStruct`` inputs.
 Here the step runs eagerly on meta tensors under
 ``launch.trace_cost.TraceCost``: products and bytes by op, each kernel
 wrapper's meta branch as one call at its ``cost``, the peak of live
-storage.  It needs no card and runs nothing on one.  One card has
-nothing to shard: ``run_for`` is the reference's with ``fsdp`` and
-``shard_kv_seq`` off, and no record has a collective term.  Records go
+storage.  It needs no card and runs nothing on one.  The records are
+one card's: ``run_for`` is the reference's with ``fsdp`` and
+``shard_kv_seq`` off, and no record has a collective term (the port
+shards over a device mesh, ``launch/shardings.py``, but the dry run's
+collective term at the production meshes is still to come, ROADMAP
+queue 1 item 9).  Records go
 to ``artifacts/dryrun_torch/<arch>_<shape>[_opt].json``;
 ``ddim-cifar10`` is left out, as in the reference.  ``--smoke`` traces
 each arch's smoke variant instead of its full width.
@@ -47,8 +50,8 @@ def run_for(cfg, shape, opt: bool = False) -> RunConfig:
     the rest), ``decode_window = 8192`` at ``long_500k`` for every arch
     with attention, and under ``opt`` its serving knobs.  ``fsdp`` and
     ``shard_kv_seq`` (the VLM's serving fsdp, ``long_500k``'s cache
-    sharding) stay off: one card has nothing to shard them over, so the
-    slice-reads knob follows the window alone."""
+    sharding) stay off: one card still has no collective term for them,
+    so the slice-reads knob follows the window alone."""
     decode_window = 0
     remat = "none"
     if shape.kind == "train":

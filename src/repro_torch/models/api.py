@@ -8,7 +8,8 @@ xLSTM (ssm).  Each model module exposes ``schema``, ``forward``,
 builds the training loss (the reference's name for it: it returns the
 loss function, not a step).  ``input_specs`` and ``abstract_model``
 give a step's inputs and params on the meta device, for the dry run
-(``repro_torch.launch.dryrun``).
+(``repro_torch.launch.dryrun``); ``model_pspecs`` the params' partition
+specs under sharding rules (``repro_torch.launch.shardings``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import torch
 
 from repro_torch.config import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import transformer, whisper, xlstm_model, zamba2
-from repro_torch.models.params import init_params, map_schema
+from repro_torch.models.params import (constrain, init_params, is_dtensor,
+                                       local_call, map_schema, param_pspecs,
+                                       shard_batch)
 
 
 def get_model(cfg: ModelConfig):
@@ -87,16 +90,30 @@ def make_train_step(cfg: ModelConfig, run: RunConfig):
     the mean next-token negative log-likelihood of ``forward``'s logits
     (in float32) plus the model's aux loss (MoE), as the reference's,
     for every family; ``extras`` are the modality inputs ``forward``
-    reads (whisper's ``audio_frames``, the VLM's ``vision_embeds``)."""
+    reads (whisper's ``audio_frames``, the VLM's ``vision_embeds``).
+
+    On sharded params the labels are sharded on ``batch`` as the tokens,
+    the logits gathered over the vocab, each rank's rows scored on its
+    own, and the loss and nll returned as plain (replicated) tensors."""
     mod = get_model(cfg)
 
-    def loss_fn(params, tokens, labels, extras=None):
-        logits, aux, _ = mod.forward(cfg, params, tokens, run, extras)
+    def nll_rows(logits, labels):
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-        nll = (logz - gold).mean()
-        return nll + aux, nll
+        return logz - gold
+
+    def loss_fn(params, tokens, labels, extras=None):
+        logits, aux, _ = mod.forward(cfg, params, tokens, run, extras)
+        if not is_dtensor(logits):
+            nll = nll_rows(logits, labels).mean()
+            return nll + aux, nll
+        logits = constrain(logits, ("batch", "seq", None))
+        labels = shard_batch(params, labels)
+        nll = local_call(nll_rows, tuple(labels.placements), logits,
+                         labels).mean()
+        loss = nll + aux
+        return loss.full_tensor(), nll.full_tensor()
 
     return loss_fn
 
@@ -134,3 +151,8 @@ def abstract_model(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
     return map_schema(
         lambda p, _path: torch.empty(p.shape, dtype=dtype, device="meta"),
         get_model(cfg).schema(cfg))
+
+
+def model_pspecs(cfg: ModelConfig, rules: dict):
+    """The ``PS`` of every param leaf of ``cfg`` under ``rules``."""
+    return param_pspecs(get_model(cfg).schema(cfg), rules)

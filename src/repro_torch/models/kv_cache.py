@@ -11,6 +11,10 @@ The layer-stacked helpers of the reference's in-place decode
 reference updates a buffer carried through its layer scan, the port
 writes the layer's view of the caller's buffer in place.
 
+On DTensor buffers (a cache placed over a device mesh) ``write_`` and
+``write_layer`` write each rank's block in place (``local_blocks``);
+``read`` dequantizes as DTensor ops.
+
 ``write`` keeps the reference's ``mode="drop"`` semantics: an index in
 [-S, 0) counts from the end (jax normalizes it so), and an index
 outside [-S, S) is dropped.  ``write_`` does the same in place, without
@@ -24,6 +28,8 @@ reference's is.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.params import is_dtensor
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -68,10 +74,31 @@ def _put_(buf: torch.Tensor, new: torch.Tensor, index) -> None:
     buf[rows, slots] = torch.where(mask, new.to(buf.dtype), old)
 
 
+def local_blocks(buf, new, pos, lead: int = 0):
+    """Each rank's blocks for an in-place write of DTensor ``new``
+    (*lead, B, S_new, KV, D) into the DTensor buffer ``buf`` (*lead, B,
+    S, KV, D; an int8 dict of them) at ``pos`` (B,): ``new`` and ``pos``
+    are first placed as the buffer (batch and KV heads alike).  Returns
+    (buf, new, pos) as local tensors, ``buf``'s sharing its storage."""
+    from torch.distributed.tensor import Replicate, Shard
+    first = buf["q"] if isinstance(buf, dict) else buf
+    mesh, pl = first.device_mesh, tuple(first.placements)
+    pos_pl = tuple(Shard(0) if isinstance(p, Shard) and p.dim == lead
+                   else Replicate() for p in pl)
+    local = {k: t.to_local() for k, t in buf.items()} \
+        if isinstance(buf, dict) else buf.to_local()
+    return (local, new.redistribute(mesh, pl).to_local(),
+            pos.redistribute(mesh, pos_pl).to_local())
+
+
 def write_(cache, new: torch.Tensor, pos: torch.Tensor, index=None):
     """In place: write new (B, S_new, KV, D) at positions pos (B,) ..
     pos+S_new of ``cache`` (a tensor or an int8 dict); returns it.
-    ``index``: ``write_index(pos, S_new, S)``, when the caller has it."""
+    ``index``: ``write_index(pos, S_new, S)``, when the caller has it
+    (not on DTensors: each rank writes its block)."""
+    if is_dtensor(cache["q"] if isinstance(cache, dict) else cache):
+        write_(*local_blocks(cache, new, pos))
+        return cache
     S = (cache["q"] if isinstance(cache, dict) else cache).shape[1]
     if isinstance(cache, dict):
         q, scale = quantize(new)
@@ -144,6 +171,9 @@ def write_layer(cache_all, lead_idx: tuple, new: torch.Tensor,
     ``write``'s drop semantics; ``index``: ``write_index(pos, S_new,
     S)``, when the caller has it."""
     view = layer_view(cache_all, lead_idx)
+    if is_dtensor(view["q"] if isinstance(view, dict) else view):
+        view, new, pos = local_blocks(view, new, pos)
+        index = None
     if isinstance(view, dict):
         q, scale = quantize(new)
         _write_layer_arr(view["q"], q, pos, uniform, index)

@@ -9,7 +9,14 @@ reference's layouts (``wq (d,H,hd)``, ``wo (H,hd,d)``, ``up/gate (d,f)``,
 
 ``rmsnorm``, ``chunked_attention`` and ``decode_attention`` go through
 the kernel wrappers: a CPU tensor takes the plain version, a CUDA tensor
-the hand-written kernel (or the wrapper raises).
+the hand-written kernel (or the wrapper raises).  On DTensors (params
+sharded over a device mesh, ``repro_torch.launch.shardings``) each
+reaches its wrapper through ``params.local_call`` on the rank's local
+block: attention with batch on ``data`` and heads on ``model``, the
+norms over local rows with the normalised axis replicated, rotary
+embeddings on the local rows.  Products with the weights stay DTensor
+ops, whose collectives DTensor inserts, and ``apply_mlp`` and
+``unembed`` constrain their outputs where the reference does.
 ``decode_attention_with_new``, the reference's attention of the in-place
 decode (``decode_inplace_cache``), is plain torch on every device, as
 the reference's is jnp and reaches no Pallas kernel.
@@ -25,7 +32,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
-from repro_torch.models.params import P
+from repro_torch.models.params import (P, constrain, is_dtensor,
+                                       local_call, redistribute,
+                                       rule_active)
 
 NEG_INF = -1e30
 
@@ -36,8 +45,22 @@ NEG_INF = -1e30
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     """The reference's ``layers.rmsnorm`` (f32 statistics, output in x's
-    type), through the RMSNorm kernel's wrapper."""
+    type), through the RMSNorm kernel's wrapper (on a DTensor, over the
+    local rows, with the normalised axis and the scale replicated)."""
+    if is_dtensor(x):
+        x = _whole_along(x, x.dim() - 1)
+        scale = _whole_along(scale, 0)
+        return local_call(lambda a, s: rmsnorm_ops.rmsnorm(a, s, eps),
+                          tuple(x.placements), x, scale)
     return rmsnorm_ops.rmsnorm(x, scale, eps)
+
+
+def _whole_along(x, dim: int):
+    """DTensor x with its dim ``dim`` replicated over every mesh axis."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim % x.dim() == dim
+               else p for p in x.placements)
+    return x if pl == tuple(x.placements) else redistribute(x, pl)
 
 
 def layernorm(x, scale, bias, eps: float = 1e-5):
@@ -51,8 +74,9 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
 def norm_schema(cfg, d=None):
     d = d or cfg.d_model
     if cfg.norm == "rmsnorm":
-        return {"scale": P((d,), init="ones")}
-    return {"scale": P((d,), init="ones"), "bias": P((d,), init="zeros")}
+        return {"scale": P((d,), (None,), init="ones")}
+    return {"scale": P((d,), (None,), init="ones"),
+            "bias": P((d,), (None,), init="zeros")}
 
 
 def apply_norm(cfg, p, x):
@@ -74,6 +98,10 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     """(cos, sin) for ``apply_rope``, each (..., S, 1, D): [cos, cos]
     and [-sin, sin] over the two halves.  One table serves every layer
     of a forward or decode step."""
+    if is_dtensor(positions):            # per-row positions (decode)
+        pl = tuple(positions.placements)
+        return local_call(lambda p: rope_tables(p, head_dim, theta),
+                          (pl, pl), positions)
     freqs = rope_freqs(head_dim, theta, positions.device)     # (D/2,)
     angles = positions[..., None].float() * freqs            # (..., S, D/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
@@ -91,6 +119,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     has it."""
     cos, sin = tables if tables is not None \
         else rope_tables(positions, x.shape[-1], theta)
+    if is_dtensor(x):
+        return local_call(lambda a, c, s: apply_rope(a, None, theta, (c, s)),
+                          tuple(x.placements), x, cos, sin)
     xf = x.float()
     x1, x2 = xf.chunk(2, dim=-1)
     return (xf * cos + torch.cat([x2, x1], dim=-1) * sin).to(x.dtype)
@@ -113,9 +144,10 @@ def _act(name: str):
 
 def mlp_schema(cfg, d_ff=None):
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
-    s = {"up": P((d, f)), "down": P((f, d))}
+    s = {"up": P((d, f), ("embed", "mlp")),
+         "down": P((f, d), ("mlp", "embed"))}
     if cfg.gated_mlp:
-        s["gate"] = P((d, f))
+        s["gate"] = P((d, f), ("embed", "mlp"))
     return s
 
 
@@ -126,6 +158,7 @@ def apply_mlp(cfg, p, x):
         h = h * act(x @ p["gate"])
     else:
         h = act(h)
+    h = constrain(h, ("batch", "seq", "mlp"))
     return h @ p["down"]
 
 
@@ -136,15 +169,17 @@ def apply_mlp(cfg, p, x):
 def attn_schema(cfg):
     d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
-    s = {"wq": P((d, H, hd)), "wk": P((d, KV, hd)), "wv": P((d, KV, hd)),
-         "wo": P((H, hd, d))}
+    s = {"wq": P((d, H, hd), ("embed", "heads", "head_dim")),
+         "wk": P((d, KV, hd), ("embed", "kv_heads", "head_dim")),
+         "wv": P((d, KV, hd), ("embed", "kv_heads", "head_dim")),
+         "wo": P((H, hd, d), ("heads", "head_dim", "embed"))}
     if cfg.use_qkv_bias:
-        s["bq"] = P((H, hd), init="zeros")
-        s["bk"] = P((KV, hd), init="zeros")
-        s["bv"] = P((KV, hd), init="zeros")
+        s["bq"] = P((H, hd), ("heads", "head_dim"), init="zeros")
+        s["bk"] = P((KV, hd), ("kv_heads", "head_dim"), init="zeros")
+        s["bv"] = P((KV, hd), ("kv_heads", "head_dim"), init="zeros")
     if cfg.qk_norm:
-        s["q_norm"] = P((hd,), init="ones")
-        s["k_norm"] = P((hd,), init="ones")
+        s["q_norm"] = P((hd,), (None,), init="ones")
+        s["k_norm"] = P((hd,), (None,), init="ones")
     return s
 
 
@@ -165,9 +200,9 @@ def qkv_project(cfg, p, x, kv_x=None, positions=None, rope: bool = True,
     """Returns q (B,S,H,D), k/v (B,Skv,KV,D).  ``rope_tab``: the
     ``rope_tables`` of ``positions``, when the caller has them."""
     kv_x = x if kv_x is None else kv_x
-    q = _project(x, p["wq"])
-    k = _project(kv_x, p["wk"])
-    v = _project(kv_x, p["wv"])
+    q = constrain(_project(x, p["wq"]), ("batch", "seq", "heads", None))
+    k = constrain(_project(kv_x, p["wk"]), ("batch", "seq", "kv_heads", None))
+    v = constrain(_project(kv_x, p["wv"]), ("batch", "seq", "kv_heads", None))
     if cfg.use_qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -206,9 +241,71 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     moot there.  ``parallel_q``: the reference vectorises its q chunks;
     the kernel's grid already runs every q tile in parallel, so the
     flag changes nothing here.
+
+    On DTensors (batch on ``data``, heads on ``model``) each rank runs
+    the kernel on its block, its query heads over the KV heads they read
+    (``kv_for_query_heads``).
     """
+    if is_dtensor(q):
+        k, v = kv_for_query_heads(q, k, v)
+        return local_call(
+            lambda a, b, c: flash_ops.flash_attention(
+                a, b, c, causal=causal, window=window, q_offset=q_offset),
+            tuple(q.placements), q, k, v)
     return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
+
+
+def _head_split(q):
+    """(mesh dims that split q's heads (dim 2), this rank's index among
+    them, their number of blocks)."""
+    from torch.distributed.tensor import Shard
+    mesh = q.device_mesh
+    dims = [i for i, p in enumerate(q.placements)
+            if isinstance(p, Shard) and p.dim % q.dim() == 2]
+    coord, idx, n = mesh.get_coordinate(), 0, 1
+    for i in dims:
+        idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
+    return dims, idx, n
+
+
+def kv_for_query_heads(q, *kvs):
+    """KV tensors (B, S, KV, ...) as DTensors whose local block on each
+    rank holds the KV heads that the rank's query heads read, in order.
+    Where the rules shard the KV heads as the query heads (or neither),
+    they are returned as they are.  Where the query heads are split and
+    the KV heads replicated (``sharding_rules_for`` drops ``kv_heads``
+    when the model axis does not divide them, granite's one KV head), a
+    rank holding query heads [h0, h0 + Hl) of groups of G = H / KV reads
+    KV head h0 // G.  A rank's query heads must lie in one group (Hl
+    divides G), as they do wherever the rules replicate the KV heads of
+    an assigned config at a model axis of 2, 4 or 16; a group split
+    across ranks raises."""
+    from torch.distributed.tensor import Shard
+    dims, idx, n = _head_split(q)
+    pl0 = tuple(kvs[0].placements)
+    same = [i for i, p in enumerate(pl0)
+            if isinstance(p, Shard) and p.dim % kvs[0].dim() == 2]
+    if same == dims:
+        return kvs
+    if same:
+        raise NotImplementedError(
+            "attention with the KV heads split otherwise than the query "
+            "heads")
+    H, KV = q.shape[2], kvs[0].shape[2]
+    G, Hl = H // KV, H // n
+    if G % Hl:
+        raise NotImplementedError(
+            f"{Hl} query heads a rank over groups of {G}: a group split "
+            f"across ranks")
+    first = idx * Hl // G
+    out = []
+    for t in kvs:
+        pl = tuple(t.placements)
+        want = tuple(Shard(2) if i in dims else p for i, p in enumerate(pl))
+        out.append(local_call(
+            lambda a: a[:, :, first:first + 1].contiguous(), want, t))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +317,14 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window: int = 0):
     entries *including* the new token already written.  Through the
     flash-decode kernel's wrapper, which keeps p in float32 as the
     reference's Pallas kernel does (its jnp path casts p to the cache's
-    type first)."""
+    type first).  On DTensors each rank runs the kernel on its block, as
+    ``chunked_attention``."""
+    if is_dtensor(q):
+        k_cache, v_cache = kv_for_query_heads(q, k_cache, v_cache)
+        return local_call(
+            lambda a, b, c, n: decode_ops.decode_attention(
+                a, b, c, n, window=window),
+            tuple(q.placements), q, k_cache, v_cache, cur_len)
     return decode_ops.decode_attention(q, k_cache, v_cache, cur_len,
                                        window=window)
 
@@ -238,7 +342,15 @@ def decode_attention_with_new(q, k_cache, v_cache, k_new, v_new, cur_len,
     softmax over the S old positions and the new one; the old entries'
     probabilities cast to the cache's type before their PV product (the
     new token's k and v enter in their own type, unrounded), products
-    summed in float32.  Output in q's type."""
+    summed in float32.  Output in q's type.  On DTensors each rank
+    computes its block, as ``decode_attention``."""
+    if is_dtensor(q):
+        k_cache, v_cache, k_new, v_new = kv_for_query_heads(
+            q, k_cache, v_cache, k_new, v_new)
+        return local_call(
+            lambda a, b, c, d, e, n: decode_attention_with_new(
+                a, b, c, d, e, n, window=window),
+            tuple(q.placements), q, k_cache, v_cache, k_new, v_new, cur_len)
     B, _, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     scale = 1.0 / math.sqrt(D)
@@ -266,16 +378,27 @@ def decode_attention_with_new(q, k_cache, v_cache, k_new, v_new, cur_len,
 # ---------------------------------------------------------------------------
 
 def embed_schema(cfg):
-    s = {"tok": P((cfg.vocab_size, cfg.d_model), init="embed")}
+    s = {"tok": P((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                  init="embed")}
     if not cfg.tie_embeddings:
-        s["head"] = P((cfg.d_model, cfg.vocab_size))
+        s["head"] = P((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     return s
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(p["tok"]):
+        # DTensor's vocab-parallel lookup, the embed axis gathered first
+        # (fsdp shards it on data, as the tokens' batch)
+        return F.embedding(tokens, _whole_along(p["tok"], 1))
     return p["tok"][tokens]
 
 
 def unembed(cfg, p, x: torch.Tensor) -> torch.Tensor:
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
-    return x @ w
+    logits = x @ w
+    # With Megatron-style sequence-parallel activations ("seq" mapped to the
+    # model axis) the logits stay seq-sharded; otherwise shard the vocab dim
+    # (both would collide on the model axis).
+    if rule_active("seq"):
+        return constrain(logits, ("batch", "seq", None))
+    return constrain(logits, ("batch", "seq", "vocab"))

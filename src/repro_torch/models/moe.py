@@ -30,6 +30,12 @@ reference and the same from run to run on the card:
 
 At decode (S = 1) C is 1, and every expert runs on all B rows of the
 buffer, most of them pad rows: the reference's design, kept here.
+
+On DTensors routing, dispatch and combine run per batch row on each
+rank's rows (``params.local_call``, batch on ``data``, the router
+replicated), and the expert products are DTensor products over the
+expert-sharded weights, constrained where the reference constrains
+them.
 """
 
 from __future__ import annotations
@@ -38,18 +44,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _act
-from repro_torch.models.params import P
+from repro_torch.models.params import (P, constrain, dense, is_dtensor,
+                                       local_call)
 
 
 def moe_schema(cfg):
     d, f, E = cfg.d_model, cfg.d_ff_expert, cfg.num_experts
-    s = {"router": P((d, E), scale=0.02),
-         "up": P((E, d, f)), "gate": P((E, d, f)), "down": P((E, f, d))}
+    s = {"router": P((d, E), ("embed", "experts"), scale=0.02),
+         "up": P((E, d, f), ("experts", "embed", "mlp")),
+         "gate": P((E, d, f), ("experts", "embed", "mlp")),
+         "down": P((E, f, d), ("experts", "mlp", "embed"))}
     if cfg.num_shared_experts:
         fs = f * cfg.num_shared_experts
-        s["shared_up"] = P((d, fs))
-        s["shared_gate"] = P((d, fs))
-        s["shared_down"] = P((fs, d))
+        s["shared_up"] = P((d, fs), ("embed", "mlp"))
+        s["shared_gate"] = P((d, fs), ("embed", "mlp"))
+        s["shared_down"] = P((fs, d), ("mlp", "embed"))
     return s
 
 
@@ -62,7 +71,8 @@ def _dispatch(cfg, x: torch.Tensor, router: torch.Tensor,
               capacity_factor: float):
     """Routing and dispatch tables: ``slot`` (B, S*K), the flat expert
     slot e*C + pos of each token's k-th choice in token-major order (E*C
-    where the choice was dropped), then ``route``'s three results."""
+    where the choice was dropped), ``disp_tok``, ``disp_gate`` and the
+    load-balance loss's per-row terms (B,), before their mean."""
     B, S, _ = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     C = moe_capacity(cfg, S, capacity_factor)
@@ -75,7 +85,7 @@ def _dispatch(cfg, x: torch.Tensor, router: torch.Tensor,
 
     me = probs.mean(dim=1)                                      # (B, E)
     ce = F.one_hot(expert_ids, E).float().sum(dim=(1, 2)) / (S * K)
-    aux = cfg.router_aux_coef * E * (me * ce).sum(-1).mean()
+    aux_rows = (me * ce).sum(-1)
 
     flat_e = expert_ids.reshape(B, S * K)
     onehot = F.one_hot(flat_e, E)                               # (B, SK, E)
@@ -91,7 +101,12 @@ def _dispatch(cfg, x: torch.Tensor, router: torch.Tensor,
                             device=x.device)
     disp_gate.scatter_(1, slot, gate_vals.reshape(B, S * K))
     return (slot, disp_tok[:, :-1].reshape(B, E, C),
-            disp_gate[:, :-1].reshape(B, E, C), aux)
+            disp_gate[:, :-1].reshape(B, E, C), aux_rows)
+
+
+def _aux(cfg, aux_rows):
+    """The Switch-style load-balance loss from its per-row terms."""
+    return cfg.router_aux_coef * cfg.num_experts * aux_rows.mean()
 
 
 def route(cfg, x: torch.Tensor, router: torch.Tensor,
@@ -102,39 +117,92 @@ def route(cfg, x: torch.Tensor, router: torch.Tensor,
     S for an empty one; ``disp_gate`` (B, E, C) float32: its
     renormalised gate, 0 for an empty slot; and ``aux``, the
     Switch-style load-balance loss (per group, then averaged)."""
-    return _dispatch(cfg, x, router, capacity_factor)[1:]
+    _, disp_tok, disp_gate, aux_rows = _dispatch(cfg, x, router,
+                                                 capacity_factor)
+    return disp_tok, disp_gate, _aux(cfg, aux_rows)
 
 
 def apply_moe(cfg, p, x: torch.Tensor, *, capacity_factor: float = 1.25):
-    """x: (B, S, d) -> (out (B, S, d) in x's type, aux scalar)."""
-    B, S, d = x.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
-    slot, disp_tok, disp_gate, aux = _dispatch(cfg, x, p["router"],
-                                               capacity_factor)
-    C = disp_tok.shape[-1]
-
-    x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)      # (B, S+1, d)
-    rows = torch.arange(B, device=x.device)[:, None]
-    expert_in = x_pad[rows, disp_tok.reshape(B, E * C)]         # (B, EC, d)
-    # experts leading: (E, B*C, d), one batched product per projection
-    xe = expert_in.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    """x: (B, S, d) -> (out (B, S, d) in x's type, aux scalar).  On
+    DTensors routing, dispatch and combine run on each rank's rows
+    (``_per_row``) and the experts on each rank's experts, constrained
+    where the reference constrains them."""
+    K = cfg.experts_per_token
+    x = constrain(x, ("batch", "seq", "embed"))
+    slot, disp_tok, disp_gate, aux_rows = _per_row(
+        lambda a, r: _dispatch(cfg, a, r, capacity_factor), 4, x,
+        _replicated(p["router"]))
+    expert_in = constrain(_per_row(_gather_in, 1, x, disp_tok),
+                          ("batch", "experts", None, "embed"))
     act = _act(cfg.activation)
-    h = torch.bmm(xe, p["up"]) * act(torch.bmm(xe, p["gate"]))
-    expert_out = torch.bmm(h, p["down"])                        # (E, BC, d)
-    expert_out = expert_out.reshape(E, B, C, d).transpose(0, 1)
-
-    # combine: each token gathers its K slots (a dropped choice reads
-    # the zero row at E*C) and sums them in k order
-    weighted = expert_out.float() * disp_gate[..., None]        # (B,E,C,d)
-    weighted = torch.cat([weighted.reshape(B, E * C, d),
-                          weighted.new_zeros((B, 1, d))], dim=1)
-    picked = weighted[rows, slot].reshape(B, S, K, d)
-    out = picked[:, :, 0]
-    for k in range(1, K):
-        out = out + picked[:, :, k]
-    out = out.to(x.dtype)
+    h = _expert_mm(expert_in, p["up"]) \
+        * act(_expert_mm(expert_in, p["gate"]))
+    # The reference constrains h to ("batch", "experts", None, "mlp")
+    # here, and its last-wins rule moves the model axis from the experts
+    # to the mlp split.  Each rank's experts run whole on its rows
+    # instead, so the down product needs no reduction (and no
+    # all-to-all, which gloo lacks).
+    expert_out = constrain(_expert_mm(h, p["down"]),
+                           ("batch", "experts", None, "embed"))
+    # combine: each token gathers its K slots over every expert
+    weighted = constrain(expert_out.float(), ("batch", None, None, None))
+    out = _per_row(lambda w, g, sl: _combine(w * g[..., None], sl, K), 1,
+                   weighted, disp_gate, slot).to(x.dtype)
+    out = constrain(out, ("batch", "seq", "embed"))
 
     if cfg.num_shared_experts:
         sh = (x @ p["shared_up"]) * act(x @ p["shared_gate"])
         out = out + sh @ p["shared_down"]
-    return out, aux
+    return out, _aux(cfg, aux_rows)
+
+
+def _per_row(fn, n_out: int, *args):
+    """``fn(*args)``, a function of whole batch rows; on DTensors (the
+    first one's rows, batch on ``data``) each rank's rows, through
+    ``local_call``."""
+    if not is_dtensor(args[0]):
+        return fn(*args)
+    pl = tuple(args[0].placements)
+    return local_call(fn, (pl,) * n_out if n_out > 1 else pl, *args)
+
+
+def _replicated(t):
+    """t whole on every rank (a DTensor replicated over its mesh)."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, (Replicate(),) * t.device_mesh.ndim)
+
+
+def _gather_in(x: torch.Tensor, disp_tok: torch.Tensor) -> torch.Tensor:
+    """The dispatch buffer (B, E, C, d): x's token in each expert slot,
+    a zero row (the pad slot S) in an empty one."""
+    B, S, d = x.shape
+    E, C = disp_tok.shape[1:]
+    x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)      # (B, S+1, d)
+    rows = torch.arange(B, device=x.device)[:, None]
+    return x_pad[rows, disp_tok.reshape(B, E * C)].reshape(B, E, C, d)
+
+
+def _expert_mm(x, w):
+    """einsum("becd,edf->becf", x, w) as one batched product over the
+    experts (``torch.bmm`` of (E, B*C, d) by (E, d, f))."""
+    B, E, C, d = x.shape
+    xe = dense(x.transpose(0, 1)).reshape(E, B * C, d)
+    return torch.bmm(xe, w).reshape(E, B, C, w.shape[-1]).transpose(0, 1)
+
+
+def _combine(weighted: torch.Tensor, slot: torch.Tensor, K: int):
+    """Each token gathers its K slots of ``weighted`` (B, E, C, d) (a
+    dropped choice reads the zero row at E*C) and sums them in k order:
+    (B, S, d) in float32."""
+    B, E, C, d = weighted.shape
+    S = slot.shape[1] // K
+    weighted = torch.cat([weighted.reshape(B, E * C, d),
+                          weighted.new_zeros((B, 1, d))], dim=1)
+    rows = torch.arange(B, device=weighted.device)[:, None]
+    picked = weighted[rows, slot].reshape(B, S, K, d)
+    out = picked[:, :, 0]
+    for k in range(1, K):
+        out = out + picked[:, :, k]
+    return out

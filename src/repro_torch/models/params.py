@@ -1,14 +1,29 @@
 """Declarative parameter schemas, in PyTorch.
 
-A schema is a nested dict/list whose leaves are ``P(shape, init=...)``.
-The port's counterpart of ``repro.models.params`` (which imports jax at
-the top, so the port keeps its own leaf and schema walk).  From one
-schema we derive
+A schema is a nested dict/list whose leaves are ``P(shape,
+logical_axes, init=...)``.  The port's counterpart of
+``repro.models.params`` (which imports jax at the top, so the port keeps
+its own leaf and schema walk).  From one schema we derive
 
   * ``init_params``       -- random tensors from a ``torch.Generator``
   * ``params_from_numpy`` -- the reference's param tree (numpy arrays)
                              as the port's tensors, shape-checked
   * ``opt_state_from_numpy`` -- the reference's AdamW state the same way
+  * ``param_pspecs``      -- the matching ``PS`` tree from sharding rules
+
+Logical axes resolve against ``repro_torch.config.sharding_rules_for``.
+A ``PS`` is the port's partition spec (the reference's ``PartitionSpec``,
+read as a tuple): one entry per tensor dim, each None, a mesh-axis name
+or a tuple of names.  On a ``torch.distributed`` device mesh it becomes
+DTensor placements (``placements``): ``Shard(d)`` on each mesh axis that
+names dim d, ``Replicate()`` on the others.
+
+Models call ``constrain(x, ("batch", "seq", ...))`` where the reference
+does; under ``use_rules`` a DTensor is redistributed to the placements
+those axes give (the reference's ``with_sharding_constraint``), and a
+plain tensor is returned as it is.  ``local_call`` runs a function of
+plain tensors (a kernel's wrapper, a per-row step) on each rank's local
+shards through ``torch.distributed.tensor.experimental.local_map``.
 
 Convolution leaves are stored OIHW, the layout ``F.conv2d`` takes; the
 reference stores them HWIO, and ``params_from_numpy`` transposes them.
@@ -21,6 +36,7 @@ transpose.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,12 +45,17 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class P:
-    """A parameter leaf.  ``conv`` marks an OIHW convolution weight
-    (HWIO in the reference)."""
+    """A parameter leaf: shape + logical axis names (same length).
+    ``conv`` marks an OIHW convolution weight (HWIO in the reference;
+    its axes, all None, stay in the port's order)."""
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"      # normal | zeros | ones | embed
     scale: Optional[float] = None
     conv: bool = False
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
     @property
     def fan_in(self) -> int:
@@ -129,3 +150,281 @@ def opt_state_from_numpy(schema, state, device):
                                  dtype=torch.int32, device=device),
             "m": params_from_numpy(schema, state["m"], device),
             "v": params_from_numpy(schema, state["v"], device)}
+
+
+# ---------------------------------------------------------------------------
+# Partition specs from the logical axes
+# ---------------------------------------------------------------------------
+
+class PS(tuple):
+    """A partition spec: ``PS("data", None, ("pod", "model"))``, one entry
+    per tensor dim (fewer: the rest replicated)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"PS{tuple.__repr__(self)}"
+
+
+def axis_part(rules: dict, ax):
+    """The mesh axes of logical axis ``ax`` under ``rules``, as a spec
+    entry: None, one name, or a tuple of names."""
+    m = rules.get(ax) if ax is not None else None
+    if m is None:
+        return None
+    if isinstance(m, (tuple, list)):
+        return m[0] if len(m) == 1 else tuple(m)
+    return m
+
+
+def _names(part) -> tuple:
+    return (part,) if isinstance(part, str) else tuple(part or ())
+
+
+def _dedup(parts: list, order) -> list:
+    """Keep each mesh axis in one entry only, the first met in ``order``
+    (indices into ``parts``); a later entry that names a used axis
+    becomes None."""
+    used = set()
+    for i in order:
+        if any(n in used for n in _names(parts[i])):
+            parts[i] = None
+        else:
+            used.update(_names(parts[i]))
+    return parts
+
+
+def spec_of(axes, rules: dict, last_wins: bool = True) -> PS:
+    """The ``PS`` of logical ``axes`` under ``rules``.  A mesh axis may
+    name one dim only: for activations (``constrain``) the LAST logical
+    axis that maps to it wins, as the reference's Megatron-style rule;
+    for weights (``param_pspecs``) the FIRST."""
+    parts = [axis_part(rules, ax) for ax in axes]
+    order = range(len(parts) - 1, -1, -1) if last_wins else range(len(parts))
+    return PS(*_dedup(parts, order))
+
+
+def param_pspecs(schema, rules: dict):
+    """The ``PS`` of every leaf: for weights the FIRST occurrence of a mesh
+    axis wins (e.g. MoE (experts, embed, mlp): expert parallelism
+    outranks the inner mlp split on the same axis)."""
+    return map_schema(lambda p, _path: spec_of(p.axes, rules, False), schema)
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding: models call ``constrain(x, ("batch", "seq", ...))``
+# and the launch layer installs the rules with ``use_rules``.
+# ---------------------------------------------------------------------------
+
+_ACTIVE_RULES: Optional[dict] = None
+
+
+class use_rules:
+    """Context manager installing logical->mesh rules for ``constrain``."""
+
+    def __init__(self, rules: Optional[dict]):
+        self.rules = rules
+
+    def __enter__(self):
+        global _ACTIVE_RULES
+        self._prev = _ACTIVE_RULES
+        _ACTIVE_RULES = self.rules
+        return self
+
+    def __exit__(self, *exc):
+        global _ACTIVE_RULES
+        _ACTIVE_RULES = self._prev
+        return False
+
+
+def active_rules() -> Optional[dict]:
+    """The rules ``use_rules`` installed, or None."""
+    return _ACTIVE_RULES
+
+
+def rule_active(name: str) -> bool:
+    """True when the installed rules map this logical axis to a mesh axis."""
+    return bool(_ACTIVE_RULES) and _ACTIVE_RULES.get(name) is not None
+
+
+def is_dtensor(x) -> bool:
+    """True for a DTensor.  Reads ``torch.distributed.tensor`` only once
+    something imported it (no DTensor exists before), so the unsharded
+    path never pays for its import."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def placements(mesh, spec) -> tuple:
+    """DTensor placements of ``spec`` (a ``PS``) on ``mesh``, one per mesh
+    dim: ``Shard(d)`` where entry d names the mesh dim (a dim named by
+    two mesh axes is sharded on both, in mesh order), ``Replicate()``
+    elsewhere.  Mesh axes that the mesh lacks are ignored."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in mesh.mesh_dim_names:
+        dims = [d for d, part in enumerate(spec) if name in _names(part)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def constrain(x, axes: Tuple[Optional[str], ...]):
+    """Redistribute a DTensor to the placements of logical ``axes`` under
+    the installed rules (the LAST logical axis mapping to a mesh axis
+    wins); a no-op without rules or on a plain tensor, as the reference
+    is outside a mesh."""
+    if _ACTIVE_RULES is None or not is_dtensor(x):
+        return x
+    want = placements(x.device_mesh, spec_of(axes, _ACTIVE_RULES))
+    if tuple(x.placements) == want:
+        return x
+    return redistribute(x, want)
+
+
+def redistribute(x, pl):
+    """``x.redistribute`` to placements ``pl``, with a contiguous local
+    block (``dense``): where the process group has no all-to-all (gloo),
+    DTensor gathers and keeps a strided chunk."""
+    return dense(x.redistribute(x.device_mesh, tuple(pl)))
+
+
+def dense(x):
+    """x laid out contiguously: for a DTensor, its local block too (a
+    DTensor's ``contiguous()`` may leave a strided local block, which
+    the view rules after it reject)."""
+    if not is_dtensor(x):
+        return x.contiguous()
+    local = x.to_local()
+    if local.is_contiguous() and x.is_contiguous():
+        return x
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local.contiguous(), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=torch.empty(x.shape,
+                                                 device="meta").stride())
+
+
+def _settled(x):
+    """x with every Partial placement reduced to Replicate (a local
+    function must read whole values)."""
+    from torch.distributed.tensor import Partial, Replicate
+    if not any(isinstance(p, Partial) for p in x.placements):
+        return x
+    return redistribute(x, tuple(
+        Replicate() if isinstance(p, Partial) else p for p in x.placements))
+
+
+def local_call(fn, out_placements, *args):
+    """``fn(*args)`` on each rank's local shards of the DTensors among
+    ``args`` (nested lists, tuples and dicts too), through ``local_map``:
+    its outputs become DTensors with ``out_placements`` (one placements
+    tuple, or a tuple of them for several outputs).  Every DTensor is
+    passed with its own placements, Partial ones reduced first; the
+    caller puts them where ``fn``'s local arithmetic is right.  A
+    Partial in ``out_placements`` (an input's placements, read before
+    that reduction) means Replicate.
+
+    The gradient of an input replicated on a mesh dim along which an
+    output is sharded is Partial there: each rank's shard of the output
+    adds its part (a norm's scale over the rank's rows, a replicated KV
+    head read by the rank's query heads)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from torch.utils import _pytree as pytree
+
+    flat, spec = pytree.tree_flatten(args)
+    flat = [_settled(a) if is_dtensor(a) else a for a in flat]
+    mesh = next(a.device_mesh for a in flat if is_dtensor(a))
+    outs = out_placements if isinstance(out_placements[0], (tuple, list)) \
+        else (out_placements,)
+    outs = tuple(tuple(Replicate() if isinstance(p, Partial) else p
+                       for p in o) for o in outs)
+    split = [any(isinstance(o[i], Shard) for o in outs)
+             for i in range(mesh.ndim)]
+    in_pl = tuple(tuple(a.placements) if is_dtensor(a) else None
+                  for a in flat)
+    grad_pl = tuple(
+        None if pl is None else tuple(
+            Partial() if split[i] and not isinstance(p, Shard) else p
+            for i, p in enumerate(pl))
+        for pl in in_pl)
+
+    def flat_fn(*leaves):
+        return fn(*pytree.tree_unflatten(list(leaves), spec))
+    # local_map reads a tuple as one placements entry per output and a
+    # list as the placements of a single output
+    out = tuple(list(o) for o in outs)
+    return local_map(flat_fn, out_placements=out if len(out) > 1 else out[0],
+                     in_placements=in_pl, in_grad_placements=grad_pl,
+                     device_mesh=mesh)(*flat)
+
+
+def mesh_of(tree):
+    """The device mesh of the first DTensor leaf of ``tree``, or None."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            m = mesh_of(t)
+            if m is not None:
+                return m
+        return None
+    return tree.device_mesh if is_dtensor(tree) else None
+
+
+def local_shard(t: torch.Tensor, mesh, pl) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under placements
+    ``pl`` on ``mesh``: a view (no copy) where nothing is split.  Every
+    split dim must divide evenly."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            n = mesh.size(i)
+            d = p.dim % t.dim()
+            if t.shape[d] % n:
+                raise ValueError(
+                    f"dim {d} of size {t.shape[d]} does not divide over "
+                    f"mesh axis {mesh.mesh_dim_names[i]!r} of {n}")
+            step = t.shape[d] // n
+            t = t.narrow(d, coord[i] * step, step)
+    return t
+
+
+def shard_as(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The whole tensor ``t`` (the same on every rank) as a DTensor with
+    ``spec``'s placements, built from this rank's block of it (no
+    collective; no copy where nothing is split).  A DTensor is
+    redistributed."""
+    pl = placements(mesh, spec)
+    if is_dtensor(t):
+        return t if tuple(t.placements) == pl else redistribute(t, pl)
+    return _from_whole(t, mesh, pl)
+
+
+def shard_like(t: torch.Tensor, like) -> torch.Tensor:
+    """The whole tensor ``t`` placed as the DTensor ``like`` (its mesh
+    and placements), from this rank's block."""
+    return _from_whole(t, like.device_mesh, tuple(like.placements))
+
+
+def _from_whole(t: torch.Tensor, mesh, pl):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local_shard(t, mesh, pl).contiguous(), mesh,
+                              pl, run_check=False)
+
+
+def shard_batch(params, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, ...) sharded on ``batch`` over the mesh of ``params``
+    under the installed rules (the reference's ``batch_spec``), when the
+    params are DTensors; ``t`` itself otherwise.  Sharded params need
+    the rules installed (``use_rules``)."""
+    mesh = mesh_of(params)
+    if mesh is None:
+        return t
+    if _ACTIVE_RULES is None:
+        raise ValueError("the params are DTensors: install the sharding "
+                         "rules with repro_torch.models.params.use_rules")
+    return shard_as(t, mesh, spec_of(("batch",) + (None,) * (t.dim() - 1),
+                                     _ACTIVE_RULES))

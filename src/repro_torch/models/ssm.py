@@ -43,15 +43,15 @@ def mamba2_schema(cfg):
     W = cfg.ssm_conv
     conv_ch = d_in + 2 * N
     return {
-        "in_zx": P((d, 2 * d_in)),
-        "in_bcdt": P((d, 2 * N + H)),
-        "conv_w": P((W, conv_ch), scale=0.5),
-        "conv_b": P((conv_ch,), init="zeros"),
-        "A_log": P((H,), init="zeros"),
-        "dt_bias": P((H,), init="zeros"),
-        "D": P((H,), init="ones"),
-        "norm": P((d_in,), init="ones"),
-        "out": P((d_in, d)),
+        "in_zx": P((d, 2 * d_in), ("embed", "ssm_inner")),
+        "in_bcdt": P((d, 2 * N + H), ("embed", None)),
+        "conv_w": P((W, conv_ch), (None, None), scale=0.5),
+        "conv_b": P((conv_ch,), (None,), init="zeros"),
+        "A_log": P((H,), (None,), init="zeros"),
+        "dt_bias": P((H,), (None,), init="zeros"),
+        "D": P((H,), (None,), init="ones"),
+        "norm": P((d_in,), (None,), init="ones"),
+        "out": P((d_in, d), ("ssm_inner", "embed")),
     }
 
 

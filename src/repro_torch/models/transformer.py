@@ -48,9 +48,19 @@ path), with the reference's ``remat``, each checkpoint a
 ``"block"`` recomputes each self layer in the backward (the reference's
 scan body); ``"group"`` recomputes each of the VLM's groups, its self
 layers and its cross layer (the reference's group body), and does
-nothing without cross-attention; ``"full"`` does nothing.  ``fsdp`` and
-``shard_kv_seq`` (sharding over several cards) raise
-``NotImplementedError`` (``check_run``).
+nothing without cross-attention; ``"full"`` does nothing.
+
+Sharded over a device mesh (the dense and MoE families): params are
+DTensors placed by ``launch.shardings.model_param_pspecs`` (``fsdp``
+moves the weights' ``embed`` axis onto ``data``), the rules installed
+with ``params.use_rules``.  Tokens are sharded on ``data``, activations
+constrained where the reference constrains them, the kernels run on
+each rank's block (``layers``), the cache is placed by
+``launch.shardings.cache_pspecs`` and written on each rank's block
+(``kv_cache``).
+``shard_kv_seq``, the VLM under a mesh and the decode knobs that read
+across rows under a mesh (``decode_slice_reads``) raise
+``NotImplementedError`` (``check_run``, ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -68,12 +78,16 @@ from repro_torch.models.layers import (
     decode_attention_with_new, embed, embed_schema, mlp_schema, norm_schema,
     out_project, q_project, qkv_project, rope_tables, unembed)
 from repro_torch.models.moe import apply_moe, moe_schema
-from repro_torch.models.params import P, map_schema
+from repro_torch.models.params import (P, active_rules, constrain,
+                                       is_dtensor, map_schema, mesh_of,
+                                       shard_batch)
 
-# RunConfig fields the port does not implement, with the value that
-# means "off" (the reference's default): sharding over several cards
-# (ROADMAP queue 1 item 9)
-_UNPORTED_KNOBS = {"fsdp": False, "shard_kv_seq": False}
+# the families that run under a device mesh; the rest of sharding is
+# ROADMAP queue 1 item 9
+SHARDED_FAMILIES = ("dense", "moe")
+_REST = ("the rest of ROADMAP queue 1 item 9: the other families under a "
+         "mesh, shard_kv_seq, the dry run's collective term at the "
+         "production meshes, multi-card VLM and MoE training")
 
 
 def segment(recompute: bool, fn, *args, **kw):
@@ -89,12 +103,28 @@ def segment(recompute: bool, fn, *args, **kw):
 
 def check_run(cfg: ModelConfig, run: RunConfig) -> None:
     """Raise for what the port's models do not implement, in every
-    family: the knobs of sharding over several cards."""
-    for name, off in _UNPORTED_KNOBS.items():
-        if getattr(run, name) != off:
+    family: ``shard_kv_seq``; ``fsdp`` outside the dense and MoE
+    families; under installed sharding rules, a family other than those
+    two, and ``decode_slice_reads`` (its window starts at the smallest
+    position of the whole batch)."""
+    if run.shard_kv_seq:
+        raise NotImplementedError(
+            f"RunConfig.shard_kv_seq=True is not ported (only False; "
+            f"{_REST})")
+    sharded = cfg.family in SHARDED_FAMILIES
+    if run.fsdp and not sharded:
+        raise NotImplementedError(
+            f"RunConfig.fsdp=True is ported for the {SHARDED_FAMILIES} "
+            f"families, not {cfg.family!r} ({_REST})")
+    if active_rules() is not None:
+        if not sharded:
             raise NotImplementedError(
-                f"RunConfig.{name}={getattr(run, name)!r} is not ported "
-                f"(only {off!r}; sharding is ROADMAP queue 1 item 9)")
+                f"family {cfg.family!r} under a device mesh is not ported "
+                f"(only {SHARDED_FAMILIES}; {_REST})")
+        if run.decode_slice_reads and run.decode_window:
+            raise NotImplementedError(
+                f"decode_slice_reads under a device mesh is not ported "
+                f"({_REST})")
     if run.prefill_logits not in ("all", "last"):
         raise ValueError(f"prefill_logits={run.prefill_logits!r}")
 
@@ -105,8 +135,8 @@ def check_run(cfg: ModelConfig, run: RunConfig) -> None:
 
 def stack_schema(sub, n: int):
     """Every leaf of ``sub`` with a leading layer axis of size n."""
-    return map_schema(lambda p, _path: P((n,) + p.shape, init=p.init,
-                                         scale=p.scale), sub)
+    return map_schema(lambda p, _path: P((n,) + p.shape, ("layers",) + p.axes,
+                                         init=p.init, scale=p.scale), sub)
 
 
 def _layer_schema(cfg: ModelConfig):
@@ -122,8 +152,8 @@ def _layer_schema(cfg: ModelConfig):
 def _cross_layer_schema(cfg: ModelConfig):
     return {"ln1": norm_schema(cfg), "attn": attn_schema(cfg),
             "ln2": norm_schema(cfg), "mlp": mlp_schema(cfg),
-            "gate_attn": P((1,), init="zeros"),
-            "gate_mlp": P((1,), init="zeros")}
+            "gate_attn": P((1,), (None,), init="zeros"),
+            "gate_mlp": P((1,), (None,), init="zeros")}
 
 
 def cross_groups(cfg: ModelConfig):
@@ -181,9 +211,9 @@ def block_seq(cfg, lp, x, positions, rope_tab, run: RunConfig,
     q, k, v = qkv_project(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x),
                           positions=positions, rope_tab=rope_tab)
     o = chunked_attention(q, k, v, causal=causal, window=window)
-    x = x + out_project(lp["attn"], o)
+    x = constrain(x + out_project(lp["attn"], o), ("batch", "seq", "embed"))
     h, aux = _ffn(cfg, lp, apply_norm(cfg, lp["ln2"], x), run)
-    return x + h, aux, (k, v)
+    return constrain(x + h, ("batch", "seq", "embed")), aux, (k, v)
 
 
 def block_decode(cfg, lp, x, pos, kc, vc, run: RunConfig, rope_tab, index,
@@ -225,7 +255,8 @@ def cross_attn_seq(cfg, lp, x, memory):
     o = chunked_attention(q, k, v, causal=False)
     x = x + torch.tanh(lp["gate_attn"]) * out_project(lp["attn"], o)
     h = apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
-    return x + torch.tanh(lp["gate_mlp"]) * h, (k, v)
+    x = x + torch.tanh(lp["gate_mlp"]) * h
+    return constrain(x, ("batch", "seq", "embed")), (k, v)
 
 
 def cross_attn_decode(cfg, lp, x, ck, cv, memory_len):
@@ -309,7 +340,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
     them.  The VLM reads ``extras["vision_embeds"]`` (B, Tv, d)."""
     check_run(cfg, run)
     S = tokens.shape[1]
-    x = embed(params["embed"], tokens)
+    tokens = shard_batch(params, tokens)
+    x = constrain(embed(params["embed"], tokens), ("batch", "seq", "embed"))
     positions = torch.arange(S, dtype=torch.float32,
                              device=tokens.device)[None]
     window = run.decode_window or 0
@@ -387,12 +419,18 @@ def stacked_kv(cfg: ModelConfig, n, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
-               device="cuda"):
+               device="cuda", mesh=None):
     """{"pos": (B,) int32, "k"/"v": (L, B, max_len, KV, D)} of zeros
     (int8: dicts of q and scales); the VLM's "k"/"v" are (G, n_self, B,
     max_len, KV, D), and its "cross_k"/"cross_v" (G, B, Tv, KV, D).
-    ``device="meta"`` gives shapes only."""
+    ``device="meta"`` gives shapes only.  With a device ``mesh`` (and
+    rules installed), DTensors placed by ``shardings.cache_pspecs``."""
     check_run(cfg, run)
+    if mesh is not None:
+        from repro_torch.launch import shardings
+        return shardings.distribute(
+            init_cache(cfg, batch, max_len, run, device), mesh,
+            shardings.cache_pspecs(cfg, run, active_rules() or {}))
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.cross_attn_every:
         G, n_self = cross_groups(cfg)
@@ -444,6 +482,16 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
     logits, _, kvs = forward(
         cfg, params, tokens, run, extras, collect_kv=True,
         last_only=run.prefill_logits == "last")
+    mesh = mesh_of(params)
+    if mesh is not None:
+        cache = init_cache(cfg, B, max_len, run, tokens.device, mesh)
+        pos0 = shard_batch(params, torch.zeros(
+            (B,), dtype=torch.int32, device=tokens.device))
+        for name, new in zip(("k", "v"), kvs):
+            write_stacked(*kv_cache.local_blocks(cache[name], new, pos0, 1))
+        cache["pos"] = shard_batch(params, torch.full(
+            (B,), S, dtype=torch.int32, device=tokens.device))
+        return logits, cache
     cache = init_cache(cfg, B, max_len, run, tokens.device)
     pos0 = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
     if cfg.cross_attn_every:
@@ -467,12 +515,13 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     in place and returned (``pos`` is new either way)."""
     check_run(cfg, run)
     pos = cache["pos"]
-    x = embed(params["embed"], token)
+    token = shard_batch(params, token)
+    x = constrain(embed(params["embed"], token), ("batch", None, "embed"))
     kc_all, vc_all = step_buffers(cache, run)
     # shared by every layer: rotary tables and cache write slots
     tab = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[-3]
-    index = kv_cache.write_index(pos, 1, S)
+    index = None if is_dtensor(pos) else kv_cache.write_index(pos, 1, S)
     if cfg.cross_attn_every:
         G, n_self = cross_groups(cfg)
         mem_len = torch.full((token.shape[0],), cfg.num_vision_tokens,

@@ -45,18 +45,18 @@ def mlstm_schema(cfg):
     d_in, H, _ = mlstm_dims(cfg)
     W = 4
     return {
-        "up": P((d, 2 * d_in)),
-        "conv_w": P((W, d_in), scale=0.5),
-        "conv_b": P((d_in,), init="zeros"),
-        "wq": P((d_in, d_in)),
-        "wk": P((d_in, d_in)),
-        "wv": P((d_in, d_in)),
-        "wi": P((d_in, H), scale=0.02),
-        "wf": P((d_in, H), scale=0.02),
-        "bi": P((H,), init="zeros"),
-        "bf": P((H,), init="ones"),     # bias toward remembering
-        "norm": P((d_in,), init="ones"),
-        "down": P((d_in, d)),
+        "up": P((d, 2 * d_in), ("embed", "ssm_inner")),
+        "conv_w": P((W, d_in), (None, None), scale=0.5),
+        "conv_b": P((d_in,), (None,), init="zeros"),
+        "wq": P((d_in, d_in), ("ssm_inner", None)),
+        "wk": P((d_in, d_in), ("ssm_inner", None)),
+        "wv": P((d_in, d_in), ("ssm_inner", None)),
+        "wi": P((d_in, H), ("ssm_inner", None), scale=0.02),
+        "wf": P((d_in, H), ("ssm_inner", None), scale=0.02),
+        "bi": P((H,), (None,), init="zeros"),
+        "bf": P((H,), (None,), init="ones"),   # bias toward remembering
+        "norm": P((d_in,), (None,), init="ones"),
+        "down": P((d_in, d), ("ssm_inner", "embed")),
     }
 
 
@@ -140,15 +140,16 @@ def slstm_schema(cfg):
     d_ff = int(round(4 * d / 3 / 64)) * 64 or 64     # paper's 4/3 post-FFN
     gates = {}
     for g in GATES:
-        gates[f"w{g}"] = P((d, d), scale=0.02)
-        gates[f"r{g}"] = P((H, Dh, Dh), scale=0.02)
-        gates[f"b{g}"] = P((d,), init="ones" if g == "f" else "zeros")
+        gates[f"w{g}"] = P((d, d), ("embed", None), scale=0.02)
+        gates[f"r{g}"] = P((H, Dh, Dh), (None, None, None), scale=0.02)
+        gates[f"b{g}"] = P((d,), (None,),
+                           init="ones" if g == "f" else "zeros")
     return {
         **gates,
-        "norm": P((d,), init="ones"),
-        "ffn_up": P((d, d_ff)),
-        "ffn_gate": P((d, d_ff)),
-        "ffn_down": P((d_ff, d)),
+        "norm": P((d,), (None,), init="ones"),
+        "ffn_up": P((d, d_ff), ("embed", "mlp")),
+        "ffn_gate": P((d, d_ff), ("embed", "mlp")),
+        "ffn_down": P((d_ff, d), ("mlp", "embed")),
     }
 
 

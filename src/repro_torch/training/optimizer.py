@@ -71,10 +71,10 @@ def tree_map(fn, tree):
 
 def init_state(params):
     """{"step": int32 0, "m": zeros, "v": zeros}, float32 moments on
-    each leaf's device."""
+    each leaf's device (placed as each leaf where params are
+    DTensors)."""
     device = leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
             "m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
@@ -107,4 +107,6 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
             + cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
     new_state = {"step": step, "m": state["m"], "v": state["v"]}
+    if hasattr(gnorm, "full_tensor"):     # DTensor grads: a plain metric
+        gnorm = gnorm.full_tensor()
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -21,6 +21,11 @@ autograd (under ``remat`` the recompute launches them again):
 
 An explicit ``torch.Generator`` takes the place of the reference's PRNG
 key.
+
+Params may be DTensors over a device mesh (the dense and MoE families,
+``launch.shardings.distribute`` under ``params.use_rules``): the loss
+comes back replicated, each leaf's gradient is placed as the leaf, and
+AdamW and the global-norm clip run as DTensor ops.
 """
 
 from __future__ import annotations
@@ -62,8 +67,9 @@ def release(params):
 
 
 def _grads(params, prefix=""):
-    """The tree of the leaves' ``.grad``; raises naming a leaf that got
-    none (a detached output on its path)."""
+    """The tree of the leaves' ``.grad``, a DTensor leaf's placed as the
+    leaf (a Partial sum reduced); raises naming a leaf that got none (a
+    detached output on its path)."""
     if isinstance(params, dict):
         return {k: _grads(v, f"{prefix}{k}/") for k, v in params.items()}
     if isinstance(params, (list, tuple)):
@@ -71,7 +77,11 @@ def _grads(params, prefix=""):
     if params.grad is None:
         raise ValueError(f"train: no gradient reached param "
                          f"{prefix.rstrip('/')}")
-    return params.grad
+    g = params.grad
+    if hasattr(g, "placements") and g.placements != params.placements:
+        g = params.grad = g.redistribute(params.device_mesh,
+                                         params.placements)
+    return g
 
 
 def extras_on(extras, device):

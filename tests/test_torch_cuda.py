@@ -598,7 +598,7 @@ def test_zamba2_on_card_matches_cpu(cuda):
     each softmax is one-hot, so rounding would pick the winning key."""
     run = RunConfig()
     sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
-                     else P(p.shape, scale=0.05), zamba2.schema(D80))
+                     else P(p.shape, p.axes, scale=0.05), zamba2.schema(D80))
     params = init_params(sch, torch.Generator().manual_seed(0), "cpu")
     toks = torch.tensor(np.random.default_rng(1).integers(
         0, D80.vocab_size, (3, 32)), dtype=torch.int64)
@@ -922,7 +922,7 @@ def test_full_width_train_step_leaves_no_grad_none(cuda, remat):
     from repro_torch.training.data import DataConfig, batches
     cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2)
     sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
-                     else P(p.shape, scale=0.02),
+                     else P(p.shape, p.axes, scale=0.02),
                      api.get_model(cfg).schema(cfg))
     params = init_params(sch, torch.Generator(device=cuda).manual_seed(0),
                          cuda)
@@ -950,7 +950,7 @@ def test_zamba2_train_step_through_ssd_scan(cuda):
     from repro_torch.training import optimizer as opt
     from repro_torch.training import train
     sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
-                     else P(p.shape, scale=0.05), zamba2.schema(D80))
+                     else P(p.shape, p.axes, scale=0.05), zamba2.schema(D80))
     params = init_params(sch, torch.Generator().manual_seed(0), "cpu")
     toks = torch.tensor(np.random.default_rng(1).integers(
         0, D80.vocab_size, (2, 65)), dtype=torch.int64)
@@ -1224,7 +1224,7 @@ def _family_params(cfg):
     [0.5, 1] (zeros would leave its cross layers out)."""
     from repro_torch.models import api
     sch = map_schema(lambda p, _: p if p.init in ("ones", "zeros")
-                     else P(p.shape, scale=0.05),
+                     else P(p.shape, p.axes, scale=0.05),
                      api.get_model(cfg).schema(cfg))
     params = init_params(sch, torch.Generator().manual_seed(0), "cpu")
     if cfg.cross_attn_every:
@@ -1502,3 +1502,64 @@ def test_decode_knobs_on_card_match_cpu(cuda, knobs, kv_dtype):
         outs[str(dev)] = got
     for got, want in zip(outs[str(cuda)], outs["cpu"]):
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+# -- sharding: the one-card NCCL mesh -----------------------------------------
+
+@pytest.fixture
+def one_card_mesh(cuda, tmp_path):
+    """A (data 1, model 1) mesh over an NCCL world of one (file store
+    under tmp_path), torn down after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_host_mesh(model=1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-moe-16b"])
+def test_sharded_one_card_mesh_matches_unsharded(one_card_mesh, arch):
+    """A smoke prefill and 3 greedy decode steps sharded on the one-card
+    mesh (DTensor params, the kernels reached through local_map) against
+    the unsharded run on the same params: tokens equal, logits within
+    1e-5 of the largest, and each kernel's launch count rising by what
+    the unsharded run launches."""
+    from repro_torch.config import sharding_rules_for
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.models.params import use_rules
+    cfg = smoke_variant(get_config(arch))
+    run = RunConfig(kv_cache_dtype="float32")
+    rules = sharding_rules_for(cfg, mesh_axis_sizes(one_card_mesh), run)
+    params = _tree_to(_family_params(cfg), "cuda")
+    toks = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 16)), dtype=torch.int64, device="cuda")
+    ops_ = {"rmsnorm": rms_ops, "flash_attention": fa_ops,
+            "decode_attention": dec_ops}
+    outs, launched = {}, {}
+    for key in ("plain", "sharded"):
+        p = params
+        if key == "sharded":
+            p = shd.distribute(params, one_card_mesh,
+                               shd.model_param_pspecs(cfg, rules, False))
+        before = {n: m.launches for n, m in ops_.items()}
+        got = []
+        with use_rules(rules if key == "sharded" else None), \
+                torch.no_grad():
+            logits, cache = api.make_prefill_step(cfg, run, 24)(p, toks)
+            for _ in range(3):
+                full = logits.full_tensor() if key == "sharded" else logits
+                got.append(full[:, -1].float().cpu())
+                tok = full[:, -1].argmax(-1)[:, None]
+                logits, cache = api.make_decode_step(cfg, run)(p, tok, cache)
+        launched[key] = {n: m.launches - before[n] for n, m in ops_.items()}
+        outs[key] = got
+    assert launched["sharded"] == launched["plain"]
+    assert all(v > 0 for v in launched["sharded"].values())
+    for got, want in zip(outs["sharded"], outs["plain"]):
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())

@@ -227,8 +227,10 @@ class TestSharedKwargs:
         fleet = P.make_fleet_scenario(n_cells=2, horizon=2.0, rate=1.0)
         with pytest.raises(TypeError, match="execute_kwargs"):
             P.FleetProvisioner(fleet, execute_kwargs={})
-        with pytest.raises(NotImplementedError, match="devices"):
-            P.FleetProvisioner(fleet, devices=["cuda:0"]).run()
+        # the fleet takes devices= and, on an engine without batching
+        # (vec, the default), drops it as the reference does
+        assert P.FleetProvisioner(fleet, devices=["cuda:0"]).run().result \
+            .mean_fid == P.FleetProvisioner(fleet).run().result.mean_fid
 
     def test_online_execute_modes(self):
         on = P.OnlineProvisioner(ps.make_scenario(K=3, arrival_rate=1.0),

@@ -168,13 +168,21 @@ class TestEngineParity:
 
     @pytest.mark.parametrize("mode", ["event", "epoch"])
     def test_devices_raises(self, mode):
-        # torch: torchplan.replan_many raises; vec and scalar have no
-        # batched path, and simulate_fleet raises rather than drop it
+        """``devices=`` no longer raises: the torch engine shards its
+        batched replans across devices (here two CPU "devices") with the
+        unsharded run's results; vec and scalar have no batched path and
+        drop it, as the reference does."""
         for engine in ("torch", "vec", "scalar"):
-            with device_scope("cpu"), pytest.raises(NotImplementedError,
-                                                    match="devices"):
-                pf.simulate_fleet(small_fleet(pf, pt), mode=mode,
-                                  engine=engine, devices=["cuda:0"])
+            with device_scope("cpu"):
+                want = pf.simulate_fleet(small_fleet(pf, pt), mode=mode,
+                                         engine=engine)
+                got = pf.simulate_fleet(small_fleet(pf, pt), mode=mode,
+                                        engine=engine,
+                                        devices=["cpu", "cpu"])
+            assert got.mean_fid == want.mean_fid
+            assert got.outage_rate == want.outage_rate
+            assert [getattr(got, k) for k in COUNTS] == \
+                [getattr(want, k) for k in COUNTS]
 
 
 class TestCrossMode:
@@ -430,6 +438,10 @@ class TestApiFacade:
         _close(vec.result, got.result)
         assert got.result.engine == "torch"
         assert got.result.planner_calls < vec.result.planner_calls
-        with pytest.raises(NotImplementedError, match="devices"):
-            FleetProvisioner(fleet, engine="torch", device="cpu",
-                             devices=["cuda:0"]).run()
+        # devices=2: two CPU "devices" (torchplan.resolve_devices), the
+        # same results as one
+        two = FleetProvisioner(fleet, allocator="inv_se", engine="torch",
+                               device="cpu", devices=2).run()
+        assert two.result.mean_fid == got.result.mean_fid
+        assert [getattr(two.result, k) for k in COUNTS] == \
+            [getattr(got.result, k) for k in COUNTS]

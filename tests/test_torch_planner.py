@@ -427,10 +427,17 @@ class TestTorchEngine:
         with pytest.raises(TypeError, match="PowerLawFID"):
             torchplan.plan_many(np.ones((2, 3)), delay=DELAY,
                                 quality=_OffsetQuality(QUALITY, [0] * 3))
+        # devices= shards the scenario axis (two CPU "devices" here) with
+        # the unsharded results; more devices than there are raise
         for fn in (torchplan.plan_many, torchplan.replan_many):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                fn(np.ones((2, 3)), delay=DELAY, quality=QUALITY,
-                   devices=2)
+            one = fn(taus, delay=DELAY, quality=QUALITY, valid=valid)
+            two = fn(taus, delay=DELAY, quality=QUALITY, valid=valid,
+                     devices=2)
+            for field in ("best_level", "steps", "mean_fid", "makespan"):
+                assert np.array_equal(getattr(one, field),
+                                      getattr(two, field))
+            with pytest.raises(ValueError, match="devices=100000"):
+                fn(taus, delay=DELAY, quality=QUALITY, devices=100000)
 
     def test_replan_many_matches_the_vec_residual_replan(self):
         rng = np.random.default_rng(11)

@@ -138,7 +138,18 @@ assert {"repro_torch.models.ssm", "repro_torch.models.zamba2",
         "repro_torch.core.fleet", "repro_torch.api.base",
         "repro_torch.api.online", "repro_torch.api.placements",
         "repro_torch.api.multiserver",
-        "repro_torch.api.fleet"} <= set(names), names
+        "repro_torch.api.fleet", "repro_torch.launch.mesh",
+        "repro_torch.launch.shardings",
+        "repro_torch.core.torchplan.sharded"} <= set(names), names
+# the sharding layer at work with jax blocked: the specs of a config
+from repro_torch.config import get_config, sharding_rules_for
+from repro_torch.launch import shardings
+cfg = get_config("deepseek-moe-16b")
+rules = sharding_rules_for(cfg, {"data": 16, "model": 16})
+assert tuple(shardings.model_param_pspecs(cfg, rules, True)[
+    "layers"]["moe"]["up"]) == (None, "model", "data", None)
+assert "jax" not in [m.split(".")[0] for m in sys.modules
+                     if sys.modules[m] is not None]
 from repro_torch.core import arrays
 assert arrays.engine_impl("torch").name == "torch"
 print(len(names))
