@@ -338,11 +338,20 @@ one card:
                  greedy decode steps at B=8 on the same params both ways
                  (tokens equal, logits within 1e-5 of the largest);
                  deepseek-moe-16b at full width and 4 of 28 layers, the
-                 same serving check; plan_many_sharded and
-                 replan_many_sharded (devices=None, S=1000) == the
-                 unsharded calls.  Both times of each step are printed
-                 with the card; the sharded runs' launches must equal
-                 the unsharded counts and join the kernels line under
+                 same serving check; then zamba2-2.7b, whisper-tiny and
+                 xlstm-125m at full size and llama-3.2-vision-90b at 5
+                 of 100 layers (one group; its gates drawn), the same
+                 serving check over drawn frames and vision embeddings,
+                 and a train step each but the VLM's (zamba2 B=8 S=512
+                 remat "group", ssd_scan through local_map; whisper B=8
+                 S=512; xLSTM B=8 S=128), the updated params of each run
+                 on the host before the next draws its own;
+                 plan_many_sharded and replan_many_sharded
+                 (devices=None, S=1000) == the unsharded calls.  Both
+                 times of each step are printed with the card; the
+                 sharded runs' launches must equal the unsharded counts,
+                 every kernel but groupnorm_silu must launch, and they
+                 join the kernels line under
                  ``launches_by_path["sharded"]``.
 
 The last lines are the card (nvidia-smi), one JSON object with the
@@ -4766,6 +4775,17 @@ def phase_fleet(wl, g, card):
 SHARD_TRAIN = dict(batch=8, seq=512, remat="block")
 SHARD_SERVE = dict(batch=8, prompt=128, steps=8)
 SHARD_MOE_LAYERS = 4        # deepseek-moe-16b at full width, 4 of 28
+SHARD_VLM_LAYERS = 5        # llama-3.2-vision-90b: one group (4 self
+                            # layers, 1 cross layer) of its 100 layers
+# the hybrid, ssm, audio and VLM families at full width: arch -> the
+# train step's shape, or None (the VLM: serving only).  zamba2 trains at
+# B=8: the unsharded run's updated params go to the host before the
+# sharded copy is drawn, so the card holds one run at a time.  xLSTM at
+# S=128: its sLSTM loop is one step of eager ops per token
+SHARD_FAMILY_TRAIN = {"zamba2-2.7b": dict(batch=8, seq=512, remat="group"),
+                      "whisper-tiny": dict(batch=8, seq=512, remat="none"),
+                      "xlstm-125m": dict(batch=8, seq=128, remat="none"),
+                      "llama-3.2-vision-90b": None}
 SHARD_TOL = 1e-5            # of the largest |logit|, against unsharded
 SHARD_PLAN = dict(S=1000, K=20)
 
@@ -4790,21 +4810,24 @@ def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def sharded_train(cfg, mesh, card):
+def sharded_train(cfg, mesh, card, shape=SHARD_TRAIN, extras=None):
     """One train step (``training.train.make_train_step``, AdamW) of
-    ``cfg`` at SHARD_TRAIN unsharded, then on DTensor params on the mesh
-    from the same draw: loss, |g| and every updated leaf compared, both
-    step times, the sharded step's launches (== expected)."""
+    ``cfg`` at ``shape`` (batch, seq, remat) unsharded, then on DTensor
+    params on the mesh from the same draw (``extras``, the modality
+    inputs, sharded on ``data`` by the step): loss, |g| and every
+    updated leaf compared, both step times and peaks, the sharded step's
+    launches (== expected).  Each run's updated params go to the host
+    before the next run draws its own, so the card holds one run."""
     import torch
     from repro_torch.config import RunConfig
     from repro_torch.launch import shardings as shd
     from repro_torch.models.params import use_rules
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train import make_train_step, release
-    run = RunConfig(remat=SHARD_TRAIN["remat"])
+    run = RunConfig(remat=shape["remat"])
     rules = _sharded_rules(cfg, mesh, run)
     toks, labels = (torch.as_tensor(a, device="cuda") for a in next(
-        _train_data(cfg, SHARD_TRAIN["batch"], SHARD_TRAIN["seq"])))
+        _train_data(cfg, shape["batch"], shape["seq"])))
     step = make_train_step(cfg, run, _ocfg())
     out, updated = {}, {}
     for key in ("unsharded", "sharded"):
@@ -4814,15 +4837,17 @@ def sharded_train(cfg, mesh, card):
                 cfg, rules, run.fsdp))
         state = opt.init_state(params)
         _zero_llm_counts()
+        torch.cuda.reset_peak_memory_stats()
         with use_rules(rules if key == "sharded" else None):
             ms, (params, state, m) = _timed(
-                lambda: step(params, state, toks, labels))
+                lambda: step(params, state, toks, labels, extras))
         out[f"{key}_ms"] = ms
+        out[f"{key}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         out[f"{key}_launches"] = _llm_counts()
         out[f"{key}_loss"] = float(m["loss"])
         out[f"{key}_grad_norm"] = float(m["grad_norm"])
         del state
-        updated[key] = [_full(p).detach() for p in
+        updated[key] = [_full(p).detach().cpu() for p in
                         opt.leaves(release(params))]
         del params
         torch.cuda.empty_cache()
@@ -4840,21 +4865,27 @@ def sharded_train(cfg, mesh, card):
     del updated
     torch.cuda.empty_cache()
     out.update(loss_rel_err=loss_err, params_rel_err=err)
-    log(f"[sharded] {cfg.name} train step B={SHARD_TRAIN['batch']} "
-        f"S={SHARD_TRAIN['seq']} remat={run.remat!r}: unsharded "
-        f"{out['unsharded_ms']:.1f} ms, sharded {out['sharded_ms']:.1f} ms "
-        f"on {card}; loss {out['sharded_loss']:.6f} (rel err "
+    log(f"[sharded] {cfg.name} ({cfg.num_layers} layers) train step "
+        f"B={shape['batch']} S={shape['seq']} remat={run.remat!r}: "
+        f"unsharded {out['unsharded_ms']:.1f} ms (peak "
+        f"{out['unsharded_peak_gib']:.2f} GiB), sharded "
+        f"{out['sharded_ms']:.1f} ms (peak {out['sharded_peak_gib']:.2f} "
+        f"GiB) on {card}; loss {out['sharded_loss']:.6f} (rel err "
         f"{loss_err:.3g}), |g| {out['sharded_grad_norm']:.4f}, updated "
         f"params rel err {err:.3g}; launches {out['sharded_launches']}")
-    return out
+    return dict(out, batch=shape["batch"], seq=shape["seq"],
+                remat=run.remat)
 
 
-def sharded_serve(cfg, mesh, card):
+def sharded_serve(cfg, mesh, card, extras=None, gates=False):
     """A prefill of SHARD_SERVE["prompt"] tokens and SHARD_SERVE["steps"]
-    greedy decode steps at batch SHARD_SERVE["batch"], unsharded and on
-    DTensor views of the same params (no copy on the one-card mesh):
-    tokens equal, logits within SHARD_TOL of the largest, each step's
-    time, the sharded run's launches (== expected)."""
+    greedy decode steps at batch SHARD_SERVE["batch"] (over ``extras``,
+    the modality inputs), unsharded and on DTensor views of the same
+    params (no copy on the one-card mesh; ``gates``: the VLM's tanh
+    gates drawn uniform in FAMILY_GATES, whose zeros would leave its
+    cross layers out): tokens equal, logits within SHARD_TOL of the
+    largest, each step's time, the sharded run's launches (==
+    expected)."""
     import numpy as np
     import torch
     from repro_torch.config import RunConfig
@@ -4865,6 +4896,13 @@ def sharded_serve(cfg, mesh, card):
     rules = _sharded_rules(cfg, mesh, run)
     B, S, n = (SHARD_SERVE[k] for k in ("batch", "prompt", "steps"))
     params = _fresh_params(cfg)
+    if gates:
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        lo, hi = FAMILY_GATES
+        for g in ("gate_attn", "gate_mlp"):
+            leaf = params["groups"]["cross"][g]
+            leaf.copy_(lo + (hi - lo) * torch.rand(
+                leaf.shape, generator=gen, device="cuda"))
     toks = torch.tensor(np.random.default_rng(11).integers(
         0, cfg.vocab_size, (B, S)), dtype=torch.int64, device="cuda")
     out, logits_by = {}, {}
@@ -4877,7 +4915,7 @@ def sharded_serve(cfg, mesh, card):
         got, toks_out, dec_ms = [], [], []
         with use_rules(rules if key == "sharded" else None), \
                 torch.no_grad():
-            ms, (logits, cache) = _timed(lambda: prefill(p, toks))
+            ms, (logits, cache) = _timed(lambda: prefill(p, toks, extras))
             for i in range(n + 1):
                 full = _full(logits)[:, -1].float()
                 got.append(full.cpu())
@@ -4885,7 +4923,7 @@ def sharded_serve(cfg, mesh, card):
                 toks_out.append(tok.cpu())
                 if i < n:
                     t, (logits, cache) = _timed(
-                        lambda: decode(p, tok, cache))
+                        lambda: decode(p, tok, cache, extras))
                     dec_ms.append(t)
         out[f"{key}_prefill_ms"] = ms
         out[f"{key}_decode_ms"] = statistics.median(dec_ms)
@@ -4950,6 +4988,35 @@ def sharded_plan(card):
     return out
 
 
+def sharded_families(mesh, card):
+    """zamba2-2.7b, whisper-tiny and xlstm-125m at full size and
+    llama-3.2-vision-90b at SHARD_VLM_LAYERS layers on the mesh: the
+    serving check of ``sharded_serve`` for each (whisper's frames and
+    the VLM's 1601 vision embeddings drawn from a seed, the VLM's gates
+    drawn) and a train step of ``sharded_train`` at SHARD_FAMILY_TRAIN
+    (whisper over drawn frames: over the reference's zero frames its |g|
+    overflows float32).  Returns the details by run."""
+    from repro_torch.configs.llama_3_2_vision_90b import CONFIG as VLM
+    from repro_torch.configs.whisper_tiny import CONFIG as WHISPER
+    from repro_torch.configs.xlstm_125m import CONFIG as XLSTM
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2
+    details = {}
+    for cfg in (ZAMBA2, WHISPER, XLSTM,
+                dataclasses.replace(VLM, num_layers=SHARD_VLM_LAYERS)):
+        t0 = time.perf_counter()
+        serve_x = fam_extras(cfg, SHARD_SERVE["batch"], "cuda", drawn=True)
+        details[f"{cfg.name}_serve"] = sharded_serve(
+            cfg, mesh, card, serve_x, gates=bool(cfg.cross_attn_every))
+        del serve_x
+        shape = SHARD_FAMILY_TRAIN[cfg.name]
+        if shape is not None:
+            details[f"{cfg.name}_train"] = sharded_train(
+                cfg, mesh, card, shape,
+                fam_extras(cfg, shape["batch"], "cuda", drawn=True))
+        log(f"[sharded] {cfg.name}: {time.perf_counter() - t0:.1f} s")
+    return details
+
+
 def phase_sharded(card):
     """Phase sharded (see the module docstring, phase 13): an NCCL world
     of one over a file store, a (1, 1) mesh from ``make_host_mesh``.
@@ -4973,15 +5040,21 @@ def phase_sharded(card):
         details["tinyllama_serve"] = sharded_serve(TINYLLAMA, mesh, card)
         moe = dataclasses.replace(DEEPSEEK, num_layers=SHARD_MOE_LAYERS)
         details["deepseek_serve"] = sharded_serve(moe, mesh, card)
+        t_fam = time.perf_counter()
+        details.update(sharded_families(mesh, card))
+        details["families_seconds"] = time.perf_counter() - t_fam
         details["plan"] = sharded_plan(card)
     finally:
         dist.destroy_process_group()
     launches = collections.Counter()
-    for key in ("tinyllama_train", "tinyllama_serve", "deepseek_serve"):
-        launches.update(details[key]["sharded_launches"])
+    for key, run in details.items():
+        if isinstance(run, dict) and "sharded_launches" in run:
+            launches.update(run["sharded_launches"])
     check(all(launches[k] > 0 for k in ("rmsnorm", "flash_attention",
-                                        "decode_attention")),
+                                        "decode_attention", "ssd_scan")),
           f"phase sharded: a kernel never launched ({dict(launches)})")
+    log(f"[sharded] the hybrid, ssm, audio and VLM families: "
+        f"{details['families_seconds']:.1f} s on {card}")
     details["seconds"] = time.perf_counter() - t0
     log(f"[done] phase sharded {details['seconds']:.1f} s on {card}")
     return dict(launches), details

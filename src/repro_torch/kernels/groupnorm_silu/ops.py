@@ -19,7 +19,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import KernelCost, build, launch, meta_call, nbytes
+from repro_torch.kernels import (KernelCost, build, launch, meta_call,
+                                 nbytes, refuse_dtensor)
 from repro_torch.kernels.groupnorm_silu.ref import (groupnorm_silu_ref,
                                                     num_groups_for)
 
@@ -120,6 +121,7 @@ def _entry():
 
 
 def _check(x, scale, bias, num_groups):
+    refuse_dtensor("groupnorm_silu", x, scale, bias)
     if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
     if x.dtype not in _DTYPES:

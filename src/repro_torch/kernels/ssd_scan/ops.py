@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.kernels import (TF32_OPS_PER_S, TF32_PER_F32_OP,
                                  KernelCost, build, launch, meta_call,
-                                 nbytes, plain_backward, with_grad)
+                                 nbytes, plain_backward, refuse_dtensor,
+                                 with_grad)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 launches = 0
@@ -40,6 +41,7 @@ def _entry():
 
 
 def _check(x, a, bmat, cmat, h0, chunk):
+    refuse_dtensor("ssd_scan", x, a, bmat, cmat, h0)
     if bmat.dim() == 4 or cmat.dim() == 4:
         raise NotImplementedError(
             "ssd_scan: per-head (B,S,H,N) B/C (the xLSTM form) is not "

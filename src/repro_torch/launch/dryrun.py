@@ -16,7 +16,7 @@ one card's: ``run_for`` is the reference's with ``fsdp`` and
 ``shard_kv_seq`` off, and no record has a collective term (the port
 shards over a device mesh, ``launch/shardings.py``, but the dry run's
 collective term at the production meshes is still to come, ROADMAP
-queue 1 item 9).  Records go
+queue 1 item 3).  Records go
 to ``artifacts/dryrun_torch/<arch>_<shape>[_opt].json``;
 ``ddim-cifar10`` is left out, as in the reference.  ``--smoke`` traces
 each arch's smoke variant instead of its full width.

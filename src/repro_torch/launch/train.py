@@ -14,13 +14,14 @@ It prints the reference's lines, with the card's name and power limit,
 tokens/s and peak device memory.  The checkpoint holds {"params",
 "opt"} under the reference's keys.
 
-Sharded (the dense and MoE families), as the reference's: a
-``(data, model)`` mesh of ``(world // N, N)`` for ``--model-parallel N``
-over the process group (one that the caller started, or ``torchrun``'s,
-NCCL on the card and gloo on the CPU, else a world of one started
-here), the rules of ``sharding_rules_for``, params and optimizer state
-distributed by ``shardings.model_param_pspecs`` and batches sharded on
-``data``.  It runs sharded whenever a process group exists or
+Sharded (every arch), as the reference's: a ``(data, model)`` mesh of
+``(world // N, N)`` for ``--model-parallel N`` over the process group
+(one that the caller started, or ``torchrun``'s, NCCL on the card and
+gloo on the CPU, else a world of one started here), the rules of
+``sharding_rules_for``, params and optimizer state distributed by
+``shardings.model_param_pspecs``, batches and whisper's and the VLM's
+stub modality inputs sharded on ``data`` (the step shards the
+latter).  It runs sharded whenever a process group exists or
 ``--model-parallel`` is above 1; the checkpoint is gathered and written
 by rank 0.
 """

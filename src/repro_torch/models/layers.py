@@ -33,8 +33,7 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.models.params import (P, constrain, is_dtensor,
-                                       local_call, redistribute,
-                                       rule_active)
+                                       local_call, rule_active, whole_along)
 
 NEG_INF = -1e30
 
@@ -48,19 +47,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     type), through the RMSNorm kernel's wrapper (on a DTensor, over the
     local rows, with the normalised axis and the scale replicated)."""
     if is_dtensor(x):
-        x = _whole_along(x, x.dim() - 1)
-        scale = _whole_along(scale, 0)
+        x = whole_along(x, x.dim() - 1)
+        scale = whole_along(scale, 0)
         return local_call(lambda a, s: rmsnorm_ops.rmsnorm(a, s, eps),
                           tuple(x.placements), x, scale)
     return rmsnorm_ops.rmsnorm(x, scale, eps)
-
-
-def _whole_along(x, dim: int):
-    """DTensor x with its dim ``dim`` replicated over every mesh axis."""
-    from torch.distributed.tensor import Replicate, Shard
-    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim % x.dim() == dim
-               else p for p in x.placements)
-    return x if pl == tuple(x.placements) else redistribute(x, pl)
 
 
 def layernorm(x, scale, bias, eps: float = 1e-5):
@@ -191,8 +182,9 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def q_project(p, x: torch.Tensor) -> torch.Tensor:
     """The query projection alone, einsum("bsd,dhk->bshk") with wq
-    (cross-attention decode, whose k and v sit in the cross cache)."""
-    return _project(x, p["wq"])
+    (cross-attention decode, whose k and v sit in the cross cache),
+    constrained as ``qkv_project``'s."""
+    return constrain(_project(x, p["wq"]), ("batch", "seq", "heads", None))
 
 
 def qkv_project(cfg, p, x, kv_x=None, positions=None, rope: bool = True,
@@ -200,7 +192,7 @@ def qkv_project(cfg, p, x, kv_x=None, positions=None, rope: bool = True,
     """Returns q (B,S,H,D), k/v (B,Skv,KV,D).  ``rope_tab``: the
     ``rope_tables`` of ``positions``, when the caller has them."""
     kv_x = x if kv_x is None else kv_x
-    q = constrain(_project(x, p["wq"]), ("batch", "seq", "heads", None))
+    q = q_project(p, x)
     k = constrain(_project(kv_x, p["wk"]), ("batch", "seq", "kv_heads", None))
     v = constrain(_project(kv_x, p["wv"]), ("batch", "seq", "kv_heads", None))
     if cfg.use_qkv_bias:
@@ -388,8 +380,15 @@ def embed_schema(cfg):
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
     if is_dtensor(p["tok"]):
         # DTensor's vocab-parallel lookup, the embed axis gathered first
-        # (fsdp shards it on data, as the tokens' batch)
-        return F.embedding(tokens, _whole_along(p["tok"], 1))
+        # (fsdp shards it on data, as the tokens' batch).  Under grad the
+        # vocab axis is gathered too: the vocab-parallel lookup leaves a
+        # masked Partial output, whose backward cannot take the Partial
+        # gradient that a row-split product upstream (the Mamba2, mLSTM
+        # and attention out projections) sends it
+        tab = whole_along(p["tok"], 1)
+        if torch.is_grad_enabled() and tab.requires_grad:
+            tab = whole_along(tab, 0)
+        return F.embedding(tokens, tab)
     return p["tok"][tokens]
 
 

@@ -360,6 +360,15 @@ def local_call(fn, out_placements, *args):
                      device_mesh=mesh)(*flat)
 
 
+def elementwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor, on each rank's
+    block (``local_call``), for the ops whose backward DTensor has no
+    sharding rule for (``F.logsigmoid``)."""
+    if not is_dtensor(x):
+        return fn(x)
+    return local_call(fn, tuple(x.placements), x)
+
+
 def mesh_of(tree):
     """The device mesh of the first DTensor leaf of ``tree``, or None."""
     if isinstance(tree, dict):
@@ -415,6 +424,18 @@ def _from_whole(t: torch.Tensor, mesh, pl):
                               pl, run_check=False)
 
 
+def zeros(shape, like, axes, dtype: torch.dtype = torch.float32):
+    """Zeros of ``shape`` on ``like``'s device; when ``like`` is a
+    DTensor, one on its mesh placed by the logical ``axes`` under the
+    installed rules (each rank allocates its block only)."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import zeros as dzeros
+    mesh = like.device_mesh
+    return dzeros(shape, dtype=dtype, device_mesh=mesh,
+                  placements=placements(mesh, spec_of(axes, _ACTIVE_RULES)))
+
+
 def shard_batch(params, t: torch.Tensor) -> torch.Tensor:
     """``t`` (B, ...) sharded on ``batch`` over the mesh of ``params``
     under the installed rules (the reference's ``batch_spec``), when the
@@ -428,3 +449,14 @@ def shard_batch(params, t: torch.Tensor) -> torch.Tensor:
                          "rules with repro_torch.models.params.use_rules")
     return shard_as(t, mesh, spec_of(("batch",) + (None,) * (t.dim() - 1),
                                      _ACTIVE_RULES))
+
+
+def whole_along(x, dim: int):
+    """DTensor x with its dim ``dim`` replicated over every mesh axis
+    (a plain tensor as it is)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim % x.dim() == dim
+               else p for p in x.placements)
+    return x if pl == tuple(x.placements) else redistribute(x, pl)

@@ -15,6 +15,15 @@ plain torch ops on every device: it was never a TPU kernel.  Decode is the
 O(1) recurrence in plain torch ops, as the reference gave it no kernel.
 Leaves keep the reference's layouts (``in_zx (d, 2 d_in)``, ``conv_w
 (W, C)``, ``out (d_in, d)``).
+
+Under a device mesh (DTensors, the rules installed) x and z are split
+on ``ssm_inner`` (``in_zx`` is column-split), B, C and dt stay whole
+(``in_bcdt`` is replicated): the conv runs on x's channels and on B/C's
+apart, the conv state stays whole (x's tail gathered), dt and its decay
+are cut to the rank's heads, and ``ssd_chunked`` reaches the kernel's
+wrapper on each rank's block through ``params.local_call`` (heads on
+``model``, the state with them); the per-head scan runs there on whole
+heads.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.params import P
+from repro_torch.models.params import (P, constrain, is_dtensor,
+                                       local_call, zeros)
 
 NEG_INF = -1e30
 
@@ -56,27 +66,54 @@ def mamba2_schema(cfg):
 
 
 def _split_proj(cfg, p, u):
-    """u: (B, S, d) -> z, xBC (pre-conv), dt."""
+    """u: (B, S, d) -> z, x (each (B, S, d_in), split on ``ssm_inner``
+    under a mesh), B and C (B, S, 2N), dt (B, S, H), each whole."""
     d_in, H, N = ssm_dims(cfg)
     z, x = (u @ p["in_zx"]).chunk(2, dim=-1)               # (B,S,d_in) each
-    bmat, cmat, dt = (u @ p["in_bcdt"]).split([N, N, H], dim=-1)
-    return z, torch.cat([x, bmat, cmat], dim=-1), dt
+    bc, dt = (u @ p["in_bcdt"]).split([2 * N, H], dim=-1)
+    return (constrain(z, ("batch", "seq", "ssm_inner")),
+            constrain(x, ("batch", "seq", "ssm_inner")), bc, dt)
 
 
-def _causal_conv(p, xbc, conv_state=None):
-    """Depthwise causal conv, width W.  xbc: (B, S, C).
-    conv_state: (B, W-1, C) previous inputs (decode) or None (prefill).
-    Returns (out, new_conv_state); the new state is in xbc's type,
-    whatever the type of the state passed in, as in the reference."""
-    W = p["conv_w"].shape[0]
-    S = xbc.shape[1]
+def causal_conv(w, b, xs, conv_state=None, channels=None):
+    """Depthwise causal conv, width W, of weights w (W, C) and bias b
+    (C,).  xs: (B, S, C), its channels on the logical axis
+    ``channels``.  conv_state: (B, W-1, C) previous inputs (decode) or
+    None (prefill).  Returns (out, new_conv_state); the new state is in
+    xs's type, whatever the type of the state passed in, as in the
+    reference."""
+    W = w.shape[0]
+    S = xs.shape[1]
     if conv_state is None:
-        pad = xbc.new_zeros((xbc.shape[0], W - 1, xbc.shape[2]))
+        pad = zeros((xs.shape[0], W - 1, xs.shape[2]), xs,
+                    ("batch", None, channels), xs.dtype)
     else:
-        pad = conv_state.to(xbc.dtype)
-    full = torch.cat([pad, xbc], dim=1)                     # (B, S+W-1, C)
-    out = sum(full[:, i:i + S] * p["conv_w"][i] for i in range(W))
-    return F.silu(out + p["conv_b"]), full[:, -(W - 1):]
+        pad = conv_state.to(xs.dtype)
+    full = torch.cat([pad, xs], dim=1)                      # (B, S+W-1, C)
+    out = sum(full[:, i:i + S] * w[i] for i in range(W))
+    return F.silu(out + b), full[:, -(W - 1):]
+
+
+def _conv(cfg, p, x, bc, conv_state=None):
+    """The reference's causal conv over the channels (x, B, C), run as
+    two convs: x's channels (split on ``ssm_inner`` under a mesh, the
+    weights' columns with them) and B/C's (whole).  The state stays the
+    reference's (B, W-1, d_in + 2N), x's part gathered under a mesh
+    (``cache_pspecs`` replicates it over ``model``).  Returns (x, B, C,
+    new state)."""
+    d_in, _, N = ssm_dims(cfg)
+    w_x, w_bc = p["conv_w"].split([d_in, 2 * N], dim=-1)
+    b_x, b_bc = p["conv_b"].split([d_in, 2 * N], dim=-1)
+    st_x = st_bc = None
+    if conv_state is not None:
+        st_x, st_bc = conv_state.split([d_in, 2 * N], dim=-1)
+        st_x = constrain(st_x, ("batch", None, "ssm_inner"))
+    x, tail_x = causal_conv(w_x, b_x, x, st_x, "ssm_inner")
+    bc, tail_bc = causal_conv(w_bc, b_bc, bc, st_bc)
+    bmat, cmat = bc.chunk(2, dim=-1)
+    tail = torch.cat([constrain(tail_x, ("batch", None, None)), tail_bc],
+                     dim=-1)
+    return x, bmat, cmat, tail
 
 
 def ssd_chunked(xh, dt_a, bmat, cmat, h0, *, chunk: int = 128):
@@ -93,6 +130,12 @@ def ssd_chunked(xh, dt_a, bmat, cmat, h0, *, chunk: int = 128):
     S = xh.shape[1]
     Q = min(chunk, S)
     assert S % Q == 0
+    if is_dtensor(xh):
+        # each rank's block: the shared-B/C kernel on the rank's heads
+        # (B/C whole), the per-head scan on whole heads
+        return local_call(lambda *a: ssd_chunked(*a, chunk=chunk),
+                          (tuple(xh.placements), tuple(h0.placements)),
+                          xh, dt_a, bmat, cmat, h0)
     if bmat.dim() == 4:
         return _ssd_chunked_per_head(xh, dt_a, bmat, cmat, h0, Q)
     return ssd_ops.ssd_scan(xh.contiguous(), dt_a.contiguous(),
@@ -138,19 +181,19 @@ def mamba2_forward(cfg, p, u, state=None, *, chunk: int = 128):
     d_in, H, N = ssm_dims(cfg)
     Pd = cfg.ssm_head_dim
 
-    z, xbc, dt = _split_proj(cfg, p, u)
-    conv_in = state["conv"] if state is not None else None
-    xbc, conv_state = _causal_conv(p, xbc, conv_in)
-    x, bmat, cmat = xbc.split([d_in, N, N], dim=-1)
+    z, x, bc, dt = _split_proj(cfg, p, u)
+    x, bmat, cmat, conv_state = _conv(
+        cfg, p, x, bc, state["conv"] if state is not None else None)
 
     dt = F.softplus(dt.float() + p["dt_bias"])              # (B,S,H)
+    dt = constrain(dt, ("batch", "seq", "ssm_inner"))       # rank's heads
     a = -torch.exp(p["A_log"].float())                      # (H,) < 0
     dt_a = dt * a                                           # log decay
 
     xh = x.reshape(B, S, H, Pd)
     xh_dt = xh.float() * dt[..., None]
-    h0 = state["ssm"] if state is not None \
-        else u.new_zeros((B, H, Pd, N), dtype=torch.float32)
+    h0 = state["ssm"] if state is not None else zeros(
+        (B, H, Pd, N), u, ("batch", "ssm_inner", None, None))
     y, h_fin = ssd_chunked(xh_dt, dt_a, bmat, cmat, h0, chunk=chunk)
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(B, S, d_in).to(u.dtype)
@@ -165,21 +208,21 @@ def mamba2_step(cfg, p, u, state):
     d_in, H, N = ssm_dims(cfg)
     Pd = cfg.ssm_head_dim
 
-    z, xbc, dt = _split_proj(cfg, p, u)
-    xbc, conv_state = _causal_conv(p, xbc, state["conv"])
-    x, bmat, cmat = xbc.split([d_in, N, N], dim=-1)
+    z, x, bc, dt = _split_proj(cfg, p, u)
+    x, bmat, cmat, conv_state = _conv(cfg, p, x, bc, state["conv"])
 
     dt = F.softplus(dt.float() + p["dt_bias"])              # (B,1,H)
+    dt = constrain(dt, ("batch", "seq", "ssm_inner"))
     a = -torch.exp(p["A_log"].float())
     decay = torch.exp(dt[:, 0] * a)                         # (B,H)
 
-    x32 = x.reshape(B, H, Pd).float()
+    x32 = x[:, 0].reshape(B, H, Pd).float()
     xh = x32 * dt[:, 0, :, None]
     h = state["ssm"] * decay[..., None, None] \
         + xh[..., None] * bmat[:, 0].float()[:, None, None, :]
     y = torch.einsum("bn,bhpn->bhp", cmat[:, 0].float(), h)
     y = y + x32 * p["D"][None, :, None]
-    y = y.reshape(B, 1, d_in).to(u.dtype)
+    y = y.reshape(B, d_in)[:, None].to(u.dtype)
     y = rmsnorm(y * F.silu(z), p["norm"])
     return y @ p["out"], {"conv": conv_state, "ssm": h}
 

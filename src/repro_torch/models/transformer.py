@@ -50,17 +50,18 @@ scan body); ``"group"`` recomputes each of the VLM's groups, its self
 layers and its cross layer (the reference's group body), and does
 nothing without cross-attention; ``"full"`` does nothing.
 
-Sharded over a device mesh (the dense and MoE families): params are
+Sharded over a device mesh (every family: the other models call
+``check_run``, ``place_cache`` and this module's blocks too): params are
 DTensors placed by ``launch.shardings.model_param_pspecs`` (``fsdp``
 moves the weights' ``embed`` axis onto ``data``), the rules installed
-with ``params.use_rules``.  Tokens are sharded on ``data``, activations
-constrained where the reference constrains them, the kernels run on
-each rank's block (``layers``), the cache is placed by
+with ``params.use_rules``.  Tokens and the modality inputs are sharded
+on ``data``, activations constrained where the reference constrains
+them, the kernels run on each rank's block (``layers``), the cache
+(the VLM's cross caches too) is placed by
 ``launch.shardings.cache_pspecs`` and written on each rank's block
-(``kv_cache``).
-``shard_kv_seq``, the VLM under a mesh and the decode knobs that read
-across rows under a mesh (``decode_slice_reads``) raise
-``NotImplementedError`` (``check_run``, ROADMAP queue 1 item 9).
+(``kv_cache``).  ``shard_kv_seq``, and under a mesh the decode knob
+that reads across rows (``decode_slice_reads``), raise
+``NotImplementedError`` (``check_run``, ROADMAP queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -82,12 +83,10 @@ from repro_torch.models.params import (P, active_rules, constrain,
                                        is_dtensor, map_schema, mesh_of,
                                        shard_batch)
 
-# the families that run under a device mesh; the rest of sharding is
-# ROADMAP queue 1 item 9
-SHARDED_FAMILIES = ("dense", "moe")
-_REST = ("the rest of ROADMAP queue 1 item 9: the other families under a "
-         "mesh, shard_kv_seq, the dry run's collective term at the "
-         "production meshes, multi-card VLM and MoE training")
+# the families that run under a device mesh: all six
+SHARDED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
+_REST = ("ROADMAP queue 1 item 2: shard_kv_seq, and decode_slice_reads "
+         "under a mesh")
 
 
 def segment(recompute: bool, fn, *args, **kw):
@@ -103,30 +102,31 @@ def segment(recompute: bool, fn, *args, **kw):
 
 def check_run(cfg: ModelConfig, run: RunConfig) -> None:
     """Raise for what the port's models do not implement, in every
-    family: ``shard_kv_seq``; ``fsdp`` outside the dense and MoE
-    families; under installed sharding rules, a family other than those
-    two, and ``decode_slice_reads`` (its window starts at the smallest
-    position of the whole batch)."""
+    family: ``shard_kv_seq``; under installed sharding rules,
+    ``decode_slice_reads`` (its window starts at the smallest position
+    of the whole batch).  ``fsdp`` and a mesh run in every family."""
+    if cfg.family not in SHARDED_FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     if run.shard_kv_seq:
         raise NotImplementedError(
             f"RunConfig.shard_kv_seq=True is not ported (only False; "
             f"{_REST})")
-    sharded = cfg.family in SHARDED_FAMILIES
-    if run.fsdp and not sharded:
+    if active_rules() is not None and run.decode_slice_reads \
+            and run.decode_window:
         raise NotImplementedError(
-            f"RunConfig.fsdp=True is ported for the {SHARDED_FAMILIES} "
-            f"families, not {cfg.family!r} ({_REST})")
-    if active_rules() is not None:
-        if not sharded:
-            raise NotImplementedError(
-                f"family {cfg.family!r} under a device mesh is not ported "
-                f"(only {SHARDED_FAMILIES}; {_REST})")
-        if run.decode_slice_reads and run.decode_window:
-            raise NotImplementedError(
-                f"decode_slice_reads under a device mesh is not ported "
-                f"({_REST})")
+            f"decode_slice_reads under a device mesh is not ported "
+            f"({_REST})")
     if run.prefill_logits not in ("all", "last"):
         raise ValueError(f"prefill_logits={run.prefill_logits!r}")
+
+
+def place_cache(cfg: ModelConfig, run: RunConfig, cache, mesh):
+    """Every leaf of ``cache`` (whole tensors, or DTensors) placed on
+    ``mesh`` by ``launch.shardings.cache_pspecs`` under the installed
+    rules (a DTensor already placed so passes as it is)."""
+    from repro_torch.launch import shardings
+    return shardings.distribute(
+        cache, mesh, shardings.cache_pspecs(cfg, run, active_rules() or {}))
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +368,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
 
     ks, vs, cks, cvs, aux = [], [], [], [], 0.0
     if cfg.cross_attn_every:
-        memory = extras["vision_embeds"].to(x.dtype)
+        memory = shard_batch(params, extras["vision_embeds"]).to(x.dtype)
         groups = params["groups"]
         for gself, gcross in zip(unstack(groups["self"]),
                                  unstack(groups["cross"])):
@@ -427,10 +427,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
     rules installed), DTensors placed by ``shardings.cache_pspecs``."""
     check_run(cfg, run)
     if mesh is not None:
-        from repro_torch.launch import shardings
-        return shardings.distribute(
-            init_cache(cfg, batch, max_len, run, device), mesh,
-            shardings.cache_pspecs(cfg, run, active_rules() or {}))
+        return place_cache(cfg, run, init_cache(cfg, batch, max_len, run,
+                                                device), mesh)
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.cross_attn_every:
         G, n_self = cross_groups(cfg)
@@ -459,8 +457,11 @@ def step_buffers(cache, run: RunConfig):
 def write_stacked(buf, new: torch.Tensor, pos: torch.Tensor):
     """kv_cache.write_ over the leading layer axes, in place: buf
     (*lead, B, S, ...) and new (*lead, B, S_new, KV, D) fold the lead
-    axes into the batch."""
+    axes into the batch.  On DTensors each rank writes its blocks."""
     nl = new.dim() - 4
+    if is_dtensor(buf["q"] if isinstance(buf, dict) else buf):
+        write_stacked(*kv_cache.local_blocks(buf, new, pos, nl))
+        return buf
     n, B = math.prod(new.shape[:nl]), new.shape[nl]
     flat_pos = pos.repeat(n)
 
@@ -482,28 +483,30 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
     logits, _, kvs = forward(
         cfg, params, tokens, run, extras, collect_kv=True,
         last_only=run.prefill_logits == "last")
-    mesh = mesh_of(params)
-    if mesh is not None:
-        cache = init_cache(cfg, B, max_len, run, tokens.device, mesh)
-        pos0 = shard_batch(params, torch.zeros(
-            (B,), dtype=torch.int32, device=tokens.device))
-        for name, new in zip(("k", "v"), kvs):
-            write_stacked(*kv_cache.local_blocks(cache[name], new, pos0, 1))
-        cache["pos"] = shard_batch(params, torch.full(
-            (B,), S, dtype=torch.int32, device=tokens.device))
-        return logits, cache
-    cache = init_cache(cfg, B, max_len, run, tokens.device)
-    pos0 = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+    writes = dict(zip(("k", "v"), kvs))
     if cfg.cross_attn_every:
-        kvs, (ck, cv) = kvs
-        write_stacked(cache["cross_k"], ck, pos0)
-        write_stacked(cache["cross_v"], cv, pos0)
-    k_new, v_new = kvs
-    write_stacked(cache["k"], k_new, pos0)
-    write_stacked(cache["v"], v_new, pos0)
-    cache["pos"] = torch.full((B,), S, dtype=torch.int32,
-                              device=tokens.device)
-    return logits, cache
+        writes = dict(zip(("k", "v"), kvs[0]),
+                      **dict(zip(("cross_k", "cross_v"), kvs[1])))
+    return logits, write_prefill(cfg, run, params, writes, B, S, max_len,
+                                 tokens.device)
+
+
+def write_prefill(cfg: ModelConfig, run: RunConfig, params, writes: dict,
+                  B: int, S: int, max_len: int, device, init=None):
+    """A new max_len cache (``init``: the model's ``init_cache``, this
+    module's by default) with each stacked (*lead, B, S_new, KV, D)
+    buffer of ``writes`` written from position 0 and ``pos`` at S.
+    Under a mesh the cache is placed by ``cache_pspecs`` and each rank
+    writes its blocks."""
+    init = init or init_cache
+    cache = init(cfg, B, max_len, run, device, mesh=mesh_of(params))
+    pos0 = shard_batch(params, torch.zeros((B,), dtype=torch.int32,
+                                           device=device))
+    for name, new in writes.items():
+        write_stacked(cache[name], new, pos0)
+    cache["pos"] = shard_batch(params, torch.full(
+        (B,), S, dtype=torch.int32, device=device))
+    return cache
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
@@ -524,8 +527,9 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     index = None if is_dtensor(pos) else kv_cache.write_index(pos, 1, S)
     if cfg.cross_attn_every:
         G, n_self = cross_groups(cfg)
-        mem_len = torch.full((token.shape[0],), cfg.num_vision_tokens,
-                             dtype=torch.int32, device=token.device)
+        mem_len = shard_batch(params, torch.full(
+            (token.shape[0],), cfg.num_vision_tokens, dtype=torch.int32,
+            device=token.device))
         for g in range(G):
             gself = layer_params(params["groups"]["self"], g)
             kc, vc = layer_params(kc_all, g), layer_params(vc_all, g)

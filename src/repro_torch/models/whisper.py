@@ -29,6 +29,12 @@ cross k/v (L, B, num_audio_frames, KV, D), written once at prefill.
 ``torch.utils.checkpoint`` where the reference ``jax.checkpoint``s its
 decoder scan body; the encoder is not recomputed, as in the reference),
 and "group" and "full" do nothing.
+
+Under a device mesh the frames and tokens are split on ``data``, the
+encoder's and each decoder layer's output constrained as the
+reference's, the attention kernels reached through ``local_map``
+(``layers``), and the cache placed by ``shardings.cache_pspecs`` (the
+cross caches never split along the frames).
 """
 
 from __future__ import annotations
@@ -43,9 +49,10 @@ from repro_torch.models.layers import (
     apply_mlp, apply_norm, attn_schema, chunked_attention, decode_attention,
     embed, embed_schema, mlp_schema, norm_schema, out_project, q_project,
     qkv_project, rope_tables, unembed)
+from repro_torch.models.params import constrain, is_dtensor, shard_batch
 from repro_torch.models.transformer import (
-    check_run, decode_inplace, layer_params, segment, stack_schema,
-    stacked_kv, step_buffers, unstack, write_stacked)
+    check_run, decode_inplace, layer_params, place_cache, segment,
+    stack_schema, stacked_kv, step_buffers, unstack, write_prefill)
 
 
 def _enc_layer_schema(cfg):
@@ -68,14 +75,16 @@ def schema(cfg: ModelConfig):
 
 
 def encode(cfg: ModelConfig, params, frames: torch.Tensor, run: RunConfig):
-    """frames: (B, F, d) stub embeddings -> encoder output (B, F, d)."""
-    x = frames.to(params["embed"]["tok"].dtype)
+    """frames: (B, F, d) stub embeddings -> encoder output (B, F, d)
+    (under a mesh the frames are sharded on ``data`` first)."""
+    x = shard_batch(params, frames).to(params["embed"]["tok"].dtype)
     for lp in unstack(params["enc_layers"]):
         h = apply_norm(cfg, lp["ln1"], x)
         q, k, v = qkv_project(cfg, lp["attn"], h, rope=False)
         x = x + out_project(lp["attn"], chunked_attention(q, k, v,
                                                           causal=False))
         x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+        x = constrain(x, ("batch", "seq", "embed"))
     return apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -94,7 +103,7 @@ def _dec_layer_seq(cfg: ModelConfig, lp, x, enc_out, positions, tab,
     x = x + out_project(lp["cross"],
                         chunked_attention(cq, ck, cv, causal=False))
     x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
-    return x, (k, v, ck, cv)
+    return constrain(x, ("batch", "seq", "embed")), (k, v, ck, cv)
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
@@ -106,7 +115,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
     check_run(cfg, run)
     S = tokens.shape[1]
     enc_out = encode(cfg, params, extras["audio_frames"], run)
-    x = embed(params["embed"], tokens)
+    tokens = shard_batch(params, tokens)
+    x = constrain(embed(params["embed"], tokens), ("batch", "seq", "embed"))
     positions = torch.arange(S, dtype=torch.float32,
                              device=tokens.device)[None]
     tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
@@ -126,10 +136,15 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
-               device="cuda"):
+               device="cuda", mesh=None):
     """A cache of zeros (see the module docstring); ``device="meta"``
-    gives shapes only."""
+    gives shapes only.  With a device ``mesh`` (and rules installed),
+    DTensors placed by ``shardings.cache_pspecs`` (the cross caches
+    never split along their frames)."""
     check_run(cfg, run)
+    if mesh is not None:
+        return place_cache(cfg, run, init_cache(cfg, batch, max_len, run,
+                                                device), mesh)
     L, F = cfg.num_layers, cfg.num_audio_frames
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
             "k": stacked_kv(cfg, L, batch, max_len, run, device),
@@ -146,13 +161,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
     logits, _, (k, v, ck, cv) = forward(
         cfg, params, tokens, run, extras, collect_kv=True,
         last_only=run.prefill_logits == "last")
-    cache = init_cache(cfg, B, max_len, run, tokens.device)
-    pos0 = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
-    for name, new in (("k", k), ("v", v), ("cross_k", ck), ("cross_v", cv)):
-        write_stacked(cache[name], new, pos0)
-    cache["pos"] = torch.full((B,), S, dtype=torch.int32,
-                              device=tokens.device)
-    return logits, cache
+    return logits, write_prefill(
+        cfg, run, params, {"k": k, "v": v, "cross_k": ck, "cross_v": cv},
+        B, S, max_len, tokens.device, init=init_cache)
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
@@ -164,13 +175,15 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     was."""
     check_run(cfg, run)
     pos = cache["pos"]
-    x = embed(params["embed"], token)
+    token = shard_batch(params, token)
+    x = constrain(embed(params["embed"], token), ("batch", None, "embed"))
     kc_all, vc_all = step_buffers(cache, run)
     tab = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[-3]
-    index = kv_cache.write_index(pos, 1, S)
-    mem_len = torch.full((token.shape[0],), cfg.num_audio_frames,
-                         dtype=torch.int32, device=token.device)
+    index = None if is_dtensor(pos) else kv_cache.write_index(pos, 1, S)
+    mem_len = shard_batch(params, torch.full(
+        (token.shape[0],), cfg.num_audio_frames, dtype=torch.int32,
+        device=token.device))
     for i in range(cfg.num_layers):
         lp = layer_params(params["dec_layers"], i)
         kc, vc = layer_params(kc_all, i), layer_params(vc_all, i)

@@ -18,6 +18,12 @@ sLSTM: per-head block-diagonal recurrent mixing and stabilized exp
 gating, a Python loop over time (inherently sequential, the
 reference's ``lax.scan``).  Both blocks' inner norms go through the
 RMSNorm kernel's wrapper: one call a block per forward or step.
+
+Under a device mesh the mLSTM's conv runs on its ``ssm_inner``
+channels, the row-split products are reduced, and the per-head scan
+runs on whole heads on each rank's rows; the sLSTM (its FFN replicated:
+``mlp`` resolves to None for xLSTM, as in the reference) runs its time
+loop on each rank's rows through ``params.local_call``.
 """
 
 from __future__ import annotations
@@ -26,8 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.params import P
-from repro_torch.models.ssm import ssd_chunked
+from repro_torch.models.params import (P, constrain, elementwise,
+                                       is_dtensor, local_call, zeros)
+from repro_torch.models.ssm import causal_conv, ssd_chunked
 
 # ---------------------------------------------------------------------------
 # mLSTM block
@@ -61,29 +68,36 @@ def mlstm_schema(cfg):
 
 
 def _mlstm_qkvif(cfg, p, u, conv_state=None):
+    """The mLSTM's projections.  Under a mesh the conv runs on the
+    rank's ``ssm_inner`` channels (its state sharded so), and the
+    row-split products with wq, wk, wv, wi and wf come out Partial and
+    are reduced at once: the heads' scan reads them whole."""
     B, S, _ = u.shape
     d_in, H, Dh = mlstm_dims(cfg)
     x, z = (u @ p["up"]).chunk(2, dim=-1)
+    x = constrain(x, ("batch", "seq", "ssm_inner"))
+    if conv_state is not None:
+        conv_state = constrain(conv_state, ("batch", None, "ssm_inner"))
     # causal depthwise conv on the mLSTM input path
-    W = p["conv_w"].shape[0]
-    pad = x.new_zeros((B, W - 1, d_in)) if conv_state is None \
-        else conv_state.to(x.dtype)
-    full = torch.cat([pad, x], dim=1)
-    xc = F.silu(sum(full[:, i:i + S] * p["conv_w"][i] for i in range(W))
-                + p["conv_b"])
-    new_conv = full[:, -(W - 1):]
+    xc, new_conv = causal_conv(p["conv_w"], p["conv_b"], x, conv_state,
+                               "ssm_inner")
 
-    q = (xc @ p["wq"]).reshape(B, S, H, Dh)
-    k = (xc @ p["wk"]).reshape(B, S, H, Dh) / (Dh ** 0.5)
-    v = (x @ p["wv"]).reshape(B, S, H, Dh)
-    logf = F.logsigmoid((xc @ p["wf"] + p["bf"]).float())
-    i_gate = torch.exp(torch.clamp((xc @ p["wi"] + p["bi"]).float(),
+    def whole(t):                       # a row-split product, reduced
+        return constrain(t, ("batch", "seq", None))
+
+    q = whole(xc @ p["wq"]).reshape(B, S, H, Dh)
+    k = whole(xc @ p["wk"]).reshape(B, S, H, Dh) / (Dh ** 0.5)
+    v = whole(x @ p["wv"]).reshape(B, S, H, Dh)
+    logf = elementwise(F.logsigmoid, (whole(xc @ p["wf"]) + p["bf"]).float())
+    i_gate = torch.exp(torch.clamp((whole(xc @ p["wi"]) + p["bi"]).float(),
                                    -8.0, 8.0))
     return x, z, q, k, v, logf, i_gate, new_conv
 
 
 def mlstm_forward(cfg, p, u, state=None, *, chunk: int = 128):
-    """u: (B, S, d) -> (y, new_state)."""
+    """u: (B, S, d) -> (y, new_state).  Under a mesh the per-head scan
+    runs on whole heads (``cache_pspecs`` replicates the memory over
+    ``model``)."""
     B, S, _ = u.shape
     d_in, H, Dh = mlstm_dims(cfg)
     conv_in = state["conv"] if state is not None else None
@@ -91,8 +105,8 @@ def mlstm_forward(cfg, p, u, state=None, *, chunk: int = 128):
     # v extended with a ones channel: the scan also produces n . q
     v_ext = torch.cat([v.float() * i_gate[..., None], i_gate[..., None]],
                       dim=-1)                               # (B,S,H,Dh+1)
-    h0 = state["mem"] if state is not None \
-        else u.new_zeros((B, H, Dh + 1, Dh), dtype=torch.float32)
+    h0 = state["mem"] if state is not None else zeros(
+        (B, H, Dh + 1, Dh), u, ("batch", None, None, None))
     y_ext, h_fin = ssd_chunked(v_ext, logf, k, q, h0, chunk=chunk)
     y, nq = y_ext[..., :Dh], y_ext[..., Dh:]
     y = (y / torch.clamp(nq.abs(), min=1.0)).reshape(B, S, d_in).to(u.dtype)
@@ -186,25 +200,54 @@ def _slstm_ffn(p, y):
     return ((y @ p["ffn_up"]) * F.silu(y @ p["ffn_gate"])) @ p["ffn_down"]
 
 
-def slstm_forward(cfg, p, u, state=None):
-    """u: (B, S, d) -> (y, new_state): the cell step by step over S."""
-    B, S, _ = u.shape
-    pre = {g: (u @ p[f"w{g}"] + p[f"b{g}"]).float() for g in GATES}
-    carry = state["cell"] if state is not None else _slstm_zero(
-        cfg, B, u.device)
+def _slstm_run(cfg, r, pre, carry):
+    """The cell step by step over the S steps of pre ({gate: (B, S, d)},
+    W x + b in); r: the recurrent weights {"r<gate>"}; carry (c, n, h,
+    m) or None (zeros).  Returns (hs (B, S, d), carry).  On DTensors
+    (whole rows, batch split on ``data``) each rank runs its rows'
+    loop on local tensors (``local_call``): no op of the loop pays
+    DTensor's dispatch."""
+    if is_dtensor(pre["i"]):
+        pre = {g: constrain(t, ("batch", "seq", None))
+               for g, t in pre.items()}
+        pl = tuple(pre["i"].placements)        # (B, ...) rows on "data"
+        hs, *carry = local_call(
+            lambda *a: _flat(_slstm_run(cfg, *a)), (pl,) * 5, r, pre, carry)
+        return hs, tuple(carry)
+    S = pre["i"].shape[1]
+    if carry is None:
+        carry = _slstm_zero(cfg, pre["i"].shape[0], pre["i"].device)
     hs = []
     for t in range(S):
-        carry, h = _slstm_cell(cfg, p, {g: pre[g][:, t] for g in GATES},
+        carry, h = _slstm_cell(cfg, r, {g: pre[g][:, t] for g in GATES},
                                carry)
         hs.append(h)
-    y = rmsnorm(torch.stack(hs, dim=1).to(u.dtype), p["norm"])
+    return torch.stack(hs, dim=1), carry
+
+
+def _flat(out):
+    hs, carry = out
+    return (hs,) + tuple(carry)
+
+
+def _recurrent(p):
+    return {f"r{g}": p[f"r{g}"] for g in GATES}
+
+
+def slstm_forward(cfg, p, u, state=None):
+    """u: (B, S, d) -> (y, new_state): the cell step by step over S."""
+    pre = {g: (u @ p[f"w{g}"] + p[f"b{g}"]).float() for g in GATES}
+    hs, carry = _slstm_run(cfg, _recurrent(p), pre,
+                           state["cell"] if state is not None else None)
+    y = rmsnorm(hs.to(u.dtype), p["norm"])
     return _slstm_ffn(p, y), {"cell": carry}
 
 
 def slstm_step(cfg, p, u, state):
-    xt = {g: (u[:, 0] @ p[f"w{g}"] + p[f"b{g}"]).float() for g in GATES}
-    carry, h = _slstm_cell(cfg, p, xt, state["cell"])
-    y = rmsnorm(h[:, None].to(u.dtype), p["norm"])
+    pre = {g: (u[:, 0] @ p[f"w{g}"] + p[f"b{g}"]).float()[:, None]
+           for g in GATES}
+    h, carry = _slstm_run(cfg, _recurrent(p), pre, state["cell"])
+    y = rmsnorm(h.to(u.dtype), p["norm"])
     return _slstm_ffn(p, y), {"cell": carry}
 
 

@@ -19,6 +19,11 @@ layernorms), no attention.  ``forward`` is differentiable (the per-head
 "block" and "group" recompute each group in the backward (a
 ``torch.utils.checkpoint`` where the reference ``jax.checkpoint``s its
 group body), and "full" does nothing.
+
+Under a device mesh the residual stream is constrained after each block
+as the reference's, and the cache placed by ``shardings.cache_pspecs``:
+the mLSTM conv state split on ``ssm_inner``, its memory and the sLSTM
+cells whole over ``model`` (``models.xlstm``).
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ import torch
 from repro_torch.config import ModelConfig, RunConfig
 from repro_torch.models.layers import (apply_norm, embed, embed_schema,
                                        norm_schema, unembed)
+from repro_torch.models.params import constrain, mesh_of, shard_batch
 from repro_torch.models.transformer import (
-    check_run, layer_params, segment, stack_schema, unstack)
+    check_run, layer_params, place_cache, segment, stack_schema, unstack)
 from repro_torch.models.xlstm import (
     mlstm_forward, mlstm_init_state, mlstm_schema, mlstm_step,
     slstm_forward, slstm_init_state, slstm_schema, slstm_step)
@@ -74,9 +80,9 @@ def _group_seq(cfg: ModelConfig, gp, x):
     """One group over the sequence: the mLSTM block, then the sLSTM
     block.  Returns (x, mLSTM state, sLSTM state)."""
     h, m = mlstm_forward(cfg, gp["mlstm"], apply_norm(cfg, gp["m_ln"], x))
-    x = x + h
+    x = constrain(x + h, ("batch", "seq", "embed"))
     h, s = slstm_forward(cfg, gp["slstm"], apply_norm(cfg, gp["s_ln"], x))
-    return x + h, m, s
+    return constrain(x + h, ("batch", "seq", "embed")), m, s
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
@@ -86,7 +92,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
     collect_kv) are (mlstm, slstm) stacked over groups, the prefill
     cache's."""
     check_run(cfg, run)
-    x = embed(params["embed"], tokens)
+    tokens = shard_batch(params, tokens)
+    x = constrain(embed(params["embed"], tokens), ("batch", "seq", "embed"))
     mst, sst = [], []
     for gp in unstack(params["groups"]):
         x, m, s = segment(run.remat in ("block", "group"), _group_seq, cfg,
@@ -101,10 +108,15 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, run: RunConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
-               device="cuda"):
+               device="cuda", mesh=None):
     """Zero states (see the module docstring); ``max_len`` is unused, the
-    state is O(1) in it.  ``device="meta"`` gives shapes only."""
+    state is O(1) in it.  ``device="meta"`` gives shapes only.  With a
+    device ``mesh`` (and rules installed), DTensors placed by
+    ``shardings.cache_pspecs``."""
     check_run(cfg, run)
+    if mesh is not None:
+        return place_cache(cfg, run, init_cache(cfg, batch, max_len, run,
+                                                device), mesh)
     G = _groups(cfg)
     one = {"mlstm": mlstm_init_state(cfg, batch, device=device),
            "slstm": slstm_init_state(cfg, batch, device=device)}
@@ -120,9 +132,12 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
     logits, _, (mst, sst) = forward(
         cfg, params, tokens, run, extras, collect_kv=True,
         last_only=run.prefill_logits == "last")
-    return logits, {"pos": torch.full((B,), S, dtype=torch.int32,
-                                      device=tokens.device),
-                    "mlstm": mst, "slstm": sst}
+    cache = {"pos": torch.full((B,), S, dtype=torch.int32,
+                               device=tokens.device),
+             "mlstm": mst, "slstm": sst}
+    mesh = mesh_of(params)
+    return logits, (cache if mesh is None
+                    else place_cache(cfg, run, cache, mesh))
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
@@ -130,7 +145,8 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     """token: (B, 1) -> (logits (B, 1, V), updated cache): a new cache of
     new states; the one passed in is left as it was."""
     check_run(cfg, run)
-    x = embed(params["embed"], token)
+    token = shard_batch(params, token)
+    x = constrain(embed(params["embed"], token), ("batch", None, "embed"))
     mst, sst = [], []
     for g in range(_groups(cfg)):
         gp = layer_params(params["groups"], g)

@@ -34,6 +34,14 @@ shared block and its Mamba2 layers, in the backward (a
 ``torch.utils.checkpoint`` where the reference ``jax.checkpoint``s its
 group body): a step then launches each group's kernels twice, all but
 the final norm; "full" does nothing, as in the reference.
+
+Under a device mesh (DTensor params placed by
+``launch.shardings.model_param_pspecs``, the rules installed) tokens
+are split on ``data``, the residual stream constrained after each
+Mamba2 layer and the shared block as the reference's, the cache placed
+by ``shardings.cache_pspecs`` (the SSM state on ``ssm_inner``'s heads,
+the conv state whole over ``model``), and ``ssd_scan`` reached through
+``local_map`` (``models.ssm``), under ``remat`` too.
 """
 
 from __future__ import annotations
@@ -47,11 +55,12 @@ from repro_torch.models import kv_cache
 from repro_torch.models.layers import (
     apply_norm, attn_schema, embed, embed_schema, mlp_schema, norm_schema,
     rope_tables, unembed)
+from repro_torch.models.params import constrain, is_dtensor, shard_batch
 from repro_torch.models.ssm import (mamba2_forward, mamba2_init_state,
                                     mamba2_schema, mamba2_step)
 from repro_torch.models.transformer import (
-    block_decode, block_seq, check_run, layer_params, segment,
-    stack_schema, stacked_kv, step_buffers, unstack, write_stacked)
+    block_decode, block_seq, check_run, layer_params, place_cache, segment,
+    stack_schema, stacked_kv, step_buffers, unstack, write_prefill)
 
 
 def _groups(cfg: ModelConfig) -> int:
@@ -88,7 +97,7 @@ def _group_seq(cfg: ModelConfig, shared, group, x, positions, tab,
     states = []
     for lp in unstack(group):
         h, st = mamba2_forward(cfg, lp["mamba"], apply_norm(cfg, lp["ln"], x))
-        x = x + h
+        x = constrain(x + h, ("batch", "seq", "embed"))
         states.append(st)
     return x, kv, states
 
@@ -100,7 +109,8 @@ def _backbone(cfg: ModelConfig, params, tokens: torch.Tensor,
     "group".  Returns x (B, S, d), the shared block's (k, v) per group
     and each Mamba2 layer's final states, in layer order."""
     S = tokens.shape[1]
-    x = embed(params["embed"], tokens)
+    tokens = shard_batch(params, tokens)
+    x = constrain(embed(params["embed"], tokens), ("batch", "seq", "embed"))
     positions = torch.arange(S, dtype=torch.float32,
                              device=tokens.device)[None]
     tab = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
@@ -141,10 +151,15 @@ def _stack_states(cfg: ModelConfig, states):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run: RunConfig,
-               device="cuda"):
+               device="cuda", mesh=None):
     """A cache of zeros (see the module docstring); ``device="meta"``
-    gives shapes only."""
+    gives shapes only.  With a device ``mesh`` (and rules installed),
+    DTensors placed by ``shardings.cache_pspecs``: the SSM states split
+    on ``ssm_inner``'s heads, the conv states whole on ``model``."""
     check_run(cfg, run)
+    if mesh is not None:
+        return place_cache(cfg, run, init_cache(cfg, batch, max_len, run,
+                                                device), mesh)
     G, E = _groups(cfg), cfg.shared_attn_every
     one = mamba2_init_state(cfg, batch, torch.bfloat16, device)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -167,14 +182,12 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_len: int,
         x = x[:, -1:].contiguous()
     logits = unembed(cfg, params["embed"],
                      apply_norm(cfg, params["final_norm"], x))
-    cache = init_cache(cfg, B, max_len, run, tokens.device)
-    pos0 = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
-    write_stacked(cache["k"], torch.stack([k for k, _ in kvs]), pos0)
-    write_stacked(cache["v"], torch.stack([v for _, v in kvs]), pos0)
+    cache = write_prefill(cfg, run, params,
+                          {"k": torch.stack([k for k, _ in kvs]),
+                           "v": torch.stack([v for _, v in kvs])},
+                          B, S, max_len, tokens.device, init=init_cache)
     for key, val in _stack_states(cfg, states).items():
         cache["ssm"][key].copy_(val)
-    cache["pos"] = torch.full((B,), S, dtype=torch.int32,
-                              device=tokens.device)
     return logits, cache
 
 
@@ -186,12 +199,13 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     place and returned."""
     check_run(cfg, run)
     pos = cache["pos"]
-    x = embed(params["embed"], token)
+    token = shard_batch(params, token)
+    x = constrain(embed(params["embed"], token), ("batch", None, "embed"))
     kc_all, vc_all = step_buffers(cache, run)
     # shared by every group: rotary tables and cache write slots
     tab = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     S = (kc_all["q"] if isinstance(kc_all, dict) else kc_all).shape[2]
-    index = kv_cache.write_index(pos, 1, S)
+    index = None if is_dtensor(pos) else kv_cache.write_index(pos, 1, S)
     states = []
     for g in range(_groups(cfg)):
         x, _ = block_decode(cfg, params["shared"], x, pos,
@@ -203,7 +217,7 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
             st = {key: val[g, i] for key, val in cache["ssm"].items()}
             h, st = mamba2_step(cfg, lp["mamba"],
                                 apply_norm(cfg, lp["ln"], x), st)
-            x = x + h
+            x = constrain(x + h, ("batch", None, "embed"))
             states.append(st)
     logits = unembed(cfg, params["embed"],
                      apply_norm(cfg, params["final_norm"], x))

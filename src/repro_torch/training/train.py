@@ -22,10 +22,11 @@ autograd (under ``remat`` the recompute launches them again):
 An explicit ``torch.Generator`` takes the place of the reference's PRNG
 key.
 
-Params may be DTensors over a device mesh (the dense and MoE families,
-``launch.shardings.distribute`` under ``params.use_rules``): the loss
-comes back replicated, each leaf's gradient is placed as the leaf, and
-AdamW and the global-norm clip run as DTensor ops.
+Params may be DTensors over a device mesh (every family,
+``launch.shardings.distribute`` under ``params.use_rules``): the
+extras are sharded on ``data`` as the tokens, the loss comes back
+replicated, each leaf's gradient is placed as the leaf, and AdamW and
+the global-norm clip run as DTensor ops.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig, RunConfig
 from repro_torch.models import api
+from repro_torch.models.params import shard_batch
 from repro_torch.training import optimizer as opt
 
 
@@ -84,12 +86,15 @@ def _grads(params, prefix=""):
     return g
 
 
-def extras_on(extras, device):
+def extras_on(extras, device, params=None):
     """The modality inputs ``extras`` (None, or a dict of tensors or
-    arrays) as tensors on ``device``."""
+    arrays) as tensors on ``device``; sharded on ``batch`` when
+    ``params`` are DTensors (the reference's ``input_pspecs``:
+    ``batch_spec(rules, None, None)``)."""
     if extras is None:
         return None
-    return {k: torch.as_tensor(v, device=device) for k, v in extras.items()}
+    return {k: shard_batch(params, torch.as_tensor(v, device=device))
+            for k, v in extras.items()}
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig,
@@ -105,7 +110,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
         for p in leaves:
             p.grad = None
         loss, nll = loss_fn(params, tokens, labels,
-                            extras_on(extras, leaves[0].device))
+                            extras_on(extras, leaves[0].device, params))
         loss.backward()
         grads = _grads(params)
         params, opt_state, metrics = opt.apply_updates(

@@ -1520,13 +1520,16 @@ def one_card_mesh(cuda, tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-moe-16b",
+                                  "zamba2-2.7b", "xlstm-125m",
+                                  "whisper-tiny", "llama-3.2-vision-90b"])
 def test_sharded_one_card_mesh_matches_unsharded(one_card_mesh, arch):
     """A smoke prefill and 3 greedy decode steps sharded on the one-card
-    mesh (DTensor params, the kernels reached through local_map) against
-    the unsharded run on the same params: tokens equal, logits within
-    1e-5 of the largest, and each kernel's launch count rising by what
-    the unsharded run launches."""
+    mesh (DTensor params, the kernels reached through local_map; whisper
+    and the VLM over extras drawn from a seed) against the unsharded run
+    on the same params: tokens equal, logits within 1e-5 of the largest,
+    each kernel's launch count rising by what the unsharded run
+    launches, and every kernel of the family's path launched."""
     from repro_torch.config import sharding_rules_for
     from repro_torch.launch import shardings as shd
     from repro_torch.launch.mesh import mesh_axis_sizes
@@ -1537,8 +1540,13 @@ def test_sharded_one_card_mesh_matches_unsharded(one_card_mesh, arch):
     params = _tree_to(_family_params(cfg), "cuda")
     toks = torch.tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (4, 16)), dtype=torch.int64, device="cuda")
+    M = cfg.num_audio_frames or cfg.num_vision_tokens
+    extras = None if not M else {
+        "audio_frames" if cfg.family == "audio" else "vision_embeds":
+        torch.randn((4, M, cfg.d_model), generator=torch.Generator(
+        ).manual_seed(7)).to("cuda")}
     ops_ = {"rmsnorm": rms_ops, "flash_attention": fa_ops,
-            "decode_attention": dec_ops}
+            "decode_attention": dec_ops, "ssd_scan": ssd_ops}
     outs, launched = {}, {}
     for key in ("plain", "sharded"):
         p = params
@@ -1549,17 +1557,63 @@ def test_sharded_one_card_mesh_matches_unsharded(one_card_mesh, arch):
         got = []
         with use_rules(rules if key == "sharded" else None), \
                 torch.no_grad():
-            logits, cache = api.make_prefill_step(cfg, run, 24)(p, toks)
+            logits, cache = api.make_prefill_step(cfg, run, 24)(p, toks,
+                                                                extras)
             for _ in range(3):
                 full = logits.full_tensor() if key == "sharded" else logits
                 got.append(full[:, -1].float().cpu())
                 tok = full[:, -1].argmax(-1)[:, None]
-                logits, cache = api.make_decode_step(cfg, run)(p, tok, cache)
+                logits, cache = api.make_decode_step(cfg, run)(
+                    p, tok, cache, extras)
         launched[key] = {n: m.launches - before[n] for n, m in ops_.items()}
         outs[key] = got
     assert launched["sharded"] == launched["plain"]
-    assert all(v > 0 for v in launched["sharded"].values())
+    llm = {"rmsnorm", "flash_attention", "decode_attention"}
+    expected = {"dense": llm, "moe": llm, "vlm": llm,
+                "hybrid": llm | {"ssd_scan"}, "ssm": {"rmsnorm"},
+                "audio": {"flash_attention", "decode_attention"}}
+    assert {n for n, v in launched["sharded"].items() if v > 0} \
+        == expected[cfg.family]
+    if cfg.family == "hybrid":
+        assert launched["sharded"]["ssd_scan"] == cfg.num_layers
     for got, want in zip(outs["sharded"], outs["plain"]):
         assert torch.equal(got.argmax(-1), want.argmax(-1))
         assert float((got - want).abs().max()) <= 1e-5 * float(
             want.abs().max())
+
+
+def test_ssd_scan_through_local_call_on_the_card(one_card_mesh):
+    """``models.ssm.ssd_chunked`` on DTensors (heads on ``model``, B and
+    C whole) reaches the kernel through ``local_map``: one launch, the
+    output and its gradients equal to the kernel's on the plain tensors,
+    each a DTensor placed as its input; the wrapper itself refuses the
+    DTensors."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.models.params import PS, shard_as
+    from repro_torch.models.ssm import ssd_chunked
+    B, S, H, Pd, N, Q = 2, 64, 4, 16, 8, 32
+    x = _randn((B, S, H, Pd), 1, "cuda")
+    a = -torch.rand((B, S, H), generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda") * 0.2
+    b, c = _randn((B, S, N), 3, "cuda"), _randn((B, S, N), 4, "cuda")
+    h0 = _randn((B, H, Pd, N), 5, "cuda")
+    plain = [t.clone().requires_grad_() for t in (x, a, b, c, h0)]
+    y, h = ssd_chunked(*plain, chunk=Q)
+    (y.square().sum() + h.sum()).backward()
+    specs = (PS("data", None, "model"), PS("data", None, "model"),
+             PS("data"), PS("data"), PS("data", "model"))
+    leaves = [shard_as(t, one_card_mesh, sp).detach().requires_grad_()
+              for t, sp in zip((x, a, b, c, h0), specs)]
+    with pytest.raises(TypeError, match="local_map"):
+        ssd_ops.ssd_scan(*leaves, chunk=Q)
+    before = ssd_ops.launches
+    yd, hd = ssd_chunked(*leaves, chunk=Q)
+    assert ssd_ops.launches == before + 1
+    assert tuple(yd.placements) == (Shard(0), Shard(2))
+    assert tuple(hd.placements) == (Shard(0), Shard(1))
+    (yd.square().sum() + hd.sum()).backward()
+    assert torch.equal(yd.full_tensor(), y) and torch.equal(
+        hd.full_tensor(), h)
+    for t, d in zip(plain, leaves):
+        assert torch.allclose(d.grad.full_tensor(), t.grad, rtol=0,
+                              atol=1e-6 * float(t.grad.abs().max()))

@@ -19,10 +19,7 @@ choice flipped, decode tokens equal) and through it to the reference's
 single-device prefill (1e-4 of the largest logit)."""
 
 import dataclasses
-import os
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -50,26 +47,7 @@ NAMES = [c[0] for c in ranks.CASES]
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("multidevice")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "torch_ranks.py"), str(out),
-         str(out / "store"), str(r), str(WORLD)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=ROOT, env=env) for r in range(WORLD)]
-    logs, deadline = [], time.monotonic() + RANK_TIMEOUT
-    try:
-        for p in procs:
-            logs.append(p.communicate(
-                timeout=max(1.0, deadline - time.monotonic()))[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}:\n{logs[r][-4000:]}"
-    return out, logs
+    return out, ranks.run_group(out, "dense", WORLD, RANK_TIMEOUT)
 
 
 def _load(out, name):
@@ -154,7 +132,7 @@ def test_launcher_model_parallel(runs, capsys):
     out, logs = runs
     from repro_torch.launch import train as launch_train
     plain_ckpt = out / "plain_launcher.npz"
-    launch_train.main(ranks.LAUNCHER[:1] + ranks.LAUNCHER[3:]
+    launch_train.main(ranks.unsharded_launcher(ranks.LAUNCHER)
                       + ["--ckpt", str(plain_ckpt)])
     plain = capsys.readouterr().out
     assert "mesh={'data': 2, 'model': 2} devices=4" in logs[0]

@@ -214,29 +214,32 @@ def test_model_pspecs_dataclass_rules():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_what_a_mesh_does_not_run_raises(arch):
-    """Under installed rules only the dense and MoE families run; the
-    others raise naming ROADMAP queue 1 item 9, as ``shard_kv_seq``
-    does everywhere and ``fsdp`` outside dense and MoE."""
+    """Every family runs under installed rules and with ``fsdp``
+    (``check_run`` passes); on one device ``fsdp`` places nothing and
+    gives the prefill logits of the default (``==``).  What a mesh does
+    not run raises naming ROADMAP queue 1 item 2: ``shard_kv_seq``
+    everywhere, and ``decode_slice_reads`` under rules.  Sharded runs of
+    every family are held in tests/test_torch_multidevice.py and
+    tests/test_torch_multidevice_families.py."""
     from repro_torch.models import transformer
     cfg = tcfg.smoke_variant(tcfg.get_config(arch))
     rules = tcfg.sharding_rules_for(cfg, MESHES["2x2"])
-    sharded = cfg.family in ("dense", "moe")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 2"):
         transformer.check_run(cfg, tcfg.RunConfig(shard_kv_seq=True))
-    if sharded:
+    transformer.check_run(cfg, tcfg.RunConfig(fsdp=True))
+    with use_rules(rules):
+        transformer.check_run(cfg, tcfg.RunConfig())
         transformer.check_run(cfg, tcfg.RunConfig(fsdp=True))
-        with use_rules(rules):
-            transformer.check_run(cfg, tcfg.RunConfig(fsdp=True))
-            with pytest.raises(NotImplementedError, match="item 9"):
-                transformer.check_run(cfg, tcfg.RunConfig(
-                    decode_window=8, decode_slice_reads=True))
-        return
-    with pytest.raises(NotImplementedError, match="fsdp.*item 9"):
-        transformer.check_run(cfg, tcfg.RunConfig(fsdp=True))
-    params = api.init_model(cfg, torch.Generator().manual_seed(0), "meta")
-    toks = torch.zeros((1, 4), dtype=torch.int64, device="meta")
-    extras = api.extra_input_specs(cfg, 1)
-    with use_rules(rules), pytest.raises(NotImplementedError,
-                                         match=f"{cfg.family}.*item 9"):
-        api.make_prefill_step(cfg, tcfg.RunConfig(), 8)(params, toks,
-                                                         extras)
+        with pytest.raises(NotImplementedError,
+                           match="decode_slice_reads.*item 2"):
+            transformer.check_run(cfg, tcfg.RunConfig(
+                decode_window=8, decode_slice_reads=True))
+    params = api.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    extras = api.extra_input_specs(cfg, 1, abstract=False, device="cpu")
+    with torch.no_grad():
+        want, _ = api.make_prefill_step(cfg, tcfg.RunConfig(), 8)(
+            params, toks, extras)
+        got, _ = api.make_prefill_step(cfg, tcfg.RunConfig(fsdp=True), 8)(
+            params, toks, extras)
+    assert torch.equal(got, want)

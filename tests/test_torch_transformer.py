@@ -193,7 +193,7 @@ def test_prefill_logits_last_only(model):
 @pytest.mark.parametrize("knob,value", [
     ("remat", "block"), ("fsdp", True), ("shard_kv_seq", True)])
 def test_unported_run_knobs_raise(knob, value):
-    """``shard_kv_seq`` raises, naming ROADMAP queue 1 item 9.  remat is
+    """``shard_kv_seq`` raises, naming ROADMAP queue 1 item 2.  remat is
     ported in every family now: the hybrid family, which raised for it,
     gives the prefill logits of "none" (``==``; its gradients are held
     in tests/test_torch_training.py).  ``fsdp`` is ported for the dense
@@ -212,7 +212,7 @@ def test_unported_run_knobs_raise(knob, value):
                                                                    toks)
         assert torch.equal(got, want)
         return
-    with pytest.raises(NotImplementedError, match=f"{knob}.*item 9"):
+    with pytest.raises(NotImplementedError, match=f"{knob}.*item 2"):
         api.make_prefill_step(cfg, run, MAX_LEN)(params, toks)
 
 
@@ -251,10 +251,10 @@ def test_ported_run_knobs_match_reference(knobs):
 def test_other_families_raise():
     """Every family of the reference maps to a model (the audio, ssm and
     vlm ones since they were ported); an unknown family raises as in
-    the reference, and so does an unported knob on a cross-attention
-    config, while the serving knobs now run there (the VLM's in-place
-    decode is held to the reference in
-    tests/test_torch_perf_variants.py)."""
+    the reference (``check_run`` too), while ``fsdp`` and the serving
+    knobs now run on a cross-attention config (the VLM's in-place decode
+    is held to the reference in tests/test_torch_perf_variants.py, its
+    sharded runs in tests/test_torch_multidevice_families.py)."""
     cfg, _ = configs("smoke")
     with pytest.raises(ValueError, match="unknown family"):
         api.get_model(dataclasses.replace(cfg, family="diffusion"))
@@ -264,8 +264,10 @@ def test_other_families_raise():
     transformer.check_run(vlm, RunConfig())
     transformer.check_run(vlm, RunConfig(decode_inplace_cache=True,
                                          decode_uniform_pos=True))
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        transformer.check_run(vlm, RunConfig(fsdp=True))
+    transformer.check_run(vlm, RunConfig(fsdp=True))
+    with pytest.raises(ValueError, match="unknown family"):
+        transformer.check_run(dataclasses.replace(cfg, family="diffusion"),
+                              RunConfig())
 
 
 def test_init_model_follows_the_reference_scales():

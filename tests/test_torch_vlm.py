@@ -417,8 +417,10 @@ def test_remat_and_gradients_raise():
     gradient the loss's backward reaches every leaf
     (tests/test_torch_training.py holds its loss and grads to
     ``jax.value_and_grad``); the forward still runs under
-    ``torch.no_grad``.  What still raises is sharding over several
-    cards, naming ROADMAP queue 1 item 9."""
+    ``torch.no_grad``.  ``fsdp`` runs and, on one device, places
+    nothing and gives the logits of the default (``==``; sharded runs
+    are held in tests/test_torch_multidevice_families.py);
+    ``shard_kv_seq`` raises, naming ROADMAP queue 1 item 2."""
     m = _model()
     t = torch.tensor(m.toks[:, :4], dtype=torch.int64)
     base, _, _ = transformer.forward(m.cfg, m.params, t, RunConfig(),
@@ -439,11 +441,13 @@ def test_remat_and_gradients_raise():
     with torch.no_grad():
         transformer.forward(m.cfg, params, t, RunConfig(), m.extras())
     # the in-place decode runs now (tests/test_torch_perf_variants.py
-    # holds the VLM's to the reference); the multi-card knobs still raise
-    for knob in ("fsdp", "shard_kv_seq"):
-        with pytest.raises(NotImplementedError, match=f"{knob}.*item 9"):
-            transformer.forward(m.cfg, m.params, t,
-                                RunConfig(**{knob: True}), m.extras())
+    # holds the VLM's to the reference)
+    got, _, _ = transformer.forward(m.cfg, m.params, t, RunConfig(fsdp=True),
+                                    m.extras())
+    assert torch.equal(got, base)
+    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 2"):
+        transformer.forward(m.cfg, m.params, t,
+                            RunConfig(shard_kv_seq=True), m.extras())
 
 
 def test_new_modules_import_without_jax():

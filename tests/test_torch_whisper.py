@@ -368,8 +368,11 @@ def test_remat_and_gradients_raise():
     recomputed) the forward gives the logits of "none" (``==``), and
     with params that need a gradient the loss's backward reaches every
     leaf, the encoder's included (tests/test_torch_training.py holds its
-    loss and grads to ``jax.value_and_grad``).  What still raises is
-    sharding over several cards, naming ROADMAP queue 1 item 9."""
+    loss and grads to ``jax.value_and_grad``).  ``fsdp`` runs and, on
+    one device, places nothing and gives the logits of the default
+    (``==``; sharded runs are held in
+    tests/test_torch_multidevice_families.py); ``shard_kv_seq`` raises,
+    naming ROADMAP queue 1 item 2."""
     m = _model()
     t = torch.tensor(m.toks[:, :4], dtype=torch.int64)
     base, _, _ = whisper.forward(m.cfg, m.params, t, RunConfig(), m.extras())
@@ -383,14 +386,13 @@ def test_remat_and_gradients_raise():
     loss.backward()
     for p in jax.tree_util.tree_leaves(params):
         assert p.grad is not None and float(p.grad.abs().max()) > 0
-    # the in-place decode runs now (test_inplace_decode_matches_reference);
-    # the multi-card knobs still raise
-    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 9"):
+    # the in-place decode runs now (test_inplace_decode_matches_reference)
+    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 2"):
         whisper.init_cache(m.cfg, 1, 8, RunConfig(shard_kv_seq=True),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="fsdp.*item 9"):
-        whisper.forward(m.cfg, m.params, t, RunConfig(fsdp=True),
-                        m.extras())
+    got, _, _ = whisper.forward(m.cfg, m.params, t, RunConfig(fsdp=True),
+                                m.extras())
+    assert torch.equal(got, base)
 
 
 @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])

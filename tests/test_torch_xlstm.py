@@ -359,8 +359,10 @@ def test_model_api_maps_ssm_to_xlstm_and_raises_under_grad():
     recomputed) the forward gives the logits of "none" (``==``), and
     with params that need a gradient the loss's backward reaches every
     leaf (tests/test_torch_training.py holds its loss and grads to
-    ``jax.value_and_grad``).  What still raises under grad is sharding
-    over several cards, naming ROADMAP queue 1 item 9."""
+    ``jax.value_and_grad``).  ``fsdp`` runs and, on one device, places
+    nothing and gives the logits of the default (``==``; sharded runs
+    are held in tests/test_torch_multidevice_families.py);
+    ``shard_kv_seq`` raises, naming ROADMAP queue 1 item 2."""
     m = _model()
     assert api.get_model(m.cfg) is xlstm_model
     assert api.extra_input_specs(m.cfg, 2, abstract=False,
@@ -378,9 +380,12 @@ def test_model_api_maps_ssm_to_xlstm_and_raises_under_grad():
     loss.backward()
     for p in jax.tree_util.tree_leaves(params):
         assert p.grad is not None and bool(torch.isfinite(p.grad).all())
-    for knob in ("fsdp", "shard_kv_seq"):
-        with pytest.raises(NotImplementedError, match=f"{knob}.*item 9"):
-            xlstm_model.forward(m.cfg, params, t, RunConfig(**{knob: True}))
+    with torch.no_grad():
+        got, _, _ = xlstm_model.forward(m.cfg, params, t,
+                                        RunConfig(fsdp=True))
+    assert torch.equal(got, base)
+    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 2"):
+        xlstm_model.forward(m.cfg, params, t, RunConfig(shard_kv_seq=True))
 
 
 # -- bfloat16 params ----------------------------------------------------------

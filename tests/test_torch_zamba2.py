@@ -254,9 +254,12 @@ def test_unported_knobs_raise():
     """remat "block" and "group" (each group recomputed in the backward,
     as the reference checkpoints each group) now run and give the
     prefill logits of "none" (``==``; tests/test_torch_training.py
-    holds their gradients); the multi-card knobs raise, naming ROADMAP
-    queue 1 item 9; the in-place decode, which used to raise, is held to
-    the reference by test_inplace_decode_matches_reference."""
+    holds their gradients); ``fsdp`` runs and, on one device, places
+    nothing and gives the same logits (``==``; sharded runs are held in
+    tests/test_torch_multidevice_families.py); ``shard_kv_seq`` raises,
+    naming ROADMAP queue 1 item 2; the in-place decode, which used to
+    raise, is held to the reference by
+    test_inplace_decode_matches_reference."""
     cfg, _ = configs("smoke")
     params = api.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 4), dtype=torch.int64)
@@ -265,10 +268,12 @@ def test_unported_knobs_raise():
         got, _ = api.make_prefill_step(cfg, RunConfig(remat=remat),
                                        MAX_LEN)(params, toks)
         assert torch.equal(got, base), remat
-    for knob in ("fsdp", "shard_kv_seq"):
-        with pytest.raises(NotImplementedError, match=f"{knob}.*item 9"):
-            api.make_prefill_step(cfg, RunConfig(**{knob: True}), MAX_LEN)(
-                params, toks)
+    got, _ = api.make_prefill_step(cfg, RunConfig(fsdp=True), MAX_LEN)(
+        params, toks)
+    assert torch.equal(got, base)
+    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 2"):
+        api.make_prefill_step(cfg, RunConfig(shard_kv_seq=True), MAX_LEN)(
+            params, toks)
     # per-head (4-D) B/C, the xLSTM form, runs in plain torch; the
     # ssd_scan kernel's wrapper refuses it
     with pytest.raises(NotImplementedError, match="per-head"):

@@ -1,21 +1,24 @@
 """One rank of the port's sharded runs on the CPU, for
-tests/test_torch_multidevice.py (not a test module: it imports no jax,
-and each rank checks that).
+tests/test_torch_multidevice.py and tests/test_torch_multidevice_families.py
+(not a test module: it imports no jax, and each rank checks that).
 
-    python tests/torch_ranks.py OUT_DIR STORE RANK WORLD
+    python tests/torch_ranks.py OUT_DIR STORE RANK WORLD [SUITE]
 
 joins a gloo group of WORLD ranks over the file store STORE, builds a
-(data 2, model WORLD // 2) mesh and runs, for each case of
-``CASES``, a prefill at ``max_len`` S + 4, one greedy decode step and
-one train step (loss, every grad leaf, the updated params), unsharded
-and sharded on the same params (drawn with numpy from a seed,
-``draw_params``), then a prefill and 2 decode steps under the serving knobs of
-``SERVE_CASES``, then the launcher with ``--model-parallel 2`` (its
-checkpoint restored into the sharded tree: ``OUT_DIR/restore.npz``).  Rank 0
-writes the numbers to ``OUT_DIR/<case>.npz``; the launcher writes its
-checkpoint to ``OUT_DIR/launcher.npz``.
+(data 2, model WORLD // 2) mesh and runs the cases of SUITE (``dense``,
+the default, or ``families``; ``SUITES``): for each case of its train
+cases a prefill at ``max_len`` S + 4, one greedy decode step and one
+train step (loss, every grad leaf, the updated params), unsharded and
+sharded on the same params (drawn with numpy from a seed,
+``draw_params``, the modality inputs with them, ``draw_extras``), then a
+prefill and 2 decode steps under the serving knobs of its serve cases,
+then the launcher with ``--model-parallel 2`` (its checkpoint restored
+into the sharded tree: ``OUT_DIR/restore.npz``).  Rank 0 writes the
+numbers to ``OUT_DIR/<case>.npz``; the launcher writes its checkpoint to
+``OUT_DIR/launcher.npz``.
 """
 
+import collections
 import dataclasses
 import os
 import sys
@@ -43,6 +46,66 @@ SERVE_CASES = [("tinyllama-int8", "tinyllama-1.1b", None,
                 dict(kv_cache_dtype="float32", prefill_logits="last"))]
 LAUNCHER = ["--smoke", "--model-parallel", "2", "--device", "cpu",
             "--steps", "2", "--batch", "4", "--seq-len", "16"]
+# the hybrid, ssm, audio and VLM families
+FAMILY_ARCHS = {"zamba2": "zamba2-2.7b", "xlstm": "xlstm-125m",
+                "whisper": "whisper-tiny",
+                "vlm": "llama-3.2-vision-90b"}
+FAMILY_CASES = [(f"{name}{'-fsdp' if fsdp else ''}", arch, fsdp, None)
+                for name, arch in FAMILY_ARCHS.items()
+                for fsdp in (False, True)]
+FAMILY_SERVE_CASES = [
+    ("whisper-int8", "whisper-tiny", None, dict(kv_cache_dtype="int8")),
+    ("vlm-inplace", "llama-3.2-vision-90b", None,
+     dict(kv_cache_dtype="float32", decode_inplace_cache=True))]
+FAMILY_LAUNCHER = ["--arch", "zamba2-2.7b"] + LAUNCHER
+# suite -> (train cases, serve cases, launcher arguments)
+SUITES = {"dense": (CASES, SERVE_CASES, LAUNCHER),
+          "families": (FAMILY_CASES, FAMILY_SERVE_CASES, FAMILY_LAUNCHER)}
+# the kernel wrappers whose calls each run counts: (module, function)
+WRAPPERS = {"rmsnorm": ("repro_torch.kernels.rmsnorm.ops", "rmsnorm"),
+            "flash_attention": ("repro_torch.kernels.flash_attention.ops",
+                                "flash_attention"),
+            "decode_attention": ("repro_torch.kernels.decode_attention.ops",
+                                 "decode_attention"),
+            "ssd_scan": ("repro_torch.kernels.ssd_scan.ops", "ssd_scan")}
+
+
+def unsharded_launcher(args):
+    """The launcher's arguments without ``--model-parallel N``."""
+    i = args.index("--model-parallel")
+    return args[:i] + args[i + 2:]
+
+
+def run_group(out, suite: str = "dense", world: int = 4,
+              timeout: float = 240.0):
+    """Start ``world`` rank processes of this script on ``suite`` over a
+    file store in ``out`` and wait for them all, the group under one
+    ``timeout`` (a hung rendezvous fails).  Returns each rank's output;
+    raises naming the first rank that failed."""
+    import subprocess
+    import time
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(root / "tests" / "torch_ranks.py"), str(out),
+         str(Path(out) / "store"), str(r), str(world), suite],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=root, env=env) for r in range(world)]
+    logs, deadline = [], time.monotonic() + timeout
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r}:\n{logs[r][-4000:]}")
+    return logs
 
 
 def config(arch, kv=None):
@@ -55,12 +118,15 @@ def draw_params(cfg, seed: int = SEED):
     """The param tree of ``cfg`` as numpy float32 arrays in the
     reference's layout: ones and zeros where the schema says, normal(0,
     0.02) elsewhere (at the reference's init the smoke configs' softmaxes
-    are one-hot and a rounding flips them)."""
+    are one-hot and a rounding flips them), and the VLM's tanh gates
+    uniform in [0.5, 1] (its zero gates hide cross attention)."""
     from repro_torch.models import api
     from repro_torch.models.params import map_schema
     rng = np.random.default_rng(seed)
 
-    def leaf(p, _path):
+    def leaf(p, path):
+        if path.endswith(("/gate_attn", "/gate_mlp")):
+            return rng.uniform(0.5, 1.0, p.shape).astype(np.float32)
         if p.init == "ones":
             return np.ones(p.shape, np.float32)
         if p.init == "zeros":
@@ -75,8 +141,70 @@ def draw_tokens(cfg, seed: int = SEED):
     return toks[:, :-1], toks[:, 1:]
 
 
+def draw_extras(cfg, seed: int = SEED):
+    """The modality inputs (numpy float32, standard normal): whisper's
+    ``audio_frames``, the VLM's ``vision_embeds``; None elsewhere."""
+    rng = np.random.default_rng(seed + 2)
+    if cfg.family == "audio":
+        return {"audio_frames": rng.standard_normal(
+            (B, cfg.num_audio_frames, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"vision_embeds": rng.standard_normal(
+            (B, cfg.num_vision_tokens, cfg.d_model)).astype(np.float32)}
+    return None
+
+
 def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _numpy(t):
+    """A cache leaf, whole, as numpy (bfloat16 as float32: exact)."""
+    t = _full(t)
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _torch_extras(cfg):
+    e = draw_extras(cfg)
+    return None if e is None else {k: torch.tensor(v) for k, v in e.items()}
+
+
+class count_calls:
+    """Counts each kernel wrapper's calls (``WRAPPERS``) while active and
+    ``on``."""
+
+    def __enter__(self):
+        import importlib
+        self.calls, self._saved, self.on = collections.Counter(), [], True
+        for name, (mod, fn) in WRAPPERS.items():
+            m = importlib.import_module(mod)
+            real = getattr(m, fn)
+
+            def counted(*a, _real=real, _name=name, **k):
+                self.calls[_name] += self.on
+                return _real(*a, **k)
+            self._saved.append((m, fn, real))
+            setattr(m, fn, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn, real in self._saved:
+            setattr(m, fn, real)
+        return False
+
+
+def placed_as_specs(cfg, run, rules, mesh, cache) -> bool:
+    """Every DTensor leaf of ``cache`` placed as ``cache_pspecs`` says."""
+    from repro_torch.launch import shardings as shd
+    want = shd.to_shardings(mesh, shd.cache_pspecs(cfg, run, rules))
+
+    def walk(w, c):
+        if isinstance(c, dict):
+            return all(walk(w[k], c[k]) for k in c)
+        if isinstance(c, tuple):
+            return all(walk(a, b) for a, b in zip(w, c, strict=True))
+        return list(c.placements) == list(w)
+    return walk(want, cache)
 
 
 def run_case(mesh, arch, fsdp, kv):
@@ -86,6 +214,7 @@ def run_case(mesh, arch, fsdp, kv):
     from repro_torch.launch import mesh as meshes, shardings as shd
     from repro_torch.models import api, moe
     from repro_torch.models.params import params_from_numpy, use_rules
+    from repro_torch.models.transformer import place_cache
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train import make_train_step
 
@@ -95,6 +224,7 @@ def run_case(mesh, arch, fsdp, kv):
     tree = draw_params(cfg)
     schema = api.get_model(cfg).schema(cfg)
     toks, labels = (torch.tensor(a) for a in draw_tokens(cfg))
+    extras = _torch_extras(cfg)
 
     # each batch row's routing, recorded from both runs (the sharded
     # run's rows are this rank's: its coordinate on "data")
@@ -103,7 +233,8 @@ def run_case(mesh, arch, fsdp, kv):
 
     def recording(c, x, router, cf):
         out = real_dispatch(c, x, router, cf)
-        routes.setdefault(key, []).append(out[0].clone())
+        if counter.on:
+            routes.setdefault(key, []).append(out[0].clone())
         return out
     moe._dispatch = recording
 
@@ -113,25 +244,47 @@ def run_case(mesh, arch, fsdp, kv):
         if key == "sharded":
             params = shd.distribute(params, mesh, shd.model_param_pspecs(
                 cfg, rules, fsdp))
-        with use_rules(rules if key == "sharded" else None):
+        with use_rules(rules if key == "sharded" else None), \
+                count_calls() as counter:
             with torch.no_grad():
                 logits, cache = api.make_prefill_step(cfg, run, S + 4)(
-                    params, toks)
+                    params, toks, extras)
                 tok = _full(logits)[:, -1:].argmax(-1)
-                dec, _ = api.make_decode_step(cfg, run)(params, tok, cache)
+                out[f"{key}_cache"] = [_numpy(t) for t in opt.leaves(cache)]
+                out["cache_dtypes"] = np.array(
+                    [str(t.dtype) for t in opt.leaves(cache)])
+                if key == "plain":
+                    plain_cache, plain_tok = cache, tok
+                dec, cache2 = api.make_decode_step(cfg, run)(
+                    params, tok, cache, extras)
+                if key == "sharded":
+                    # the step alone (not counted, its routes not
+                    # recorded): from the unsharded
+                    # prefill's cache placed on the mesh, at the unsharded
+                    # run's token
+                    counter.on = False
+                    step, _ = api.make_decode_step(cfg, run)(
+                        params, plain_tok, place_cache(
+                            cfg, run, plain_cache, mesh), extras)
+                    counter.on = True
+                    out["sharded_step"] = _full(step).numpy()
+            if key == "sharded":
+                out["placed"] = all(placed_as_specs(cfg, run, rules, mesh, c)
+                                    for c in (cache, cache2))
             out[f"{key}_prefill"] = _full(logits).numpy()
             out[f"{key}_decode"] = _full(dec).numpy()
             out[f"{key}_tokens"] = np.concatenate(
                 [tok.numpy(), _full(dec).argmax(-1).numpy()], axis=1)
             state = opt.init_state(params)
             params, state, m = make_train_step(cfg, run)(
-                params, state, toks, labels)
+                params, state, toks, labels, extras)
             out[f"{key}_loss"] = float(m["loss"])
             out[f"{key}_gnorm"] = float(_full(m["grad_norm"]))
             out[f"{key}_grads"] = [_full(p.grad).detach().numpy()
                                    for p in opt.leaves(params)]
             out[f"{key}_updated"] = [_full(p).detach().numpy()
                                      for p in opt.leaves(params)]
+        out[f"{key}_calls"] = np.array([counter.calls[n] for n in WRAPPERS])
     moe._dispatch = real_dispatch
 
     flips = 0
@@ -149,48 +302,75 @@ def run_case(mesh, arch, fsdp, kv):
 
 def run_serve_case(mesh, arch, kv, knobs):
     """A prefill and 2 greedy decode steps under ``knobs``, unsharded and
-    sharded: each step's logits and the tokens."""
+    sharded: each step's logits and the tokens, and each sharded decode
+    step alone, from the unsharded run's cache placed on the mesh
+    (``sharded_steps``)."""
     from repro_torch.config import RunConfig, sharding_rules_for
     from repro_torch.launch import mesh as meshes, shardings as shd
     from repro_torch.models import api
     from repro_torch.models.params import params_from_numpy, use_rules
+    from repro_torch.models.transformer import place_cache
     cfg = config(arch, kv)
     run = RunConfig(**knobs)
     rules = sharding_rules_for(cfg, meshes.mesh_axis_sizes(mesh), run)
     plain = params_from_numpy(api.get_model(cfg).schema(cfg),
                               draw_params(cfg), "cpu")
     toks = torch.tensor(draw_tokens(cfg)[0])
-    out = {}
+    extras = _torch_extras(cfg)
+    decode = api.make_decode_step(cfg, run)
+    out, plain_caches = {}, []
     for key in ("plain", "sharded"):
         params = plain if key == "plain" else shd.distribute(
             plain, mesh, shd.model_param_pspecs(cfg, rules, False))
-        steps, tokens = [], []
+        steps, tokens, alone = [], [], []
         with use_rules(rules if key == "sharded" else None), \
                 torch.no_grad():
             logits, cache = api.make_prefill_step(cfg, run, S + 4)(
-                params, toks)
+                params, toks, extras)
+            if key == "sharded":
+                out["placed"] = placed_as_specs(cfg, run, rules, mesh, cache)
             for i in range(3):
                 full = _full(logits)[:, -1:]
                 steps.append(full.numpy())
                 tokens.append(full.argmax(-1).numpy())
-                if i < 2:
-                    logits, cache = api.make_decode_step(cfg, run)(
-                        params, torch.tensor(tokens[-1]), cache)
+                if i == 2:
+                    break
+                if key == "plain":
+                    # a copy: the in-place decode writes the one it reads
+                    plain_caches.append(_clone(cache))
+                else:
+                    one, _ = decode(params, torch.tensor(
+                        out["plain_tokens"][:, i:i + 1]), place_cache(
+                        cfg, run, plain_caches[i], mesh), extras)
+                    alone.append(_full(one).numpy())
+                logits, cache = decode(params, torch.tensor(tokens[-1]),
+                                       cache, extras)
         out[f"{key}_logits"] = np.stack(steps)
         out[f"{key}_tokens"] = np.concatenate(tokens, axis=1)
+    out["sharded_steps"] = np.stack(alone)
     return out
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone(v) for v in tree)
+    return tree.clone()
 
 
 def main():
     out_dir, store, rank, world = sys.argv[1], sys.argv[2], \
         int(sys.argv[3]), int(sys.argv[4])
+    cases, serve_cases, launcher = SUITES[
+        sys.argv[5] if len(sys.argv) > 5 else "dense"]
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
         from repro_torch.launch import mesh as meshes, train as launch_train
         mesh = meshes.make_host_mesh(model=2, device_type="cpu")
-        for name, arch, fsdp, kv in CASES:
+        for name, arch, fsdp, kv in cases:
             res = run_case(mesh, arch, fsdp, kv)
             if rank == 0:
                 flat = {k: v for k, v in res.items()
@@ -199,12 +379,12 @@ def main():
                     if isinstance(v, list):
                         flat.update({f"{k}_{i}": a for i, a in enumerate(v)})
                 np.savez(os.path.join(out_dir, f"{name}.npz"), **flat)
-        for name, arch, kv, knobs in SERVE_CASES:
+        for name, arch, kv, knobs in serve_cases:
             res = run_serve_case(mesh, arch, kv, knobs)
             if rank == 0:
                 np.savez(os.path.join(out_dir, f"{name}.npz"), **res)
         ckpt = os.path.join(out_dir, "launcher.npz")
-        params, state = launch_train.main(LAUNCHER + ["--ckpt", ckpt])
+        params, state = launch_train.main(launcher + ["--ckpt", ckpt])
         # restored placed as the launcher's sharded tree, equal to it
         from repro_torch.training import checkpoint, optimizer as opt
         like = {"params": params, "opt": state}
