@@ -353,6 +353,25 @@ one card:
                  every kernel but groupnorm_silu must launch, and they
                  join the kernels line under
                  ``launches_by_path["sharded"]``.
+                 Then caches split along their sequence (shard_kv_seq):
+                 decode_attention_block, the block variant of the decode
+                 kernel, against its plain version (f32, 2e-5) at
+                 TinyLlama's full width over a 524,288-row bf16 cache,
+                 the cache in 2, 4 and 16 blocks with an 8192-row window
+                 (empty blocks, a window across a block boundary), the
+                 blocks' log-sum-exp combine against the whole-cache
+                 kernel, and the block's time beside its bound and the
+                 whole kernel's; full-width TinyLlama at long_500k (B=1,
+                 the 524,288-row bf16 cache drawn from a seed, its
+                 position drawn above the window, decode_window 8192,
+                 shard_kv_seq and rules_for's long_500k rules): 4 greedy
+                 decode steps sharded against unsharded (tokens equal,
+                 logits within 1e-5 of the largest), then with
+                 decode_slice_reads and with decode_inplace_cache; and
+                 zamba2, whisper and the 5-layer VLM's serving check
+                 with shard_kv_seq.  The block variant must launch; its
+                 launches join decode_attention's under
+                 ``launches_by_path["kv_seq"]``.
 
 The last lines are the card (nvidia-smi), one JSON object with the
 kernels' numbers and, last, {"ok": true, "device": {...}}.  Details go
@@ -4788,6 +4807,16 @@ SHARD_FAMILY_TRAIN = {"zamba2-2.7b": dict(batch=8, seq=512, remat="group"),
                       "llama-3.2-vision-90b": None}
 SHARD_TOL = 1e-5            # of the largest |logit|, against unsharded
 SHARD_PLAN = dict(S=1000, K=20)
+# sequence-split caches: long_500k's cache and window; the kernel check's
+# row position puts its window [291809, 300001) in block 1 of 2, 2 of 4,
+# and across the boundary of blocks 8 and 9 of 16
+KV_SEQ_LEN = 524288
+KV_SEQ_WINDOW = 8192
+KV_SEQ_BLOCKS = (2, 4, 16)
+KV_SEQ_CUR = 300_001
+KV_SEQ_STEPS = 4
+KV_SEQ_KNOBS = {"default": {}, "slice_reads": dict(decode_slice_reads=True),
+                "inplace": dict(decode_inplace_cache=True)}
 
 
 def _sharded_rules(cfg, mesh, run):
@@ -4877,7 +4906,24 @@ def sharded_train(cfg, mesh, card, shape=SHARD_TRAIN, extras=None):
                 remat=run.remat)
 
 
-def sharded_serve(cfg, mesh, card, extras=None, gates=False):
+def seq_split_launches(cfg, decodes: int, want: dict) -> dict:
+    """``want`` (``expected_launches``) for a run whose self caches are
+    split along their sequence: each self-attention decode launches
+    decode_attention_block in place of decode_attention; whisper's and
+    the VLM's cross layers, whose caches are never split, keep
+    decode_attention."""
+    L = cfg.num_layers
+    cross = 0
+    if cfg.family == "audio":
+        cross = L * decodes
+    elif cfg.cross_attn_every:
+        cross = (L - L % cfg.cross_attn_every) // cfg.cross_attn_every \
+            * decodes
+    return dict(want, decode_attention=cross,
+                decode_attention_block=want["decode_attention"] - cross)
+
+
+def sharded_serve(cfg, mesh, card, extras=None, gates=False, run=None):
     """A prefill of SHARD_SERVE["prompt"] tokens and SHARD_SERVE["steps"]
     greedy decode steps at batch SHARD_SERVE["batch"] (over ``extras``,
     the modality inputs), unsharded and on DTensor views of the same
@@ -4885,15 +4931,20 @@ def sharded_serve(cfg, mesh, card, extras=None, gates=False):
     gates drawn uniform in FAMILY_GATES, whose zeros would leave its
     cross layers out): tokens equal, logits within SHARD_TOL of the
     largest, each step's time, the sharded run's launches (==
-    expected)."""
+    expected).  ``run`` with ``shard_kv_seq``: the self caches' sequence
+    on data and the batch replicated (as the reference's rules_for
+    leaves it where the data ways do not divide the batch), the decode
+    through decode_attention_block (``seq_split_launches``)."""
     import numpy as np
     import torch
     from repro_torch.config import RunConfig
     from repro_torch.launch import shardings as shd
     from repro_torch.models import api
     from repro_torch.models.params import use_rules
-    run = RunConfig()
+    run = run or RunConfig()
     rules = _sharded_rules(cfg, mesh, run)
+    if run.shard_kv_seq:
+        rules["batch"] = None
     B, S, n = (SHARD_SERVE[k] for k in ("batch", "prompt", "steps"))
     params = _fresh_params(cfg)
     if gates:
@@ -4912,6 +4963,7 @@ def sharded_serve(cfg, mesh, card, extras=None, gates=False):
         prefill = api.make_prefill_step(cfg, run, S + n)
         decode = api.make_decode_step(cfg, run)
         _zero_llm_counts()
+        dec_ops.launches_block = 0
         got, toks_out, dec_ms = [], [], []
         with use_rules(rules if key == "sharded" else None), \
                 torch.no_grad():
@@ -4928,9 +4980,14 @@ def sharded_serve(cfg, mesh, card, extras=None, gates=False):
         out[f"{key}_prefill_ms"] = ms
         out[f"{key}_decode_ms"] = statistics.median(dec_ms)
         out[f"{key}_launches"] = _llm_counts()
+        if run.shard_kv_seq:
+            out[f"{key}_launches"]["decode_attention_block"] = \
+                dec_ops.launches_block
         logits_by[key] = (got, torch.cat(toks_out, dim=1))
         del cache, logits
     want = expected_launches(cfg, 1, n, run)
+    if run.shard_kv_seq:
+        want = seq_split_launches(cfg, n, want)
     check(out["sharded_launches"] == want,
           f"sharded serving launched {out['sharded_launches']}, expected "
           f"{want}")
@@ -4943,7 +5000,8 @@ def sharded_serve(cfg, mesh, card, extras=None, gates=False):
     out["logits_rel_err"] = err
     del params
     torch.cuda.empty_cache()
-    log(f"[sharded] {cfg.name} ({cfg.num_layers} layers) prefill "
+    log(f"[sharded] {cfg.name} ({cfg.num_layers} layers)"
+        f"{' shard_kv_seq' if run.shard_kv_seq else ''} prefill "
         f"{S} + {n} decode steps at B={B}: prefill unsharded "
         f"{out['unsharded_prefill_ms']:.1f} ms, sharded "
         f"{out['sharded_prefill_ms']:.1f} ms; decode step (median) "
@@ -5017,6 +5075,244 @@ def sharded_families(mesh, card):
     return details
 
 
+def kv_seq_kernels(card):
+    """decode_attention_block against its plain version on the card at
+    TinyLlama's full width (H=32, KV=4, D=64), f32 q over a
+    KV_SEQ_LEN-row bf16 cache at B=1, window KV_SEQ_WINDOW, the row at
+    KV_SEQ_CUR: the cache cut into each of KV_SEQ_BLOCKS blocks, each
+    block's o and lse (f32, TOL; the same blocks empty, lse -inf), and
+    the blocks combined by log-sum-exp (``ref.lse_combine``) against
+    the whole-cache decode_attention kernel.  Then device times: the
+    block that holds the window in 2 (kernel, plain version, and the
+    library's memory-efficient attention with its log-sum-exp, its
+    output checked against the kernel's at the bfloat16 tolerance)
+    beside its ``cost_block`` bound, and the whole kernel over the whole
+    cache.
+    Launches here are checks, not the path's: the counters are zeroed
+    after."""
+    import torch
+    from repro_torch.configs.tinyllama_1_1b import CONFIG as cfg
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_block_ref, lse_combine)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    S, W = KV_SEQ_LEN, KV_SEQ_WINDOW
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q = torch.randn((1, 1, H, D), generator=gen, device="cuda")
+    k, v = (torch.randn((1, S, KV, D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    cur = torch.tensor([KV_SEQ_CUR], dtype=torch.int32, device="cuda")
+    err = {}
+    whole = dec_ops.decode_attention(q, k, v, cur, window=W)
+    for n in KV_SEQ_BLOCKS:
+        R, outs, lses = S // n, [], []
+        for i in range(n):
+            kb, vb = k[:, i * R:(i + 1) * R], v[:, i * R:(i + 1) * R]
+            o, lse = dec_ops.decode_attention_block(q, kb, vb, cur,
+                                                    window=W, offset=i * R)
+            ro, rl = decode_attention_block_ref(q, kb, vb, cur, window=W,
+                                                offset=i * R)
+            _check_close(f"decode_attention_block {n} blocks, block {i}",
+                         o, ro, "float32", err)
+            empty = torch.isinf(rl)
+            check(torch.equal(torch.isinf(lse), empty)
+                  and bool((o[empty.any(-1)] == 0).all()),
+                  f"decode_attention_block {n} blocks, block {i}: empty "
+                  f"rows differ from the plain version's")
+            if not bool(empty.all()):
+                _check_close(f"decode_attention_block lse {n}/{i}",
+                             lse[~empty], rl[~empty], "float32", err)
+            outs.append(o)
+            lses.append(lse)
+        got = lse_combine(torch.stack(outs), torch.stack(lses))
+        _check_close(f"{n} blocks combined against decode_attention", got,
+                     whole, "float32", err)
+    torch.cuda.synchronize()
+    R = S // 2
+    kb, vb = k[:, R:], v[:, R:]
+    c = dec_ops.cost_block(q, kb, vb, cur, window=W, offset=R)
+    ms = device_time_ms(lambda: dec_ops.decode_attention_block(
+        q, kb, vb, cur, window=W, offset=R))
+    plain_ms = device_time_ms(lambda: decode_attention_block_ref(
+        q, kb, vb, cur, window=W, offset=R), calls=2, replays=3)
+    whole_ms = device_time_ms(lambda: dec_ops.decode_attention(
+        q, k, v, cur, window=W))
+    whole_c = dec_ops.cost(q, k, v, cur, window=W)
+    # the library's call for the same block: memory-efficient attention
+    # with its log-sum-exp, q in bfloat16 as the decode rows' SDPA takes
+    # it, the KV heads expanded to H first (it takes no GQA), the rows
+    # outside [cur - W, cur) masked by a bias
+    qt = q.to(torch.bfloat16).transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+              .contiguous() for t in (kb, vb))
+    at = R + torch.arange(R, device="cuda")
+    bias = torch.zeros((1, H, 1, R), dtype=torch.bfloat16, device="cuda")
+    bias.masked_fill_(~((at < cur) & (at >= cur - W)), float("-inf"))
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, bias, True)[:2]
+    lib_o, lib_lse = library()
+    o, lse = dec_ops.decode_attention_block(q, kb, vb, cur, window=W,
+                                            offset=R)
+    lib_err = {}
+    _check_close("efficient attention on the block against "
+                 "decode_attention_block", lib_o.transpose(1, 2), o,
+                 "bfloat16", lib_err)
+    lse_err = float((lib_lse[..., 0] - lse).abs().max())
+    library_ms = device_time_ms(library)
+    del qt, kt, vt, bias
+    dec_ops.launches = dec_ops.launches_block = 0
+    log(f"[kv_seq] decode_attention_block at H={H} KV={KV} D={D}, f32 q "
+        f"over a {S}-row bf16 cache in {list(KV_SEQ_BLOCKS)} blocks, "
+        f"window {W}, row at {KV_SEQ_CUR}: every block and the combine "
+        f"match (max abs err {err['float32']:.3g}, tol "
+        f"{TOL['float32']}); one block of {R} rows holding the window: "
+        f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+        f"{c.ms * 1e3:.2f} us ({c.bound_by}), library {library_ms * 1e3:.2f}"
+        f" us (efficient attention with its log-sum-exp, bf16 q; o max "
+        f"abs err {lib_err['bfloat16']:.3g}, lse {lse_err:.3g}); "
+        f"whole-cache decode_attention {whole_ms * 1e3:.2f} us (bound "
+        f"{whole_c.ms * 1e3:.2f} us) on {card}")
+    return dict(max_abs_err=err["float32"], ms=ms, plain_ms=plain_ms,
+                bound_ms=c.ms, bound_by=c.bound_by, library_ms=library_ms,
+                library="aten._scaled_dot_product_efficient_attention("
+                        "compute_log_sumexp=True) on the block, bf16 q, KV "
+                        "heads expanded to H, the window as a bias",
+                library_o_err=lib_err["bfloat16"], library_lse_err=lse_err,
+                whole_ms=whole_ms, whole_bound_ms=whole_c.ms, block_rows=R)
+
+
+def kv_seq_long(mesh, card):
+    """Full-width TinyLlama at long_500k on the mesh: B=1, a KV_SEQ_LEN
+    bf16 cache drawn from a seed, the position drawn above the window,
+    decode_window KV_SEQ_WINDOW, shard_kv_seq and the port's rules_for
+    at long_500k (the batch dropped: the reference drops it where the
+    16 data ways do not divide B = 1; the one-card mesh's one does).
+    For each of KV_SEQ_KNOBS, KV_SEQ_STEPS greedy decode steps unsharded
+    and sharded from the same cache (a copy each where the step writes
+    in place): tokens equal, logits within SHARD_TOL of the largest,
+    step times, the sharded launches (== ``seq_split_launches``).  The
+    weights are ``parity_params``' (std LLM_PARITY_STD): at the
+    reference's init each softmax is one-hot and 22 layers turn the
+    rounding of two correct computations into O(1) logits, and here
+    slice reads differ in order (the unsharded run copies the window,
+    whose tiles start elsewhere).  The in-place branch is one function
+    for the whole cache and a block (its all-reduces over the one-rank
+    mesh dim): the same bits."""
+    import numpy as np
+    import torch
+    from repro_torch.config import SHAPES, RunConfig
+    from repro_torch.configs.tinyllama_1_1b import CONFIG as cfg
+    from repro_torch.launch import dryrun, shardings as shd
+    from repro_torch.models import api
+    from repro_torch.models.params import use_rules
+    from repro_torch.models.transformer import place_cache
+    params = parity_params(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    rng = np.random.default_rng(37)
+    pos = int(rng.integers(KV_SEQ_WINDOW + 1, KV_SEQ_LEN - KV_SEQ_STEPS))
+    shape = (cfg.num_layers, 1, KV_SEQ_LEN, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    base = {"pos": torch.tensor([pos], dtype=torch.int32, device="cuda"),
+            "k": torch.randn(shape, generator=gen, device="cuda",
+                             dtype=torch.bfloat16),
+            "v": torch.randn(shape, generator=gen, device="cuda",
+                             dtype=torch.bfloat16)}
+    first = torch.tensor([[int(rng.integers(cfg.vocab_size))]],
+                         device="cuda")
+    out = {"pos": pos, "cache_gib": sum(
+        t.nbytes for t in base.values()) / 2**30}
+    for name, knobs in KV_SEQ_KNOBS.items():
+        run = RunConfig(shard_kv_seq=True, decode_window=KV_SEQ_WINDOW,
+                        **knobs)
+        rules = dryrun.rules_for(cfg, SHAPES["long_500k"], run, mesh)
+        rules["batch"] = None
+        decode = api.make_decode_step(cfg, run)
+        res = {}
+        for key in ("unsharded", "sharded"):
+            cache = {k: t.clone() for k, t in base.items()} \
+                if run.decode_inplace_cache else dict(base)
+            p = params
+            if key == "sharded":
+                p = shd.distribute(params, mesh, shd.model_param_pspecs(
+                    cfg, rules, False))
+            _zero_llm_counts()
+            dec_ops.launches_block = 0
+            logits_all, toks, ms = [], [], []
+            tok = first
+            with use_rules(rules if key == "sharded" else None), \
+                    torch.no_grad():
+                if key == "sharded":
+                    cache = place_cache(cfg, run, cache, mesh)
+                for _ in range(KV_SEQ_STEPS):
+                    t, (logits, cache) = _timed(
+                        lambda: decode(p, tok, cache))
+                    full = _full(logits)[:, -1].float()
+                    logits_all.append(full.cpu())
+                    tok = full.argmax(-1)[:, None]
+                    toks.append(tok.cpu())
+                    ms.append(t)
+            launches = dict(_llm_counts(),
+                            decode_attention_block=dec_ops.launches_block)
+            res[key] = (logits_all, torch.cat(toks, 1), ms, launches)
+            del cache
+            torch.cuda.empty_cache()
+        (ul, ut, ums, _), (sl, st, sms, launches) = res["unsharded"], \
+            res["sharded"]
+        err = max(float((a - b).abs().max() / a.abs().max())
+                  for a, b in zip(ul, sl))
+        check(torch.equal(ut, st) and err <= SHARD_TOL,
+              f"long_500k {name}: tokens equal {torch.equal(ut, st)}, "
+              f"logits {err:.3g} of the largest off the unsharded run")
+        want = seq_split_launches(cfg, KV_SEQ_STEPS, expected_launches(
+            cfg, 0, KV_SEQ_STEPS, run))
+        check(launches == want, f"long_500k {name}: launched {launches}, "
+              f"expected {want}")
+        out[name] = dict(unsharded_ms=ums, sharded_ms=sms,
+                         logits_rel_err=err, sharded_launches=launches)
+        log(f"[kv_seq] tinyllama-1.1b long_500k {name}: B=1, cache "
+            f"{KV_SEQ_LEN} rows bf16, position {pos}, window "
+            f"{KV_SEQ_WINDOW}, {KV_SEQ_STEPS} steps: unsharded "
+            f"{statistics.median(ums):.2f} ms, sharded (shard_kv_seq) "
+            f"{statistics.median(sms):.2f} ms a step (median; first "
+            f"{ums[0]:.2f} / {sms[0]:.2f}) on {card}; tokens equal, logits "
+            f"{err:.3g} of the largest; launches {launches}")
+    del params, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_kv_seq(mesh, card):
+    """Caches split along their sequence (phase 13's last part): the
+    block kernel (``kv_seq_kernels``), TinyLlama at long_500k
+    (``kv_seq_long``), and zamba2, whisper and the 5-layer VLM's
+    serving check with shard_kv_seq.  Returns the details, with the
+    block variant's launches on these runs."""
+    from repro_torch.config import RunConfig
+    from repro_torch.configs.llama_3_2_vision_90b import CONFIG as VLM
+    from repro_torch.configs.whisper_tiny import CONFIG as WHISPER
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2
+    t0 = time.perf_counter()
+    out = {"kernel": kv_seq_kernels(card), "long_500k": kv_seq_long(mesh,
+                                                                    card)}
+    block = sum(r["sharded_launches"]["decode_attention_block"]
+                for r in out["long_500k"].values() if isinstance(r, dict))
+    for cfg in (ZAMBA2, WHISPER,
+                dataclasses.replace(VLM, num_layers=SHARD_VLM_LAYERS)):
+        x = fam_extras(cfg, SHARD_SERVE["batch"], "cuda", drawn=True)
+        r = sharded_serve(cfg, mesh, card, x,
+                          gates=bool(cfg.cross_attn_every),
+                          run=RunConfig(shard_kv_seq=True))
+        out[f"{cfg.name}_serve"] = r
+        block += r["sharded_launches"]["decode_attention_block"]
+    check(block > 0, "phase sharded: decode_attention_block never launched")
+    out["block_launches"] = block
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[kv_seq] sequence-split caches: {out['seconds']:.1f} s, "
+        f"decode_attention_block launched {block} times on {card}")
+    return out
+
+
 def phase_sharded(card):
     """Phase sharded (see the module docstring, phase 13): an NCCL world
     of one over a file store, a (1, 1) mesh from ``make_host_mesh``.
@@ -5044,12 +5340,21 @@ def phase_sharded(card):
         details.update(sharded_families(mesh, card))
         details["families_seconds"] = time.perf_counter() - t_fam
         details["plan"] = sharded_plan(card)
+        details["kv_seq"] = sharded_kv_seq(mesh, card)
     finally:
         dist.destroy_process_group()
     launches = collections.Counter()
     for key, run in details.items():
         if isinstance(run, dict) and "sharded_launches" in run:
             launches.update(run["sharded_launches"])
+    for run in details["kv_seq"].values():
+        if isinstance(run, dict) and "sharded_launches" in run:
+            launches.update({k: v for k, v in run["sharded_launches"].items()
+                             if k != "decode_attention_block"})
+    for run in details["kv_seq"]["long_500k"].values():
+        if isinstance(run, dict):
+            launches.update({k: v for k, v in run["sharded_launches"].items()
+                             if k != "decode_attention_block"})
     check(all(launches[k] > 0 for k in ("rmsnorm", "flash_attention",
                                         "decode_attention", "ssd_scan")),
           f"phase sharded: a kernel never launched ({dict(launches)})")
@@ -5138,6 +5443,16 @@ def main() -> int:
         if shard_launches.get(name):
             entry["launches_by_path"]["sharded"] = shard_launches[name]
             entry["launches"] += shard_launches[name]
+        if name == "decode_attention":
+            # the block variant: same source, launched over
+            # sequence-split caches (phase sharded)
+            kv = sharded["kv_seq"]
+            entry["launches_by_path"]["kv_seq"] = kv["block_launches"]
+            entry["launches"] += kv["block_launches"]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       kv["kernel"]["max_abs_err"])
+            entry["block"] = dict(kv["kernel"],
+                                  launches=kv["block_launches"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(

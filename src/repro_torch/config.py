@@ -20,9 +20,8 @@ logical-axis rules, copied: they map each logical axis of the schemas
 and activations to mesh axes, and drop a ``model`` mapping that the
 config's size does not divide.  The port runs them over a
 ``torch.distributed`` device mesh (``repro_torch.launch.mesh``,
-``repro_torch.launch.shardings``), every family.  Its models raise
-``NotImplementedError`` for ``shard_kv_seq`` and, under a mesh, for
-``decode_slice_reads`` (``repro_torch.models.transformer.check_run``).
+``repro_torch.launch.shardings``), every family, ``shard_kv_seq``
+(the self caches' sequence axis on ``data``) included.
 """
 
 from __future__ import annotations

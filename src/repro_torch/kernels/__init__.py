@@ -55,6 +55,16 @@ TF32_OPS_PER_S = 495e12            # TF32 tensor cores; flash_attention and
 BF16_OPS_PER_S = 989e12            # bfloat16 tensor cores
 TF32_PER_F32_OP = 3                # precision with 3xTF32: lo*hi + hi*lo
                                    # + hi*hi per f32 product
+# The links of the production meshes (launch.dryrun: 16 x 16 and 2 x 16
+# x 16 cards), 256 H100 SXM as 32 nodes of 8: NVLink 4 inside a node,
+# 900 GB/s a GPU in both directions together (NVIDIA H100 data sheet),
+# 450e9 each way; between nodes one 400 Gb/s NDR InfiniBand link a GPU
+# (NVIDIA DGX H100 data sheet), 50e9 each way.  A collective is priced
+# at the slowest link its group crosses: NVLink where the group's ranks
+# lie in one node, the node link otherwise (``launch.dryrun.link_rates``).
+GPUS_PER_NODE = 8
+NVLINK_BYTES_PER_S = 450e9
+NODE_LINK_BYTES_PER_S = 50e9
 
 
 @dataclasses.dataclass(frozen=True)

@@ -80,6 +80,17 @@
 //   masked contributes l = 0, acc = 0 (a split with no valid tile reads
 //   no cache at all), and a row with cur_len = 0 gives 0.
 //
+// The block entry (decode_attention_block_launch) runs the same two
+// passes over one block of a cache split along its sequence axis (a
+// sequence-sharded cache, one block a rank): the block's rows sit at
+// global positions [offset, offset + S), cur_len and the window stay
+// global, and an optional lo_len (B,) raises each row's first valid
+// position (the slice-reads window).  A split kernel's block reads only
+// the tiles of its rows that are valid in the whole cache.  The combine
+// writes the block's o in f32 and lse = m + log(l); the caller merges
+// blocks by log-sum-exp (models/layers.py).  A block with no valid row
+// gives o = 0 and lse = -inf.
+//
 // Measured at G = 48 on one KV head (granite, B = 8, cache 512; NVIDIA
 // H100 80GB HBM3, 700 W; chip_smoke.py, PERF.md): 24.1 us a call against
 // SDPA's 13.0 and a 0.44 us bound.  At B = 8 the grid holds 64 blocks for
@@ -94,8 +105,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -198,8 +207,9 @@ __global__ void __launch_bounds__(
     decode_split_kernel(const void* __restrict__ q, int q_bf16,
                         const TC* __restrict__ kc, const TC* __restrict__ vc,
                         const int* __restrict__ cur_len,
+                        const int* __restrict__ lo_len,
                         float* __restrict__ part, int S, int H, int KV,
-                        int window, float scale, int splits) {
+                        int window, int offset, float scale, int splits) {
   using T = Tile<TC, D>;
   constexpr int VEC = T::kVec, NC = T::kChunks, KST = T::kKStride;
   constexpr int PS = kWarps / HS;  // position slices
@@ -241,9 +251,12 @@ __global__ void __launch_bounds__(
     }
   }
 
+  // valid: global positions [glo, cur), this block's rows [lo, hi)
   const int cur = cur_len[b];
-  const int hi = min(cur, S);                        // valid: [lo, hi)
-  const int lo = window ? max(0, cur - window) : 0;
+  int glo = window ? cur - window : 0;
+  if (lo_len) glo = max(glo, lo_len[b]);
+  const int hi = min(cur - offset, S);
+  const int lo = max(glo - offset, 0);
   const int t_lo = lo / kBS;
   const int n = hi > lo ? (hi + kBS - 1) / kBS - t_lo : 0;  // valid tiles
   const int share = n / splits, extra = n % splits;  // the first `extra`
@@ -447,7 +460,7 @@ __global__ void __launch_bounds__(
 template <typename TQ, int D>
 __global__ void __launch_bounds__(kThreads)
     decode_combine_kernel(const float* __restrict__ part, TQ* __restrict__ o,
-                          int rows, int splits) {
+                          float* __restrict__ lse, int rows, int splits) {
   constexpr int C = (D + 31) / 32;
   const int lane = threadIdx.x & 31;
   const int bh = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -485,13 +498,33 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int j = 0; j < C; ++j)
     if (lane + 32 * j < D) ob[lane + 32 * j] = from_f32<TQ>(acc[j] * inv);
+  if (lse && lane == 0)  // -inf where no split held a valid row
+    lse[bh] = L > 0.f ? M + logf(L) : __int_as_float(0xff800000);
 }
 
+// One call's arguments: q (B,1,H,D) in f32 or bf16 (q_bf16); caches
+// (B,S,KV,D); cur_len (B,) and, for the block entry, lo_len (B,) or
+// null; the f32 scratch `part`; o in the output type; lse (B,H) f32 or
+// null.  `offset` is the global position of the caches' row 0.
+struct Args {
+  const void* q;
+  int q_bf16;
+  const void* kc;
+  const void* vc;
+  const int* cur;
+  const int* lo;
+  float* part;
+  void* o;
+  float* lse;
+  int B, S, H, KV, window, offset;
+  float scale;
+  int splits;
+  cudaStream_t stream;
+};
+
 template <typename TC, int D, int HS, int HM>
-int launch_split(const void* q, int q_bf16, const void* kc, const void* vc,
-                 const int* cur, float* part, int B, int S, int H, int KV,
-                 int window, float scale, int splits, cudaStream_t stream) {
-  const int G = H / KV, chunks = (G + kBlockHeads - 1) / kBlockHeads;
+int launch_split(const Args& a) {
+  const int G = a.H / a.KV, chunks = (G + kBlockHeads - 1) / kBlockHeads;
   const size_t merge = sizeof(float) * kWarps * HM * (D + 2);
   const size_t ring = Tile<TC, D>::kRingBytes;
   const size_t smem = sizeof(float) * (G < kBlockHeads ? G : kBlockHeads) *
@@ -502,84 +535,71 @@ int launch_split(const void* q, int q_bf16, const void* kc, const void* vc,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid(splits, KV * chunks, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      q, q_bf16, static_cast<const TC*>(kc), static_cast<const TC*>(vc), cur,
-      part, S, H, KV, window, scale, splits);
+  const dim3 grid(a.splits, a.KV * chunks, a.B);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      a.q, a.q_bf16, static_cast<const TC*>(a.kc),
+      static_cast<const TC*>(a.vc), a.cur, a.lo, a.part, a.S, a.H, a.KV,
+      a.window, a.offset, a.scale, a.splits);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, typename TC, int D>
-int launch_typed(const void* q, const void* kc, const void* vc,
-                 const int* cur, float* part, void* o, int B, int S, int H,
-                 int KV, int window, float scale, int splits,
-                 cudaStream_t stream) {
+// TO: the output's type (q's for decode_attention_launch, f32 for the
+// block entry); the split kernel reads q's type from a.q_bf16.
+template <typename TO, typename TC, int D>
+int launch_typed(const Args& a) {
   // head slices and heads per warp: G <= 8 in one slice of G rounded up
   // to a power of two, G <= 16, 32, 64 in two, four, eight slices of 8;
   // beyond 64 each block holds 64 heads in eight slices
-  const int G = H / KV, qb = std::is_same<TQ, __nv_bfloat16>::value;
+  const int G = a.H / a.KV;
   int rc;
-#define SPLIT(HS, HM)                                                     \
-  launch_split<TC, D, HS, HM>(q, qb, kc, vc, cur, part, B, S, H, KV, window, \
-                              scale, splits, stream)
   if (G == 1)
-    rc = SPLIT(1, 1);
+    rc = launch_split<TC, D, 1, 1>(a);
   else if (G == 2)
-    rc = SPLIT(1, 2);
+    rc = launch_split<TC, D, 1, 2>(a);
   else if (G <= 4)
-    rc = SPLIT(1, 4);
+    rc = launch_split<TC, D, 1, 4>(a);
   else if (G <= 8)
-    rc = SPLIT(1, 8);
+    rc = launch_split<TC, D, 1, 8>(a);
   else if (G <= 16)
-    rc = SPLIT(2, 8);
+    rc = launch_split<TC, D, 2, 8>(a);
   else if (G <= 32)
-    rc = SPLIT(4, 8);
+    rc = launch_split<TC, D, 4, 8>(a);
   else
-    rc = SPLIT(8, 8);
-#undef SPLIT
+    rc = launch_split<TC, D, 8, 8>(a);
   if (rc != 0) return rc;
-  const int rows = B * H;
-  decode_combine_kernel<TQ, D><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
-                                 stream>>>(part, static_cast<TQ*>(o), rows,
-                                           splits);
+  const int rows = a.B * a.H;
+  decode_combine_kernel<TO, D><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
+                                 a.stream>>>(
+      a.part, static_cast<TO*>(a.o), a.lse, rows, a.splits);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, typename TC>
-int launch_dim(const void* q, const void* kc, const void* vc, const int* cur,
-               float* part, void* o, int B, int S, int H, int KV, int D,
-               int window, float scale, int splits, cudaStream_t stream) {
+template <typename TO, typename TC>
+int launch_dim(const Args& a, int D) {
   switch (D) {
     case 32:
-      return launch_typed<TQ, TC, 32>(q, kc, vc, cur, part, o, B, S, H, KV,
-                                      window, scale, splits, stream);
+      return launch_typed<TO, TC, 32>(a);
     case 64:
-      return launch_typed<TQ, TC, 64>(q, kc, vc, cur, part, o, B, S, H, KV,
-                                      window, scale, splits, stream);
+      return launch_typed<TO, TC, 64>(a);
     case 80:
-      return launch_typed<TQ, TC, 80>(q, kc, vc, cur, part, o, B, S, H, KV,
-                                      window, scale, splits, stream);
+      return launch_typed<TO, TC, 80>(a);
     case 128:
-      return launch_typed<TQ, TC, 128>(q, kc, vc, cur, part, o, B, S, H, KV,
-                                       window, scale, splits, stream);
+      return launch_typed<TO, TC, 128>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename TQ>
-int launch_cache(const void* q, const void* kc, const void* vc,
-                 const int* cur, float* part, void* o, int B, int S, int H,
-                 int KV, int D, int window, float scale, int splits,
-                 int c_dtype, cudaStream_t stream) {
-  if (c_dtype == 0)
-    return launch_dim<TQ, float>(q, kc, vc, cur, part, o, B, S, H, KV, D,
-                                 window, scale, splits, stream);
-  if (c_dtype == 1)
-    return launch_dim<TQ, __nv_bfloat16>(q, kc, vc, cur, part, o, B, S, H,
-                                         KV, D, window, scale, splits,
-                                         stream);
+template <typename TO>
+int launch_cache(const Args& a, int D, int c_dtype) {
+  if (c_dtype == 0) return launch_dim<TO, float>(a, D);
+  if (c_dtype == 1) return launch_dim<TO, __nv_bfloat16>(a, D);
   return (int)cudaErrorInvalidValue;
+}
+
+bool bad_shape(int H, int KV, int splits) {
+  return KV < 1 || H % KV != 0 || splits < 1 ||
+         (long long)KV * ((H / KV + kBlockHeads - 1) / kBlockHeads) > 65535;
 }
 
 }  // namespace
@@ -596,17 +616,33 @@ extern "C" int decode_attention_launch(const void* q, const void* kc,
                                        int H, int KV, int D, int window,
                                        float scale, int splits, int q_dtype,
                                        int c_dtype, void* stream) {
-  if (KV < 1 || H % KV != 0 || splits < 1 ||
-      (long long)KV * ((H / KV + kBlockHeads - 1) / kBlockHeads) > 65535)
+  if (bad_shape(H, KV, splits) || (q_dtype != 0 && q_dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* cur = static_cast<const int*>(cur_len);
-  float* p = static_cast<float*>(part);
-  if (q_dtype == 0)
-    return launch_cache<float>(q, kc, vc, cur, p, o, B, S, H, KV, D, window,
-                               scale, splits, c_dtype, s);
-  if (q_dtype == 1)
-    return launch_cache<__nv_bfloat16>(q, kc, vc, cur, p, o, B, S, H, KV, D,
-                                       window, scale, splits, c_dtype, s);
-  return (int)cudaErrorInvalidValue;
+  const Args a{q, q_dtype, kc, vc, static_cast<const int*>(cur_len), nullptr,
+               static_cast<float*>(part), o, nullptr, B, S, H, KV, window,
+               0, scale, splits, static_cast<cudaStream_t>(stream)};
+  return q_dtype == 0 ? launch_cache<float>(a, D, c_dtype)
+                      : launch_cache<__nv_bfloat16>(a, D, c_dtype);
+}
+
+// The block of the cache at global positions [offset, offset + S): the
+// same passes over the rows of kc, vc (B,S,KV,D) that are valid in the
+// whole cache (positions [max(cur_len - window, lo_len), cur_len), each
+// bound where given: window > 0, lo_len not null), and the combine
+// writes o (B,1,H,D) in f32, unnormalised by any other block, and lse
+// (B,H) = m + log(l) of the block's scaled scores (-inf, with o = 0,
+// where the block holds no valid row).  q in f32 or bf16 (q_dtype).
+extern "C" int decode_attention_block_launch(
+    const void* q, const void* kc, const void* vc, const void* cur_len,
+    const void* lo_len, void* part, void* o, void* lse, int B, int S, int H,
+    int KV, int D, int window, int offset, float scale, int splits,
+    int q_dtype, int c_dtype, void* stream) {
+  if (bad_shape(H, KV, splits) || offset < 0 ||
+      (q_dtype != 0 && q_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, q_dtype, kc, vc, static_cast<const int*>(cur_len),
+               static_cast<const int*>(lo_len), static_cast<float*>(part), o,
+               static_cast<float*>(lse), B, S, H, KV, window, offset, scale,
+               splits, static_cast<cudaStream_t>(stream)};
+  return launch_cache<float>(a, D, c_dtype);
 }

@@ -9,7 +9,15 @@ Pallas kernel: a block holds up to ``BLOCK_HEADS`` query heads of one
 KV head.  q and the cache may differ in
 type (float32 q over a bfloat16 cache is the serving path's default).
 ``launches`` counts wrapper calls that launched the kernels, one per
-call, so a run can show that its path went through them.  There is no
+call, so a run can show that its path went through them.
+
+``decode_attention_block`` runs the same kernels over one block of a
+cache split along its sequence axis (each rank's block of a
+sequence-sharded cache, ``models/layers.py``): the block's rows sit at
+global positions ``offset`` on, ``cur_len`` and the window stay global,
+and it returns the block's float32 output with the log-sum-exp of its
+scores, which ``ref.lse_combine`` (or the ranks' all-reduce) merges.
+``launches_block`` counts its launches.  There is no
 gradient: under grad mode a CUDA or meta input that needs one raises.
 A meta tensor gets the output's shape and type, no arithmetic
 (``kernels.meta_call``); ``cost`` is a call's work.
@@ -26,9 +34,11 @@ import torch
 from repro_torch.kernels import (F32_OPS_PER_S, KernelCost, build, launch,
                                  meta_call, nbytes, product_rate,
                                  refuse_dtensor)
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_block_ref, decode_attention_ref)
 
 launches = 0
+launches_block = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)        # the kernel's compiled head sizes
@@ -58,6 +68,15 @@ def num_splits(B: int, KV: int, S: int) -> int:
 def _entry():
     fn = build.load("decode_attention").decode_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _entry_block():
+    fn = build.load("decode_attention").decode_attention_block_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -189,3 +208,106 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            f"{tuple(k_cache.shape)}")
     launches += 1
     return o
+
+
+def _block_rows(cur_len, B: int, S: int, window: int, offset: int,
+                lo) -> int:
+    """Rows of a block at ``offset`` of S rows valid in the whole cache:
+    the sum over rows of |[max(cur - window, lo), cur) & [offset, offset
+    + S)|."""
+    cur = torch.as_tensor(cur_len).expand(B).to(torch.int64)
+    first = cur - window if window else torch.zeros_like(cur)
+    if lo is not None:
+        first = torch.maximum(first, torch.as_tensor(lo).to(torch.int64))
+    hi = torch.clamp(cur - offset, max=S)
+    return int(torch.clamp(hi - torch.clamp(first - offset, min=0),
+                           min=0).sum())
+
+
+def cost_block(q: torch.Tensor, k_block: torch.Tensor,
+               v_block: torch.Tensor, cur_len=None, *, window: int = 0,
+               offset: int = 0, lo=None) -> KernelCost:
+    """One ``decode_attention_block`` call's work: q and the int32
+    cur_len (and lo) read, o and lse written in float32, and of the
+    block's k and v only the rows valid in the whole cache, each read
+    once, against 4 D operations per such row and query head, at
+    ``cost``'s rates.  Where the host does not know cur_len (None, or a
+    tensor on the meta device) every row of the block within the window
+    is read."""
+    B, _, H, D = q.shape
+    S, KV = k_block.shape[1], k_block.shape[2]
+    if cur_len is None or (isinstance(cur_len, torch.Tensor)
+                           and cur_len.is_meta) or (
+            isinstance(lo, torch.Tensor) and lo.is_meta):
+        valid = B * (min(S, window) if window else S)
+    else:
+        valid = _block_rows(cur_len, B, S, window, offset, lo)
+    return KernelCost(4 * D * H * valid,
+                      nbytes(q) + 4 * B * (1 if lo is None else 2)
+                      + 4 * B * H * (D + 1)
+                      + 2 * valid * KV * D * k_block.element_size(),
+                      *product_rate(q, k_block, v_block,
+                                    f32=(F32_OPS_PER_S, 1)))
+
+
+def decode_attention_block(q: torch.Tensor, k_block: torch.Tensor,
+                           v_block: torch.Tensor, cur_len, *,
+                           window: int = 0, offset: int = 0, lo=None):
+    """Decode attention over one block of a cache split along its
+    sequence axis: q (B,1,H,D), the block's rows k_block, v_block
+    (B,S_b,KV,D) at global positions [offset, offset + S_b), cur_len
+    (B,) (or one int) and ``window`` global, as ``decode_attention``
+    takes them, and ``lo`` (B,) (or None) each row's first valid
+    position besides.  Returns (o, lse): o (B,1,H,D) float32, the
+    block's output (not cast to q's type), lse (B,H) float32, the
+    log-sum-exp of its scaled scores; a block with no valid row gives
+    o = 0, lse = -inf (no NaN)."""
+    global launches_block
+    _check(q, k_block, v_block, window)
+    if offset < 0:
+        raise ValueError(f"decode_attention_block: offset must be >= 0, "
+                         f"got {offset}")
+    B, _, H, D = q.shape
+    cur = _cur_tensor(cur_len, B, q.device)
+    lo_t = None if lo is None else _cur_tensor(lo, B, q.device)
+    if q.device.type == "cpu":
+        return decode_attention_block_ref(q, k_block, v_block, cur,
+                                          window=window, offset=offset,
+                                          lo=lo_t)
+    if torch.is_grad_enabled() and (q.requires_grad
+                                    or k_block.requires_grad
+                                    or v_block.requires_grad):
+        raise NotImplementedError(
+            "decode_attention_block: the kernel has no backward; call it "
+            "under torch.no_grad() or on inputs that need no gradient")
+
+    def outputs():
+        return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+                torch.empty((B, H), dtype=torch.float32, device=q.device))
+    if q.device.type == "meta":
+        return meta_call("decode_attention_block",
+                         lambda: cost_block(q, k_block, v_block, cur,
+                                            window=window, offset=offset,
+                                            lo=lo_t), outputs)
+    S, KV = k_block.shape[1], k_block.shape[2]
+    qp, kp, vp = q.data_ptr(), k_block.data_ptr(), v_block.data_ptr()
+    if (qp | kp | vp) % 16:
+        raise ValueError("decode_attention_block: q and the block must "
+                         "start on a 16-byte boundary")
+    o, lse = outputs()
+    if q.numel() == 0:
+        return o, lse
+    splits = num_splits(B, KV * head_chunks(H // KV), S)
+    part = torch.empty((B, H, splits, D + 2), dtype=torch.float32,
+                       device=q.device)
+    rc = launch(_entry_block(), q.get_device(), qp, kp, vp, cur.data_ptr(),
+                None if lo_t is None else lo_t.data_ptr(), part.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), B, S, H, KV, D, int(window),
+                int(offset), 1.0 / math.sqrt(D), splits, _DTYPES[q.dtype],
+                _DTYPES[k_block.dtype])
+    if rc != 0:
+        raise RuntimeError(f"decode_attention_block kernel launch failed: "
+                           f"CUDA error {rc} at q {tuple(q.shape)}, block "
+                           f"{tuple(k_block.shape)}, offset {offset}")
+    launches_block += 1
+    return o, lse

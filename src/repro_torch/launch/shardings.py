@@ -16,7 +16,8 @@ from typing import Optional
 
 from repro_torch.config import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import api
-from repro_torch.models.params import PS, axis_part, placements, shard_as
+from repro_torch.models.params import (PS, _names, axis_part, placements,
+                                       shard_as)
 
 
 def _ax(rules: dict, name: Optional[str]):
@@ -38,9 +39,17 @@ def batch_spec(rules, *trailing):
 
 
 def kv_spec(rules, lead_axes: int):
-    """KV cache buffer (lead..., B, S, KV, D)."""
-    return PS(*([None] * lead_axes), _ax(rules, "batch"),
-              _ax(rules, "kv_seq"), _ax(rules, "kv_heads"), None)
+    """KV cache buffer (lead..., B, S, KV, D).  Raises ``ValueError``
+    where the rules put ``batch`` and ``kv_seq`` on one mesh axis (the
+    reference's ``PartitionSpec`` refuses a duplicated axis too; its
+    dry run drops ``batch`` at B = 1, ``long_500k``)."""
+    batch, seq = _ax(rules, "batch"), _ax(rules, "kv_seq")
+    both = set(_names(batch)) & set(_names(seq))
+    if both:
+        raise ValueError(f"the rules put batch ({batch}) and kv_seq "
+                         f"({seq}) on the same mesh axis {sorted(both)}")
+    return PS(*([None] * lead_axes), batch, seq, _ax(rules, "kv_heads"),
+              None)
 
 
 def _kv_tree(rules, lead: int, kv_dtype: str, cross: bool = False):

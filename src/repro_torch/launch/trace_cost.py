@@ -39,20 +39,35 @@ count answers one rule of ``hlo_cost``:
     storage while the storage lives), so the sum stays exact at a cost
     linear in the number of ops.
 
+  * collectives -- the ``_c10d_functional`` collectives (and DTensor's
+    all-to-all, ``_dtensor.shard_dim_alltoall``) by operand bytes and
+    calls, under the reference's five names (``COLLECTIVES``; another
+    collective under its own op name), and by the group they run over
+    (``groups``: group name -> mesh axis, the rest "other").
+    ``wait_tensor`` and ``_wrap_tensor_autograd`` move nothing.  Their
+    bytes are not HBM bytes: the caller prices them at a link's rate.
+
+On DTensors (a step traced over a device mesh, ``launch.dryrun``) the
+counter sees each DTensor op and hands it on (``NotImplemented``), so
+what it counts is what DTensor runs on this rank: the local ops on the
+rank's blocks and the collectives it inserts, each once.  The ops that
+DTensor's sharding propagation runs on fake tensors count nothing.
+
 Times are the H100 SXM data sheet's (``repro_torch.kernels``): products
 in bfloat16 at BF16_OPS_PER_S, in float32 at F32_OPS_PER_S (TF32 is off
 on the port's paths), each kernel at its own ``cost`` rate; bytes at
-HBM_BYTES_PER_S.  One card has no collectives, so there is no
-collective term.
+HBM_BYTES_PER_S.
 """
 
 from __future__ import annotations
 
 import collections
+import sys
 import weakref
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (
+    TorchDispatchMode, _get_current_dispatch_mode_stack)
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import (BF16_OPS_PER_S, F32_OPS_PER_S,
@@ -70,6 +85,22 @@ OVERWRITES = (aten.copy_, aten.fill_, aten.zero_)
 MAKERS = (aten.empty_like, aten.zeros_like, aten.ones_like, aten.full_like,
           aten.new_empty, aten.new_zeros, aten.new_ones, aten.new_full,
           aten.new_empty_strided)
+# collective ops (their packet's name) -> the reference's names
+# (``repro.launch.dryrun.COLLECTIVE_OPS``)
+COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all"}
+COLLECTIVE_NAMES = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+_MOVE_NOTHING = ("wait_tensor", "_wrap_tensor_autograd")
 
 
 def _key(a):
@@ -100,13 +131,49 @@ def _tensors(tree, out=None):
     return out
 
 
+def _collective(func):
+    """The collective's name (``COLLECTIVES``, or its own) for a
+    ``_c10d_functional`` or ``_dtensor`` collective op; "" for an op
+    of those namespaces that moves nothing; None for any other op."""
+    ns = func.namespace
+    if ns not in ("_c10d_functional", "_dtensor"):
+        return None
+    name = func._overloadpacket.__name__
+    if name in _MOVE_NOTHING:
+        return ""
+    if ns == "_dtensor" and name not in COLLECTIVES:
+        return None
+    return COLLECTIVES.get(name, name)
+
+
+def _subclass(types, name: str, module: str) -> bool:
+    mod = sys.modules.get(module)
+    cls = getattr(mod, name, None) if mod is not None else None
+    return cls is not None and any(issubclass(t, cls) for t in types)
+
+
+def _faking() -> bool:
+    """True under a FakeTensorMode (DTensor's sharding propagation runs
+    its ops on fake tensors), which sits below this mode on the stack:
+    what runs there is no op of the step."""
+    mod = sys.modules.get("torch._subclasses.fake_tensor")
+    return mod is not None and any(
+        isinstance(m, mod.FakeTensorMode)
+        for m in _get_current_dispatch_mode_stack())
+
+
 class TraceCost(TorchDispatchMode):
     """Counts what the ops run under it would cost: ``with TraceCost()
     as tc: step(...)``.  Read ``flops``, ``bytes``, ``kernels``,
-    ``peak_bytes``, ``compute_s`` and ``memory_s`` after."""
+    ``peak_bytes``, ``compute_s``, ``memory_s``, ``collectives`` and
+    ``collective_bytes`` after.  ``groups``: process-group name -> mesh
+    axis, to file each collective under the axis it runs over."""
 
-    def __init__(self):
+    def __init__(self, groups=None):
         super().__init__()
+        self.groups = dict(groups or {})
+        # name -> {"calls", "bytes", "by_axis": {axis: bytes}}
+        self.collectives = {}
         self.ops = 0
         self.flops_by_type = collections.Counter()     # products only
         self.bytes = 0                                 # outside kernels
@@ -147,6 +214,19 @@ class TraceCost(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _subclass(types, "DTensor", "torch.distributed.tensor"):
+            return NotImplemented      # DTensor runs it: count its parts
+        if _faking():
+            return func(*args, **kwargs)   # DTensor's sharding propagation
+        coll = _collective(func)
+        if coll is not None:
+            out = func(*args, **kwargs)
+            self.ops += 1
+            for t in _tensors(out):
+                self._track(t.untyped_storage(), set())
+            if coll:
+                self._count_collective(coll, args, kwargs)
+            return out
         out = self._run(func, args, kwargs)
         self.ops += 1
         ins = _tensors((args, kwargs))
@@ -240,7 +320,30 @@ class TraceCost(TorchDispatchMode):
         self.bytes += nbytes(*reads) + written_bytes + (
             0 if packet in OVERWRITES else written_bytes)
 
+    def _count_collective(self, name, args, kwargs) -> None:
+        """Operand bytes (the tensors passed in) and one call, filed
+        under the mesh axis of the op's group (its string argument)."""
+        group = [a for a in list(args) + list(kwargs.values())
+                 if isinstance(a, str) and a in self.groups]
+        axis = self.groups[group[0]] if group else "other"
+        n = nbytes(*_tensors((args, kwargs)))
+        c = self.collectives.setdefault(name, dict(calls=0, bytes=0,
+                                                   by_axis={}))
+        c["calls"] += 1
+        c["bytes"] += n
+        c["by_axis"][axis] = c["by_axis"].get(axis, 0) + n
+
     # -- totals ---------------------------------------------------------------
+
+    @property
+    def collective_bytes(self) -> int:
+        return sum(c["bytes"] for c in self.collectives.values())
+
+    def collective_bytes_by_axis(self) -> dict:
+        out = collections.Counter()
+        for c in self.collectives.values():
+            out.update(c["by_axis"])
+        return dict(out)
 
     @property
     def product_flops(self) -> float:

@@ -109,7 +109,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig):
             nll = nll_rows(logits, labels).mean()
             return nll + aux, nll
         logits = constrain(logits, ("batch", "seq", None))
-        labels = shard_batch(params, labels)
+        labels = constrain(shard_batch(params, labels), ("batch", "seq"))
         nll = local_call(nll_rows, tuple(labels.placements), logits,
                          labels).mean()
         loss = nll + aux

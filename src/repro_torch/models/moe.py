@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import _act
 from repro_torch.models.params import (P, constrain, dense, is_dtensor,
-                                       local_call)
+                                       local_call, redistribute)
 
 
 def moe_schema(cfg):
@@ -157,13 +157,23 @@ def apply_moe(cfg, p, x: torch.Tensor, *, capacity_factor: float = 1.25):
 
 
 def _per_row(fn, n_out: int, *args):
-    """``fn(*args)``, a function of whole batch rows; on DTensors (the
-    first one's rows, batch on ``data``) each rank's rows, through
-    ``local_call``."""
+    """``fn(*args)``, a function of whole batch rows; on DTensors (batch
+    on ``data``) each rank's rows, through ``local_call``, every
+    argument whole but along its batch axis (under sequence parallelism
+    a row's tokens are routed, and gathered, as one group)."""
     if not is_dtensor(args[0]):
         return fn(*args)
+    args = tuple(_rows_only(a) if is_dtensor(a) else a for a in args)
     pl = tuple(args[0].placements)
     return local_call(fn, (pl,) * n_out if n_out > 1 else pl, *args)
+
+
+def _rows_only(t):
+    """DTensor t split along its batch axis (dim 0) only."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(p if isinstance(p, Shard) and p.dim % t.dim() == 0
+               else Replicate() for p in t.placements)
+    return t if pl == tuple(t.placements) else redistribute(t, pl)
 
 
 def _replicated(t):

@@ -36,6 +36,7 @@ transpose.
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 from typing import Optional, Tuple
 
@@ -412,6 +413,12 @@ def shard_as(t: torch.Tensor, mesh, spec) -> torch.Tensor:
     return _from_whole(t, mesh, pl)
 
 
+def shard_as_placements(t: torch.Tensor, mesh, pl) -> torch.Tensor:
+    """The whole tensor ``t`` (the same on every rank) as a DTensor with
+    placements ``pl`` on ``mesh``, from this rank's block."""
+    return _from_whole(t, mesh, tuple(pl))
+
+
 def shard_like(t: torch.Tensor, like) -> torch.Tensor:
     """The whole tensor ``t`` placed as the DTensor ``like`` (its mesh
     and placements), from this rank's block."""
@@ -427,13 +434,21 @@ def _from_whole(t: torch.Tensor, mesh, pl):
 def zeros(shape, like, axes, dtype: torch.dtype = torch.float32):
     """Zeros of ``shape`` on ``like``'s device; when ``like`` is a
     DTensor, one on its mesh placed by the logical ``axes`` under the
-    installed rules (each rank allocates its block only)."""
+    installed rules (each rank allocates its block only, on the device
+    of ``like``'s block: the meta device in the dry run, whose mesh is
+    a CPU one)."""
     if not is_dtensor(like):
         return torch.zeros(shape, dtype=dtype, device=like.device)
-    from torch.distributed.tensor import zeros as dzeros
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
     mesh = like.device_mesh
-    return dzeros(shape, dtype=dtype, device_mesh=mesh,
-                  placements=placements(mesh, spec_of(axes, _ACTIVE_RULES)))
+    pl = placements(mesh, spec_of(axes, _ACTIVE_RULES))
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=like.to_local().device),
+        mesh, pl, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def shard_batch(params, t: torch.Tensor) -> torch.Tensor:
@@ -460,3 +475,56 @@ def whole_along(x, dim: int):
     pl = tuple(Replicate() if isinstance(p, Shard) and p.dim % x.dim() == dim
                else p for p in x.placements)
     return x if pl == tuple(x.placements) else redistribute(x, pl)
+
+
+def seq_dims(t) -> list:
+    """The mesh dims that split DTensor ``t`` (a (B, S, ...) cache) along
+    its sequence axis (dim 1); [] for a plain tensor."""
+    if not is_dtensor(t):
+        return []
+    from torch.distributed.tensor import Shard
+    return [i for i, p in enumerate(t.placements)
+            if isinstance(p, Shard) and p.dim % t.dim() == 1]
+
+
+class seq_blocks:
+    """The blocks of a cache of S rows split along its sequence axis on
+    mesh dims ``dims`` of ``mesh``: this rank holds rows [offset, offset
+    + S // n) of the n blocks, in the mesh's order (a Python int from
+    the mesh coordinate, no read of device data), and ``reduce``
+    all-reduces a local tensor over the ranks that hold the others."""
+
+    @staticmethod
+    def ways(mesh, dims) -> int:
+        """The number of blocks mesh dims ``dims`` split an axis into."""
+        return math.prod(mesh.size(i) for i in dims)
+
+    def __init__(self, mesh, dims, S: int):
+        coord, idx, n = mesh.get_coordinate(), 0, 1
+        for i in dims:
+            idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
+        if S % n:
+            raise ValueError(f"a cache of {S} rows does not split into "
+                             f"{n} equal blocks along its sequence axis")
+        self.mesh, self.dims, self.offset = mesh, dims, idx * (S // n)
+
+    def reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        from torch.distributed import _functional_collectives as funcol
+        for i in self.dims:
+            t = funcol.all_reduce(t, op, (self.mesh, i))
+        return t
+
+    def combine(self, o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """Every rank's block output o (B,1,H,D) and lse (B,H), float32,
+        merged into the output over the whole cache (``ref.lse_combine``
+        across ranks): the max of lse, then one sum of the weighted
+        outputs and their weights.  A row with no valid position in any
+        block gives 0."""
+        B, _, H, D = o.shape
+        m = self.reduce(lse, "max")
+        w = torch.exp(lse - torch.where(torch.isfinite(m), m, 0.0))
+        both = self.reduce(torch.cat(
+            [(o.reshape(B, H, D) * w[..., None]).reshape(B, H * D), w],
+            dim=1), "sum")
+        return (both[:, :H * D].reshape(B, 1, H, D)
+                / both[:, H * D:].clamp(min=1e-30)[:, None, :, None])

@@ -59,9 +59,13 @@ on ``data``, activations constrained where the reference constrains
 them, the kernels run on each rank's block (``layers``), the cache
 (the VLM's cross caches too) is placed by
 ``launch.shardings.cache_pspecs`` and written on each rank's block
-(``kv_cache``).  ``shard_kv_seq``, and under a mesh the decode knob
-that reads across rows (``decode_slice_reads``), raise
-``NotImplementedError`` (``check_run``, ROADMAP queue 1 item 2).
+(``kv_cache``).  With ``shard_kv_seq`` (or rules that put ``kv_seq`` on
+a mesh axis) each rank holds a block of the self caches' rows, and
+decode attention merges the ranks' blocks by log-sum-exp
+(``layers.decode_attention``).  ``decode_slice_reads`` takes its window
+from the smallest position of the whole batch (``_slice_start``), and
+over a sequence-split cache each rank reads the window's part in its
+block.
 """
 
 from __future__ import annotations
@@ -80,13 +84,11 @@ from repro_torch.models.layers import (
     out_project, q_project, qkv_project, rope_tables, unembed)
 from repro_torch.models.moe import apply_moe, moe_schema
 from repro_torch.models.params import (P, active_rules, constrain,
-                                       is_dtensor, map_schema, mesh_of,
-                                       shard_batch)
+                                       is_dtensor, local_call, map_schema,
+                                       mesh_of, seq_dims, shard_batch)
 
 # the families that run under a device mesh: all six
 SHARDED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
-_REST = ("ROADMAP queue 1 item 2: shard_kv_seq, and decode_slice_reads "
-         "under a mesh")
 
 
 def segment(recompute: bool, fn, *args, **kw):
@@ -101,21 +103,11 @@ def segment(recompute: bool, fn, *args, **kw):
 
 
 def check_run(cfg: ModelConfig, run: RunConfig) -> None:
-    """Raise for what the port's models do not implement, in every
-    family: ``shard_kv_seq``; under installed sharding rules,
-    ``decode_slice_reads`` (its window starts at the smallest position
-    of the whole batch).  ``fsdp`` and a mesh run in every family."""
+    """Raise for a family the port does not know or an unknown
+    ``prefill_logits``; every other knob runs in every family, on one
+    device and under a mesh."""
     if cfg.family not in SHARDED_FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if run.shard_kv_seq:
-        raise NotImplementedError(
-            f"RunConfig.shard_kv_seq=True is not ported (only False; "
-            f"{_REST})")
-    if active_rules() is not None and run.decode_slice_reads \
-            and run.decode_window:
-        raise NotImplementedError(
-            f"decode_slice_reads under a device mesh is not ported "
-            f"({_REST})")
     if run.prefill_logits not in ("all", "last"):
         raise ValueError(f"prefill_logits={run.prefill_logits!r}")
 
@@ -276,27 +268,69 @@ def _slice_start(kc, pos, run: RunConfig):
     """(start, w) of ``decode_slice_reads``' window of one layer's cache:
     w = min(decode_window, S) rows from clip(min(pos) + 1 - w, 0, S - w),
     one start for the whole batch, left on the device; None when the
-    knob is off."""
+    knob is off.  Under a mesh min(pos) is the whole batch's: each
+    rank's minimum, all-reduced over the mesh dims that split the batch,
+    so ``start`` is a plain 0-d tensor, the same on every rank."""
     if not (run.decode_slice_reads and run.decode_window):
         return None
     S = (kc["q"] if isinstance(kc, dict) else kc).shape[1]
     w = min(run.decode_window, S)
-    return torch.clamp(pos.min() + 1 - w, 0, S - w), w
+    if is_dtensor(pos):
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import Shard
+        low = pos.to_local().min()
+        for i, p in enumerate(pos.placements):
+            if isinstance(p, Shard):
+                low = funcol.all_reduce(low, "min", (pos.device_mesh, i))
+    else:
+        low = pos.min()
+    return torch.clamp(low + 1 - w, 0, S - w), w
+
+
+def _on_rows(fn, t):
+    """``fn`` on a per-row tensor (pos (B,)), on each rank's rows of a
+    DTensor."""
+    if not is_dtensor(t):
+        return fn(t)
+    return local_call(fn, tuple(t.placements), t)
+
+
+def _window_rows(kc, start, w):
+    """The window's copy (``kv_cache.slice_window``) of a cache whose
+    sequence axis is whole on every rank: each rank copies its block's
+    rows."""
+    def sl(t):
+        if not is_dtensor(t):
+            return kv_cache.slice_window(t, start, w)
+        return local_call(lambda a: kv_cache.slice_window(a, start, w),
+                          tuple(t.placements), t)
+    if isinstance(kc, dict):
+        return {k: sl(v) for k, v in kc.items()}
+    return sl(kc)
+
+
+def _seq_split(kc) -> bool:
+    return bool(seq_dims(kc["q"] if isinstance(kc, dict) else kc))
 
 
 def _decode_attend(q, kc, vc, pos, run: RunConfig, slice_reads=True):
     """Attention over one layer's written cache through the decode
     kernel; with ``decode_slice_reads`` (and ``slice_reads``) over a
     copy of the window's rows only, each row's valid length counted
-    from the window's start."""
+    from the window's start.  Over a cache split along its sequence
+    axis each rank's block kernel reads only its rows of the window
+    (``span``): no copy."""
     sl = _slice_start(kc, pos, run) if slice_reads else None
+    cur = pos + 1
     if sl is not None:
         start, w = sl
-        kc = kv_cache.slice_window(kc, start, w)
-        vc = kv_cache.slice_window(vc, start, w)
-        return decode_attention(q, kv_cache.read(kc), kv_cache.read(vc),
-                                pos + 1 - start, window=run.decode_window)
-    return decode_attention(q, kv_cache.read(kc), kv_cache.read(vc), pos + 1,
+        if _seq_split(kc):
+            return decode_attention(q, kv_cache.read(kc), kv_cache.read(vc),
+                                    cur, window=run.decode_window,
+                                    span=(start, w))
+        kc, vc = _window_rows(kc, start, w), _window_rows(vc, start, w)
+        cur = _on_rows(lambda p: p + 1 - start, pos)
+    return decode_attention(q, kv_cache.read(kc), kv_cache.read(vc), cur,
                             window=run.decode_window)
 
 
@@ -309,16 +343,19 @@ def decode_inplace(q, k, v, kc, vc, pos, run: RunConfig, index):
     ``pos[0]`` for every row with ``decode_uniform_pos``; ``index``:
     the step's ``kv_cache.write_index``).  Returns the attention
     output."""
-    k_old, v_old, cur = kc, vc, pos
+    k_old, v_old, cur, span = kc, vc, pos, None
     sl = _slice_start(kc, pos, run)
     if sl is not None:
         start, w = sl
-        k_old = kv_cache.slice_window(kc, start, w)
-        v_old = kv_cache.slice_window(vc, start, w)
-        cur = pos - start
+        if _seq_split(kc):
+            span = sl
+        else:
+            k_old, v_old = _window_rows(kc, start, w), \
+                _window_rows(vc, start, w)
+            cur = _on_rows(lambda p: p - start, pos)
     o = decode_attention_with_new(q, kv_cache.read(k_old),
                                   kv_cache.read(v_old), k, v, cur,
-                                  window=run.decode_window)
+                                  window=run.decode_window, span=span)
     for buf, new in ((kc, k), (vc, v)):
         kv_cache.write_layer(buf, (), new, pos,
                              uniform=run.decode_uniform_pos, index=index)
@@ -454,10 +491,12 @@ def step_buffers(cache, run: RunConfig):
     return kv_cache.clone(cache["k"]), kv_cache.clone(cache["v"])
 
 
-def write_stacked(buf, new: torch.Tensor, pos: torch.Tensor):
+def write_stacked(buf, new: torch.Tensor, pos: torch.Tensor, block=None):
     """kv_cache.write_ over the leading layer axes, in place: buf
     (*lead, B, S, ...) and new (*lead, B, S_new, KV, D) fold the lead
-    axes into the batch.  On DTensors each rank writes its blocks."""
+    axes into the batch.  On DTensors each rank writes its blocks
+    (``block``: ``kv_cache.local_blocks``' for a sequence-split
+    buffer)."""
     nl = new.dim() - 4
     if is_dtensor(buf["q"] if isinstance(buf, dict) else buf):
         write_stacked(*kv_cache.local_blocks(buf, new, pos, nl))
@@ -469,9 +508,9 @@ def write_stacked(buf, new: torch.Tensor, pos: torch.Tensor):
         return t.reshape((n * B,) + t.shape[nl + 1:])
     if isinstance(buf, dict):
         kv_cache.write_({k: fold(v) for k, v in buf.items()}, fold(new),
-                        flat_pos)
+                        flat_pos, block=block)
     else:
-        kv_cache.write_(fold(buf), fold(new), flat_pos)
+        kv_cache.write_(fold(buf), fold(new), flat_pos, block=block)
     return buf
 
 

@@ -34,7 +34,8 @@ from repro_torch.configs.ddim_cifar10 import SMOKE  # noqa: E402
 from repro_torch.diffusion import unet  # noqa: E402
 from repro_torch.diffusion.executor import BatchDenoisingExecutor  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_block_ref, decode_attention_ref, lse_combine)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.groupnorm_silu import ops  # noqa: E402
@@ -379,6 +380,63 @@ def test_decode_attention_cur_len_on_and_past_a_split_boundary(
     q, kc, vc = _dec_inputs(B, S, 4 * KV, KV, 64, cuda, "float32", c_dtype)
     cur = [64 * k + (b % 2) for b in range(B)]
     _dec_check(q, kc, vc, cur)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", [(2, 4096, 32, 4, 64),
+                                         (1, 2048, 32, 32, 80),
+                                         (2, 1024, 48, 1, 128)])
+@pytest.mark.parametrize("window", [0, 700])
+@pytest.mark.parametrize("n", [2, 4, 16])
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_decode_attention_block_matches_plain(cuda, B, S, H, KV, D, window,
+                                              n, q_dtype):
+    """The block variant on each of n blocks of a bf16 cache (some empty,
+    windows across block boundaries): o (float32) and lse against the
+    plain version, the same blocks empty (lse -inf, o 0), and the blocks
+    combined against the whole-cache kernel, float32 at 2e-5 (q in bf16:
+    2e-2); one launch a block, counted apart."""
+    q, kc, vc = _dec_inputs(B, S, H, KV, D, cuda, q_dtype, "bfloat16")
+    cur = torch.tensor([S - 3, S // 3 + 1][:B], dtype=torch.int32,
+                       device=cuda)
+    R, outs, lses = S // n, [], []
+    before, blocks = dec_ops.launches, dec_ops.launches_block
+    for i in range(n):
+        kb, vb = (t[:, i * R:(i + 1) * R].contiguous() for t in (kc, vc))
+        o, lse = dec_ops.decode_attention_block(q, kb, vb, cur,
+                                                window=window, offset=i * R)
+        ro, rl = decode_attention_block_ref(q, kb, vb, cur, window=window,
+                                            offset=i * R)
+        assert o.dtype == lse.dtype == torch.float32
+        tol = "bfloat16" if q_dtype == "bfloat16" else "float32"
+        _close(o, ro, tol)
+        empty = torch.isinf(rl)
+        assert torch.equal(torch.isinf(lse), empty)
+        assert not torch.isnan(o).any() and (o[empty.any(-1)] == 0).all()
+        if not bool(empty.all()):
+            _close(lse[~empty], rl[~empty], tol)
+        outs.append(o)
+        lses.append(lse)
+    torch.cuda.synchronize()
+    assert dec_ops.launches_block == blocks + n
+    whole = dec_ops.decode_attention(q.float(), kc, vc, cur, window=window)
+    assert dec_ops.launches == before + 1
+    _close(lse_combine(torch.stack(outs), torch.stack(lses)), whole,
+           "bfloat16" if q_dtype == "bfloat16" else "float32")
+
+
+def test_decode_attention_block_with_a_first_position(cuda):
+    """``lo`` raises each row's first valid position (the slice-reads
+    window over a sequence-split cache): the kernel against the plain
+    version at an offset."""
+    q, kc, vc = _dec_inputs(3, 2048, 32, 4, 64, cuda)
+    cur = torch.tensor([3000, 2100, 1500], dtype=torch.int32, device=cuda)
+    lo = torch.tensor([2900, 1000, 1400], dtype=torch.int32, device=cuda)
+    got = dec_ops.decode_attention_block(q, kc, vc, cur, window=512,
+                                         offset=1024, lo=lo)
+    want = decode_attention_block_ref(q, kc, vc, cur, window=512,
+                                      offset=1024, lo=lo)
+    _close(got[0], want[0], "float32")
+    _close(got[1], want[1], "float32")
 
 
 def test_decode_attention_zero_rows_beside_full_rows(cuda):

@@ -37,7 +37,9 @@ from repro.models import layers as jax_layers  # noqa: E402
 from repro_torch.config import (SHAPES, ShapeConfig, get_config,  # noqa: E402
                                 list_archs, smoke_variant)
 from repro_torch.kernels import (BF16_OPS_PER_S, F32_OPS_PER_S,  # noqa: E402
-                                 HBM_BYTES, TF32_OPS_PER_S, KernelCost)
+                                 HBM_BYTES, NODE_LINK_BYTES_PER_S,
+                                 NVLINK_BYTES_PER_S, TF32_OPS_PER_S,
+                                 KernelCost)
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.groupnorm_silu import ops as gn_ops  # noqa: E402
@@ -113,6 +115,187 @@ def test_run_for_is_the_references_on_one_card(tmp_path):
         assert dataclasses.asdict(got) == ref, key
 
 
+_MESH_RULES = r"""
+import dataclasses, json, sys, types
+import repro.launch.dryrun as d          # sets 512 host devices first
+from repro.config import SHAPES, get_config, list_archs
+meshes = {"16x16": (("data", "model"), (16, 16)),
+          "2x16x16": (("pod", "data", "model"), (2, 16, 16))}
+out = {}
+for a in list_archs():
+    if a == "ddim-cifar10":
+        continue
+    for s in SHAPES:
+        for o in (False, True):
+            run = d.run_for(get_config(a), SHAPES[s], opt=o)
+            for m, (names, shape) in meshes.items():
+                stub = types.SimpleNamespace(
+                    axis_names=names,
+                    devices=types.SimpleNamespace(shape=shape))
+                rules = d.rules_for(get_config(a), SHAPES[s], run, stub, o)
+                out[f"{a}|{s}|{o}|{m}"] = [
+                    dataclasses.asdict(run),
+                    {k: list(v) if isinstance(v, tuple) else v
+                     for k, v in rules.items()}]
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+def test_run_for_and_rules_for_are_the_references_at_the_meshes(tmp_path):
+    """Every arch x shape x {16x16, 2x16x16} x opt: the mesh form of
+    ``run_for`` (fsdp, shard_kv_seq at long_500k, slice reads only over
+    an unsplit sequence) and ``rules_for`` (batch dropped at B = 1, seq
+    on model for train, the --opt prefill seq and decode kv_seq on
+    model) ``==`` the reference's, its meshes stubbed by their axis
+    names and shape."""
+    path = tmp_path / "mesh_rules.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _MESH_RULES, str(path)],
+                          capture_output=True, text=True, timeout=300,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr
+    want = json.loads(path.read_text())
+    assert len(want) == len(ARCHS) * len(SHAPES) * 2 * 2
+    sizes = {"16x16": {"data": 16, "model": 16},
+             "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+    for key, (ref_run, ref_rules) in want.items():
+        arch, shape, opt, mesh = key.split("|")
+        opt = opt == "True"
+        run = dryrun.run_for(get_config(arch), SHAPES[shape], opt=opt,
+                             mesh=mesh)
+        assert dataclasses.asdict(run) == ref_run, key
+        rules = dryrun.rules_for(get_config(arch), SHAPES[shape], run,
+                                 sizes[mesh], opt)
+        assert {k: list(v) if isinstance(v, tuple) else v
+                for k, v in rules.items()} == ref_rules, key
+
+
+def _child(code: str, timeout: float = 240.0):
+    """Run ``code`` in a child process (each starts its own fake process
+    group) and return what it printed last, parsed as JSON."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=timeout, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_a_known_redistribution_counts_its_gathers():
+    """On the 16 x 16 production mesh (a fake group of 256 ranks, rank
+    0), a 4096 x 4096 float32 meta tensor placed [Shard(0), Shard(1)]
+    (256 x 256 blocks) and redistributed to replicated: the counter sees
+    two all-gathers, the first of the (256, 256) block over "model", the
+    second of the gathered (256, 4096) rows over "data": 4 * 256 * 256 +
+    4 * 256 * 4096 operand bytes, by hand.  A product of DTensors counts
+    the rank's local product once: (256, 1024) rows of x (split on data)
+    times a replicated (1024, 512) w, 2 * 256 * 1024 * 512 flops, and
+    its local bytes, with no collective (DTensor's sharding propagation,
+    on fake tensors, counts nothing)."""
+    got = _child(r"""
+import json, torch
+from torch.distributed.tensor import distribute_tensor, Replicate, Shard
+from repro_torch.launch import dryrun
+from repro_torch.launch.trace_cost import TraceCost
+with dryrun.production_mesh("16x16") as mesh:
+    groups = {mesh.get_group(i).group_name: n
+              for i, n in enumerate(mesh.mesh_dim_names)}
+    a = distribute_tensor(torch.empty(4096, 4096, device="meta"), mesh,
+                          [Shard(0), Shard(1)])
+    with TraceCost(groups) as tc:
+        a.redistribute(mesh, [Replicate(), Replicate()])
+    x = distribute_tensor(torch.empty(4096, 1024, device="meta"), mesh,
+                          [Shard(0), Replicate()])
+    w = distribute_tensor(torch.empty(1024, 512, device="meta"), mesh,
+                          [Replicate(), Replicate()])
+    with TraceCost(groups) as mm:
+        y = x @ w
+print(json.dumps([list(a.to_local().shape), tc.collectives,
+                  mm.product_flops, mm.bytes, mm.collectives,
+                  list(y.to_local().shape)]))
+""")
+    local, coll, flops, nbytes, mm_coll, out = got
+    assert local == [256, 256]
+    assert coll == {"all-gather": {
+        "calls": 2, "bytes": 4 * 256 * 256 + 4 * 256 * 4096,
+        "by_axis": {"model": 4 * 256 * 256, "data": 4 * 256 * 4096}}}
+    assert out == [256, 512] and mm_coll == {}
+    assert flops == 2 * 256 * 1024 * 512
+    assert nbytes == 4 * (256 * 1024 + 1024 * 512 + 256 * 512)
+
+
+_MESH_RECORD = r"""
+import json, sys
+from repro_torch.launch import dryrun
+print(json.dumps(dryrun.analyze(sys.argv[1], sys.argv[2],
+                                opt=sys.argv[3] == "opt", mesh=sys.argv[4])))
+"""
+
+
+def _mesh_record(arch, shape, opt, mesh):
+    code = _MESH_RECORD.replace("sys.argv[1]", repr(arch)).replace(
+        "sys.argv[2]", repr(shape)).replace(
+        'sys.argv[3] == "opt"', repr(opt)).replace("sys.argv[4]", repr(mesh))
+    return _child(code)
+
+
+def test_long_500k_at_16x16_holds_a_sixteenth_of_the_cache():
+    """TinyLlama at ``long_500k``, full width on meta, at 16 x 16: the
+    cache's sequence is split on data (``shard_kv_seq``, the batch of 1
+    dropped), so each card's k and v bytes are 1/16 of the one-card
+    record's; the decode runs the block kernel, 22 calls, and combines
+    by all-reduces; the record carries the reference's keys and the
+    link rates it priced them at."""
+    one = dryrun.analyze("tinyllama-1.1b", "long_500k")
+    rec = _mesh_record("tinyllama-1.1b", "long_500k", False, "16x16")
+    assert rec["mesh"] == "16x16" and rec["chips"] == 256
+    assert rec["run"]["shard_kv_seq"] and rec["rules"]["kv_seq"] == ["data"]
+    assert rec["rules"]["batch"] is None
+    for key in ("cache/k", "cache/v"):
+        assert 16 * rec["memory_analysis"]["argument_bytes_by_input"][key] \
+            == one["memory_analysis"]["argument_bytes_by_input"][key]
+    assert rec["kernels"]["decode_attention_block"]["calls"] == 22
+    assert "decode_attention" not in rec["kernels"]
+    assert set(rec["collectives"]["counts"]) >= {
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute"}
+    assert rec["collectives"]["counts"]["all-reduce"] > 0
+    assert rec["collective_bytes_per_chip"] == sum(
+        rec["collectives"]["bytes"].values()) > 0
+    rates = rec["roofline"]["link_rates"]
+    assert {r["bytes_per_s"] for r in rates.values()} == {
+        NODE_LINK_BYTES_PER_S}
+    assert rec["roofline"]["collective_s"] == pytest.approx(
+        rec["collective_bytes_per_chip"] / NODE_LINK_BYTES_PER_S)
+    assert rec["fits_one_card"]
+
+
+def test_decode_32k_opt_has_an_all_reduce_term():
+    """TinyLlama ``decode_32k --opt`` at 16 x 16: its 4 KV heads do not
+    split over the 16-wide model axis, so the cache's sequence goes
+    there and the in-place decode joins the blocks by all-reduces over
+    "model": a nonzero all-reduce term."""
+    rec = _mesh_record("tinyllama-1.1b", "decode_32k", True, "16x16")
+    assert rec["rules"]["kv_seq"] == ["model"]
+    assert rec["rules"]["batch"] == ["data"]
+    assert rec["collectives"]["counts"]["all-reduce"] > 0
+    assert rec["collectives"]["bytes"]["all-reduce"] > 0
+    assert rec["collectives"]["bytes_by_axis"]["model"] > 0
+    assert rec["roofline"]["collective_s"] > 0
+
+
+def test_link_rates_by_axis():
+    """An axis whose group of rank 0 spans at most 8 consecutive ranks
+    (one node) is priced at NVLink, a wider one at the node link."""
+    class Mesh:
+        mesh_dim_names, shape = ("data", "model"), (32, 8)
+    rates = dryrun.link_rates(Mesh())
+    assert rates["model"]["bytes_per_s"] == NVLINK_BYTES_PER_S
+    assert rates["data"]["bytes_per_s"] == NODE_LINK_BYTES_PER_S
+    Mesh.shape = (16, 16)
+    assert {r["bytes_per_s"] for r in dryrun.link_rates(Mesh()).values()} \
+        == {NODE_LINK_BYTES_PER_S}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_abstract_model_and_input_specs_are_the_references(arch):
     """Full width, every shape: params and every step input on the meta
@@ -182,7 +365,7 @@ def test_a_slice_write_counts_the_slice():
         buf.index_copy_(1, idx, new)
     assert tc.bytes == 8 + 2 * B * KV * D * 2
     pos = torch.zeros(B, dtype=torch.int32, device="meta")
-    rows, slots, keep = kv_cache.write_index(pos, 1, S)
+    rows, slots = kv_cache.write_index(pos, 1, S)[:2]
     with TraceCost() as tc:
         buf[rows, slots] = new
     assert tc.bytes == 2 * B * 8 + 2 * B * KV * D * 2

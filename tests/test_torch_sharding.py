@@ -214,26 +214,28 @@ def test_model_pspecs_dataclass_rules():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_what_a_mesh_does_not_run_raises(arch):
-    """Every family runs under installed rules and with ``fsdp``
-    (``check_run`` passes); on one device ``fsdp`` places nothing and
-    gives the prefill logits of the default (``==``).  What a mesh does
-    not run raises naming ROADMAP queue 1 item 2: ``shard_kv_seq``
-    everywhere, and ``decode_slice_reads`` under rules.  Sharded runs of
-    every family are held in tests/test_torch_multidevice.py and
-    tests/test_torch_multidevice_families.py."""
+    """Every family runs under installed rules, with ``fsdp``, with
+    ``shard_kv_seq`` and, under rules, with ``decode_slice_reads``
+    (``check_run`` passes); on one device ``fsdp`` and ``shard_kv_seq``
+    place nothing and give the prefill logits of the default (``==``).
+    What ``check_run`` still refuses is an unknown ``prefill_logits``.
+    Sharded runs of every family are held in
+    tests/test_torch_multidevice.py,
+    tests/test_torch_multidevice_families.py and
+    tests/test_torch_kv_seq.py."""
     from repro_torch.models import transformer
     cfg = tcfg.smoke_variant(tcfg.get_config(arch))
     rules = tcfg.sharding_rules_for(cfg, MESHES["2x2"])
-    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 2"):
-        transformer.check_run(cfg, tcfg.RunConfig(shard_kv_seq=True))
+    transformer.check_run(cfg, tcfg.RunConfig(shard_kv_seq=True))
     transformer.check_run(cfg, tcfg.RunConfig(fsdp=True))
+    with pytest.raises(ValueError, match="prefill_logits"):
+        transformer.check_run(cfg, tcfg.RunConfig(prefill_logits="first"))
     with use_rules(rules):
         transformer.check_run(cfg, tcfg.RunConfig())
         transformer.check_run(cfg, tcfg.RunConfig(fsdp=True))
-        with pytest.raises(NotImplementedError,
-                           match="decode_slice_reads.*item 2"):
-            transformer.check_run(cfg, tcfg.RunConfig(
-                decode_window=8, decode_slice_reads=True))
+        transformer.check_run(cfg, tcfg.RunConfig(shard_kv_seq=True))
+        transformer.check_run(cfg, tcfg.RunConfig(
+            decode_window=8, decode_slice_reads=True))
     params = api.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 4), dtype=torch.int64)
     extras = api.extra_input_specs(cfg, 1, abstract=False, device="cpu")
@@ -242,4 +244,6 @@ def test_what_a_mesh_does_not_run_raises(arch):
             params, toks, extras)
         got, _ = api.make_prefill_step(cfg, tcfg.RunConfig(fsdp=True), 8)(
             params, toks, extras)
-    assert torch.equal(got, want)
+        split, _ = api.make_prefill_step(
+            cfg, tcfg.RunConfig(shard_kv_seq=True), 8)(params, toks, extras)
+    assert torch.equal(got, want) and torch.equal(split, want)

@@ -193,27 +193,22 @@ def test_prefill_logits_last_only(model):
 @pytest.mark.parametrize("knob,value", [
     ("remat", "block"), ("fsdp", True), ("shard_kv_seq", True)])
 def test_unported_run_knobs_raise(knob, value):
-    """``shard_kv_seq`` raises, naming ROADMAP queue 1 item 2.  remat is
-    ported in every family now: the hybrid family, which raised for it,
-    gives the prefill logits of "none" (``==``; its gradients are held
-    in tests/test_torch_training.py).  ``fsdp`` is ported for the dense
-    family: outside a mesh it places nothing, as in the reference, and
-    gives the logits of the default (``==``; sharded runs are held in
-    tests/test_torch_multidevice.py)."""
+    """Every knob of the list runs now.  remat is ported in every
+    family: the hybrid family, which raised for it, gives the prefill
+    logits of "none" (``==``; its gradients are held in
+    tests/test_torch_training.py).  ``fsdp`` and ``shard_kv_seq`` are
+    ported: outside a mesh they place nothing, as in the reference, and
+    give the logits of the default (``==``; sharded runs are held in
+    tests/test_torch_multidevice.py and tests/test_torch_kv_seq.py)."""
     cfg, _ = configs("smoke")
     if knob == "remat":
         cfg = smoke_variant(get_config("zamba2-2.7b"))
     run = RunConfig(**{knob: value})
     params = api.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    if knob in ("remat", "fsdp"):
-        got, _ = api.make_prefill_step(cfg, run, MAX_LEN)(params, toks)
-        want, _ = api.make_prefill_step(cfg, RunConfig(), MAX_LEN)(params,
-                                                                   toks)
-        assert torch.equal(got, want)
-        return
-    with pytest.raises(NotImplementedError, match=f"{knob}.*item 2"):
-        api.make_prefill_step(cfg, run, MAX_LEN)(params, toks)
+    got, _ = api.make_prefill_step(cfg, run, MAX_LEN)(params, toks)
+    want, _ = api.make_prefill_step(cfg, RunConfig(), MAX_LEN)(params, toks)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("knobs", [

@@ -420,7 +420,9 @@ def test_remat_and_gradients_raise():
     ``torch.no_grad``.  ``fsdp`` runs and, on one device, places
     nothing and gives the logits of the default (``==``; sharded runs
     are held in tests/test_torch_multidevice_families.py);
-    ``shard_kv_seq`` raises, naming ROADMAP queue 1 item 2."""
+    ``shard_kv_seq`` runs too and, on one device, gives the default's
+    logits (``==``; sequence-split caches are held in
+    tests/test_torch_kv_seq.py)."""
     m = _model()
     t = torch.tensor(m.toks[:, :4], dtype=torch.int64)
     base, _, _ = transformer.forward(m.cfg, m.params, t, RunConfig(),
@@ -445,9 +447,9 @@ def test_remat_and_gradients_raise():
     got, _, _ = transformer.forward(m.cfg, m.params, t, RunConfig(fsdp=True),
                                     m.extras())
     assert torch.equal(got, base)
-    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 2"):
-        transformer.forward(m.cfg, m.params, t,
-                            RunConfig(shard_kv_seq=True), m.extras())
+    got, _, _ = transformer.forward(m.cfg, m.params, t,
+                                    RunConfig(shard_kv_seq=True), m.extras())
+    assert torch.equal(got, base)
 
 
 def test_new_modules_import_without_jax():

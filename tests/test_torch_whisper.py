@@ -371,8 +371,10 @@ def test_remat_and_gradients_raise():
     loss and grads to ``jax.value_and_grad``).  ``fsdp`` runs and, on
     one device, places nothing and gives the logits of the default
     (``==``; sharded runs are held in
-    tests/test_torch_multidevice_families.py); ``shard_kv_seq`` raises,
-    naming ROADMAP queue 1 item 2."""
+    tests/test_torch_multidevice_families.py); ``shard_kv_seq`` runs
+    too: on one device its cache is the default's and so are its logits
+    (``==``; sequence-split caches are held in
+    tests/test_torch_kv_seq.py)."""
     m = _model()
     t = torch.tensor(m.toks[:, :4], dtype=torch.int64)
     base, _, _ = whisper.forward(m.cfg, m.params, t, RunConfig(), m.extras())
@@ -387,9 +389,14 @@ def test_remat_and_gradients_raise():
     for p in jax.tree_util.tree_leaves(params):
         assert p.grad is not None and float(p.grad.abs().max()) > 0
     # the in-place decode runs now (test_inplace_decode_matches_reference)
-    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 2"):
-        whisper.init_cache(m.cfg, 1, 8, RunConfig(shard_kv_seq=True),
-                           device="cpu")
+    split = whisper.init_cache(m.cfg, 1, 8, RunConfig(shard_kv_seq=True),
+                               device="cpu")
+    plain = whisper.init_cache(m.cfg, 1, 8, RunConfig(), device="cpu")
+    assert split.keys() == plain.keys() and all(
+        torch.equal(split[k], plain[k]) for k in plain)
+    got, _, _ = whisper.forward(m.cfg, m.params, t,
+                                RunConfig(shard_kv_seq=True), m.extras())
+    assert torch.equal(got, base)
     got, _, _ = whisper.forward(m.cfg, m.params, t, RunConfig(fsdp=True),
                                 m.extras())
     assert torch.equal(got, base)

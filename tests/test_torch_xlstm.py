@@ -362,7 +362,8 @@ def test_model_api_maps_ssm_to_xlstm_and_raises_under_grad():
     ``jax.value_and_grad``).  ``fsdp`` runs and, on one device, places
     nothing and gives the logits of the default (``==``; sharded runs
     are held in tests/test_torch_multidevice_families.py);
-    ``shard_kv_seq`` raises, naming ROADMAP queue 1 item 2."""
+    ``shard_kv_seq`` runs and changes nothing (xLSTM has no KV cache, as
+    in the reference): the logits of the default (``==``)."""
     m = _model()
     assert api.get_model(m.cfg) is xlstm_model
     assert api.extra_input_specs(m.cfg, 2, abstract=False,
@@ -384,8 +385,10 @@ def test_model_api_maps_ssm_to_xlstm_and_raises_under_grad():
         got, _, _ = xlstm_model.forward(m.cfg, params, t,
                                         RunConfig(fsdp=True))
     assert torch.equal(got, base)
-    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 2"):
-        xlstm_model.forward(m.cfg, params, t, RunConfig(shard_kv_seq=True))
+    with torch.no_grad():
+        got, _, _ = xlstm_model.forward(m.cfg, params, t,
+                                        RunConfig(shard_kv_seq=True))
+    assert torch.equal(got, base)
 
 
 # -- bfloat16 params ----------------------------------------------------------

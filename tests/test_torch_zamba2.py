@@ -256,8 +256,10 @@ def test_unported_knobs_raise():
     prefill logits of "none" (``==``; tests/test_torch_training.py
     holds their gradients); ``fsdp`` runs and, on one device, places
     nothing and gives the same logits (``==``; sharded runs are held in
-    tests/test_torch_multidevice_families.py); ``shard_kv_seq`` raises,
-    naming ROADMAP queue 1 item 2; the in-place decode, which used to
+    tests/test_torch_multidevice_families.py); ``shard_kv_seq`` runs
+    and, on one device, gives the same logits (``==``; sequence-split
+    caches are held in tests/test_torch_kv_seq.py); the in-place decode,
+    which used to
     raise, is held to the reference by
     test_inplace_decode_matches_reference."""
     cfg, _ = configs("smoke")
@@ -271,9 +273,9 @@ def test_unported_knobs_raise():
     got, _ = api.make_prefill_step(cfg, RunConfig(fsdp=True), MAX_LEN)(
         params, toks)
     assert torch.equal(got, base)
-    with pytest.raises(NotImplementedError, match="shard_kv_seq.*item 2"):
-        api.make_prefill_step(cfg, RunConfig(shard_kv_seq=True), MAX_LEN)(
-            params, toks)
+    got, _ = api.make_prefill_step(cfg, RunConfig(shard_kv_seq=True),
+                                   MAX_LEN)(params, toks)
+    assert torch.equal(got, base)
     # per-head (4-D) B/C, the xLSTM form, runs in plain torch; the
     # ssd_scan kernel's wrapper refuses it
     with pytest.raises(NotImplementedError, match="per-head"):

@@ -1,12 +1,13 @@
 """One rank of the port's sharded runs on the CPU, for
-tests/test_torch_multidevice.py and tests/test_torch_multidevice_families.py
-(not a test module: it imports no jax, and each rank checks that).
+tests/test_torch_multidevice.py, tests/test_torch_multidevice_families.py
+and tests/test_torch_kv_seq.py (not a test module: it imports no jax, and each rank checks that).
 
     python tests/torch_ranks.py OUT_DIR STORE RANK WORLD [SUITE]
 
 joins a gloo group of WORLD ranks over the file store STORE, builds a
 (data 2, model WORLD // 2) mesh and runs the cases of SUITE (``dense``,
-the default, or ``families``; ``SUITES``): for each case of its train
+the default, or ``families``; ``SUITES``; or ``kvseq``, the
+sequence-split caches of ``KVSEQ_CASES`` alone): for each case of its train
 cases a prefill at ``max_len`` S + 4, one greedy decode step and one
 train step (loss, every grad leaf, the updated params), unsharded and
 sharded on the same params (drawn with numpy from a seed,
@@ -61,6 +62,55 @@ FAMILY_LAUNCHER = ["--arch", "zamba2-2.7b"] + LAUNCHER
 # suite -> (train cases, serve cases, launcher arguments)
 SUITES = {"dense": (CASES, SERVE_CASES, LAUNCHER),
           "families": (FAMILY_CASES, FAMILY_SERVE_CASES, FAMILY_LAUNCHER)}
+# sequence-split caches (suite "kvseq"): (name, arch, num_kv_heads or
+# None, rules, RunConfig fields, positions or None), a prefill at
+# max_len KV_LEN and 3 greedy decode steps each.  Rules "kv_seq":
+# shard_kv_seq=True, the cache's sequence on data, the batch replicated
+# (as rules_for gives it at B = 1); "opt": the --opt decode rules, the
+# batch on data and, where the KV heads do not split over the model
+# axis, the cache's sequence on model; "default": the sequence whole;
+# "seq": rules_for's train rules, the activations' sequence on model:
+# the prefill and the loss, no decode step (the reference decodes under
+# its decode rules, which split no sequence).
+# Positions: each row's decode position, set after the prefill, beyond
+# the window, data rank 0's own minimum (rows 0-1) not the batch's (rows
+# 2-3 hold it), and each row within the window of the batch's minimum:
+# a row further ahead keeps no key in the slice, where the plain
+# version's softmax over masked scores (the mean of v) and the kernel's
+# (0) part (kernels/decode_attention/ref.py).
+KV_LEN = S + 4
+KV_WINDOW = 8
+KV_POS = (24, 26, 20, 23)
+F32 = dict(kv_cache_dtype="float32")
+SLICE = dict(F32, decode_window=KV_WINDOW, decode_slice_reads=True)
+KVSEQ_CASES = [
+    ("tinyllama", "tinyllama-1.1b", None, "kv_seq", F32, None),
+    ("deepseek", "deepseek-moe-16b", None, "kv_seq", F32, None),
+    ("zamba2", "zamba2-2.7b", None, "kv_seq", F32, None),
+    ("whisper", "whisper-tiny", None, "kv_seq", F32, None),
+    ("vlm", "llama-3.2-vision-90b", None, "kv_seq", F32, None),
+    ("tinyllama-kv1-opt", "tinyllama-1.1b", 1, "opt", F32, None),
+    ("tinyllama-kv1-opt-inplace", "tinyllama-1.1b", 1, "opt",
+     dict(F32, decode_inplace_cache=True, decode_uniform_pos=True), None),
+    ("tinyllama-inplace-bf16", "tinyllama-1.1b", None, "kv_seq",
+     dict(decode_inplace_cache=True), None),
+    ("deepseek-int8", "deepseek-moe-16b", None, "kv_seq",
+     dict(kv_cache_dtype="int8"), None),
+    ("tinyllama-slice", "tinyllama-1.1b", None, "default", SLICE, KV_POS),
+    ("tinyllama-kvseq-slice", "tinyllama-1.1b", None, "kv_seq", SLICE,
+     KV_POS),
+    ("tinyllama-kv1-opt-slice", "tinyllama-1.1b", 1, "opt", SLICE, KV_POS),
+    ("tinyllama-kv1-opt-slice-inplace", "tinyllama-1.1b", 1, "opt",
+     dict(SLICE, decode_inplace_cache=True), KV_POS),
+    # sequence parallelism, the reference's train rule (seq on model):
+    # queries split along the sequence attend over gathered keys
+    ("tinyllama-seq", "tinyllama-1.1b", None, "seq", F32, None),
+    ("deepseek-seq", "deepseek-moe-16b", None, "seq", F32, None),
+    # 3 heads on a model axis of 2: heads whole, the sequence split
+    ("tinyllama-h3-seq", "tinyllama-1.1b",
+     dict(num_heads=3, num_kv_heads=3, d_model=192), "seq", F32, None),
+    ("whisper-seq", "whisper-tiny", None, "seq", F32, None),
+    ("vlm-seq", "llama-3.2-vision-90b", None, "seq", F32, None)]
 # the kernel wrappers whose calls each run counts: (module, function)
 WRAPPERS = {"rmsnorm": ("repro_torch.kernels.rmsnorm.ops", "rmsnorm"),
             "flash_attention": ("repro_torch.kernels.flash_attention.ops",
@@ -109,8 +159,12 @@ def run_group(out, suite: str = "dense", world: int = 4,
 
 
 def config(arch, kv=None):
+    """``arch``'s smoke variant; ``kv``: its number of KV heads, or a
+    dict of fields to replace."""
     from repro_torch.config import get_config, smoke_variant
     cfg = smoke_variant(get_config(arch))
+    if isinstance(kv, dict):
+        return dataclasses.replace(cfg, **kv)
     return dataclasses.replace(cfg, num_kv_heads=kv) if kv else cfg
 
 
@@ -347,7 +401,95 @@ def run_serve_case(mesh, arch, kv, knobs):
                                        cache, extras)
         out[f"{key}_logits"] = np.stack(steps)
         out[f"{key}_tokens"] = np.concatenate(tokens, axis=1)
-    out["sharded_steps"] = np.stack(alone)
+    out["sharded_steps"] = np.array(alone, dtype=np.float32).reshape(
+        (len(alone),) + out["plain_logits"].shape[1:])
+    return out
+
+
+def kvseq_rules(cfg, run, mesh, kind: str) -> dict:
+    """The rules of a ``KVSEQ_CASES`` entry (see there)."""
+    from repro_torch.config import ShapeConfig, sharding_rules_for
+    from repro_torch.launch import dryrun, mesh as meshes
+    if kind in ("opt", "seq"):
+        step = "decode" if kind == "opt" else "train"
+        return dryrun.rules_for(cfg, ShapeConfig(step, KV_LEN, B, step),
+                                run, mesh, kind == "opt")
+    rules = sharding_rules_for(cfg, meshes.mesh_axis_sizes(mesh), run)
+    if kind == "kv_seq":
+        rules["batch"] = None
+    return rules
+
+
+def run_kvseq_case(mesh, arch, kv, kind, knobs, positions):
+    """A prefill and 3 greedy decode steps (none under the train rules),
+    unsharded and on the mesh under the case's rules: each step's
+    logits, the tokens, every leaf
+    of both final caches, whole, the mesh dims that split the sharded
+    cache's sequence, and each sharded decode step alone, from the
+    unsharded run's cache placed on the mesh (``sharded_steps``)."""
+    from repro_torch.config import RunConfig
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models import api
+    from repro_torch.models.params import seq_dims
+    from repro_torch.models.params import (params_from_numpy, shard_batch,
+                                           use_rules)
+    from repro_torch.models.transformer import place_cache
+    from repro_torch.training import optimizer as opt
+    cfg = config(arch, kv)
+    run = RunConfig(shard_kv_seq=kind == "kv_seq", **knobs)
+    rules = kvseq_rules(cfg, run, mesh, kind)
+    plain = params_from_numpy(api.get_model(cfg).schema(cfg),
+                              draw_params(cfg), "cpu")
+    toks = torch.tensor(draw_tokens(cfg)[0])
+    extras = _torch_extras(cfg)
+    decode = api.make_decode_step(cfg, run)
+    out, plain_caches = {}, []
+    for key in ("plain", "sharded"):
+        params = plain if key == "plain" else shd.distribute(
+            plain, mesh, shd.model_param_pspecs(cfg, rules, run.fsdp))
+        steps, tokens, alone = [], [], []
+        with use_rules(rules if key == "sharded" else None), \
+                torch.no_grad():
+            logits, cache = api.make_prefill_step(cfg, run, KV_LEN)(
+                params, toks, extras)
+            if positions is not None:
+                cache = dict(cache, pos=shard_batch(params, torch.tensor(
+                    positions, dtype=torch.int32)))
+            if key == "sharded":
+                out["placed"] = placed_as_specs(cfg, run, rules, mesh, cache)
+                k = cache["k"]["q"] if isinstance(cache["k"], dict) \
+                    else cache["k"]
+                # one layer's (B, S, KV, D) buffer
+                out["seq_dims"] = np.array(
+                    seq_dims(k.flatten(0, k.dim() - 5)[0]), dtype=np.int64)
+            decodes = 0 if kind == "seq" else 3
+            for i in range(decodes + 1):
+                full = _full(logits)[:, -1:]
+                steps.append(full.numpy())
+                tokens.append(full.argmax(-1).numpy())
+                if i == decodes:
+                    break
+                if key == "plain":
+                    plain_caches.append(_clone(cache))
+                else:
+                    one, _ = decode(params, torch.tensor(
+                        out["plain_tokens"][:, i:i + 1]), place_cache(
+                        cfg, run, _clone(plain_caches[i]), mesh), extras)
+                    alone.append(_full(one).numpy())
+                logits, cache = decode(params, torch.tensor(tokens[-1]),
+                                       cache, extras)
+            leaves = [_numpy(t) for t in opt.leaves(cache)]
+            if kind == "seq":
+                toks_l, labels = (torch.tensor(a) for a in draw_tokens(cfg))
+                loss, _ = api.make_train_step(cfg, run)(params, toks_l,
+                                                        labels, extras)
+                out[f"{key}_loss"] = float(_full(loss))
+        out[f"{key}_logits"] = np.stack(steps)
+        out[f"{key}_tokens"] = np.concatenate(tokens, axis=1)
+        out.update({f"{key}_cache_{i}": a for i, a in enumerate(leaves)})
+    out["cache_dtypes"] = np.array([str(t.dtype) for t in opt.leaves(cache)])
+    out["sharded_steps"] = np.array(alone, dtype=np.float32).reshape(
+        (len(alone),) + out["plain_logits"].shape[1:])
     return out
 
 
@@ -362,14 +504,21 @@ def _clone(tree):
 def main():
     out_dir, store, rank, world = sys.argv[1], sys.argv[2], \
         int(sys.argv[3]), int(sys.argv[4])
-    cases, serve_cases, launcher = SUITES[
-        sys.argv[5] if len(sys.argv) > 5 else "dense"]
+    suite = sys.argv[5] if len(sys.argv) > 5 else "dense"
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
         from repro_torch.launch import mesh as meshes, train as launch_train
         mesh = meshes.make_host_mesh(model=2, device_type="cpu")
+        if suite == "kvseq":
+            for name, *case in KVSEQ_CASES:
+                res = run_kvseq_case(mesh, *case)
+                if rank == 0:
+                    np.savez(os.path.join(out_dir, f"{name}.npz"), **res)
+            assert "jax" not in sys.modules, "a rank imported jax"
+            return
+        cases, serve_cases, launcher = SUITES[suite]
         for name, arch, fsdp, kv in cases:
             res = run_case(mesh, arch, fsdp, kv)
             if rank == 0:
