@@ -1459,6 +1459,15 @@ TC_PEAK = (f"{TF32_PER_F32_OP} x operations at 495 TFLOP/s TF32 (tensor "
            f"cores, 3xTF32)")
 
 
+def peak_label(c) -> str:
+    """The rate a KernelCost prices its operations at, as the rows
+    print it."""
+    if c.ops_per_s == F32_OPS_PER_S:
+        return F32_PEAK
+    return (f"{c.per_op} x operations at {c.ops_per_s / 1e12:.0f} TFLOP/s "
+            f"(tensor cores)")
+
+
 def flash_bound(q, k):
     """Bound of one causal flash_attention call, q (B,S,H,D) and k, v
     shaped like ``k``, ends aligned at Sq = Skv: q, o, k and v moved
@@ -1672,11 +1681,10 @@ def _time_llm_kernel(name, sig, calls, randn, rng, B=8, causal=True,
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kb, vb))
     mask = (torch.arange(S, device="cuda")[None]
             < cur[:, None])[:, None, None, :]
-    dec = _llm_ops()[name]
-    rows = KV * dec.head_chunks(H // KV)
-    splits = dec.num_splits(B, rows, S)
+    p = _llm_ops()[name].plan(B, S, H, KV, D, q.dtype, kb.dtype)
     return dict(kernel=name, shape=[B, *qs], cache_shape=[B, *cs],
-                splits=splits, grid=[splits, rows, B],
+                path=p.path, splits=p.splits, grid=list(p.grid),
+                peak=peak_label(c),
                 types="float32 q, bfloat16 cache", calls=calls,
                 cur_len=cur.tolist(), bound_ms=c.ms, bound_by=c.bound_by,
                 bytes=c.bytes, flops=c.flops,
@@ -1758,8 +1766,8 @@ def phase_llm_kernels(cfg, shapes, seen, card, extra=()):
             f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']}; "
             f"operations at {r.get('peak', F32_PEAK)})  "
             f"bound/kernel {r['bound_ms'] / r['ms']:.3f}"
-            + (f"  splits {r['splits']}, grid {tuple(r['grid'])}"
-               if "splits" in r else "")
+            + (f"  {r['path']} kernel, splits {r['splits']}, grid "
+               f"{tuple(r['grid'])}" if "splits" in r else "")
             + ("  plan: threads {threads} nv {nv} vec {vec} chunks "
                "{chunks}".format(**r["plan"]) if "plan" in r else ""))
     summaries = {}
@@ -1990,7 +1998,7 @@ def phase_llm_trace(wl, card, batch: int = 8, steps: int = 5):
         return sum(v for k, v in dev.items() if pattern in k)
     ours = {"rmsnorm": share("rmsnorm_kernel"),
             "decode_attention": share("decode_split_kernel")
-            + share("decode_combine_kernel")}
+            + share("decode_tc_kernel") + share("decode_combine_kernel")}
     log(f"{tag} on {card}, one decode step at batch {batch}, cache "
         f"{LLM_MAX_LEN}, position {LLM_PROMPT}: wall {wall_us:.0f} us "
         f"(unprofiled), device busy {device_us:.0f} us = {busy:.1%} of "
@@ -2858,8 +2866,8 @@ def dense_group_times(card):
             f"{_fmt_us(r['ms'])} us  plain {_fmt_us(r['plain_ms'])} us  "
             f"library {_fmt_us(r['library_ms'])} us  bound "
             f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']})  "
-            f"bound/kernel {r['bound_ms'] / r['ms']:.3f}  splits "
-            f"{r['splits']}, grid {tuple(r['grid'])}")
+            f"bound/kernel {r['bound_ms'] / r['ms']:.3f}  {r['path']} "
+            f"kernel, splits {r['splits']}, grid {tuple(r['grid'])}")
     return rows
 
 

@@ -508,6 +508,136 @@ def test_decode_attention_writes_every_column_at_head_dim_80(cuda, q_dtype):
     _close(got, decode_attention_ref(q, kc, vc, cur), q_dtype)
 
 
+# -- decode attention on the tensor cores ------------------------------------
+
+TYPE_PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"),
+              ("float32", "bfloat16")]
+
+
+def _tc_check(q, kc, vc, cur, path, window=0):
+    """One decode_attention call against the plain version, the plan's
+    path asserted; tolerance by the types involved."""
+    B, S, KV, D = kc.shape
+    p = dec_ops.plan(B, S, q.shape[2], KV, D, q.dtype, kc.dtype)
+    assert p.path == path
+    got = _dec_check(q, kc, vc, cur, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,full", [
+    (8, 512, 48, 1, 128, False),          # granite-34b, random cur_len
+    (8, 512, 48, 1, 128, True),
+    (8, 1601, 64, 8, 128, True),          # the VLM's cross decode
+    (8, 1601, 64, 8, 128, False)])
+@pytest.mark.parametrize("q_dtype,c_dtype", TYPE_PAIRS)
+def test_decode_attention_tensor_path_at_the_path_shapes(
+        cuda, B, S, H, KV, D, full, q_dtype, c_dtype):
+    """granite's G = 48 over one KV head and the VLM's whole 1601-row
+    cross caches take the tensor-core kernel and match the plain
+    version: 2e-5 in float32, 2e-2 where bfloat16 is involved."""
+    q, kc, vc = _dec_inputs(B, S, H, KV, D, cuda, q_dtype, c_dtype)
+    cur = [S] * B if full else \
+        np.random.default_rng(21).integers(1, S + 1, B).tolist()
+    _tc_check(q, kc, vc, cur, "tensor")
+
+
+@pytest.mark.parametrize("G", [3, 8, 16, 48, 64, 96])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("q_dtype,c_dtype", TYPE_PAIRS)
+def test_decode_attention_groups_on_both_sides_of_the_path_rule(
+        cuda, G, D, window, q_dtype, c_dtype):
+    """G < 8, and 8 over rows of 64, take the CUDA-core kernel; 8 over
+    rows of 128 and every G > 8 (64 and 96 in 4 and 6 blocks of 16
+    heads) the tensor-core kernel; both match the plain version."""
+    KV = 2
+    q, kc, vc = _dec_inputs(3, 300, G * KV, KV, D, cuda, q_dtype, c_dtype)
+    path = "tensor" if G > 8 or G * D >= 1024 else "cuda-core"
+    assert dec_ops.tensor_path(G, D) == (path == "tensor")
+    _tc_check(q, kc, vc, [300, 171, 9], path, window=window)
+
+
+@pytest.mark.parametrize("H,KV,D", [(48, 1, 128), (64, 8, 128),
+                                    (16, 1, 64), (24, 1, 80),
+                                    (96, 2, 32)])
+@pytest.mark.parametrize("q_dtype,c_dtype", TYPE_PAIRS)
+def test_decode_attention_tensor_path_inside_a_granule(cuda, H, KV, D,
+                                                       q_dtype, c_dtype):
+    """cur_len ending inside a 16-row granule (16 k + 1, + 7, + 15) and
+    windows starting inside one (23, 41 rows), beside rows of one
+    position, one granule and a whole cache."""
+    q, kc, vc = _dec_inputs(8, 640, H, KV, D, cuda, q_dtype, c_dtype)
+    cur = [1, 16, 17, 23, 111, 319, 640, 401]
+    for window in (0, 23, 41):
+        _tc_check(q, kc, vc, cur, "tensor", window=window)
+
+
+@pytest.mark.parametrize("H,KV,D", [(48, 1, 128), (64, 8, 128),
+                                    (32, 2, 64)])
+@pytest.mark.parametrize("q_dtype,c_dtype", TYPE_PAIRS)
+def test_decode_attention_block_on_the_tensor_path(cuda, H, KV, D, q_dtype,
+                                                   c_dtype):
+    """The block variant on the tensor-core kernel: blocks of a cache
+    at an offset with a window and a first position (lo) per row, some
+    empty; o and lse against the plain version, empty rows o = 0 and
+    lse = -inf, and the blocks joined by log-sum-exp against the
+    whole-cache kernel."""
+    B, S, n = 4, 1024, 4
+    q, kc, vc = _dec_inputs(B, S, H, KV, D, cuda, q_dtype, c_dtype)
+    assert dec_ops.plan(B, S // n, H, KV, D, q.dtype,
+                        kc.dtype).path == "tensor"
+    cur = torch.tensor([1024, 700, 257, 33], dtype=torch.int32, device=cuda)
+    lo = torch.tensor([500, 0, 240, 30], dtype=torch.int32, device=cuda)
+    tol = "float32" if q_dtype == c_dtype == "float32" else "bfloat16"
+    R, outs, lses = S // n, [], []
+    blocks = dec_ops.launches_block
+    for i in range(n):
+        kb, vb = (t[:, i * R:(i + 1) * R].contiguous() for t in (kc, vc))
+        o, lse = dec_ops.decode_attention_block(q, kb, vb, cur, window=600,
+                                                offset=i * R, lo=lo)
+        ro, rl = decode_attention_block_ref(q, kb, vb, cur, window=600,
+                                            offset=i * R, lo=lo)
+        _close(o, ro, tol)
+        empty = torch.isinf(rl)
+        assert torch.equal(torch.isinf(lse), empty)
+        assert not torch.isnan(o).any() and (o[empty.any(-1)] == 0).all()
+        if not bool(empty.all()):
+            _close(lse[~empty], rl[~empty], tol)
+        outs.append(o)
+        lses.append(lse)
+    torch.cuda.synchronize()
+    assert dec_ops.launches_block == blocks + n
+    whole, _ = decode_attention_block_ref(q, kc, vc, cur, window=600, lo=lo)
+    _close(lse_combine(torch.stack(outs), torch.stack(lses)), whole, tol)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", [(8, 512, 48, 1, 128),
+                                        (8, 1601, 64, 8, 128),
+                                        (8, 512, 32, 4, 128),
+                                        (8, 200, 96, 1, 32),
+                                        (8, 300, 24, 1, 80)])
+@pytest.mark.parametrize("q_dtype,c_dtype", TYPE_PAIRS)
+def test_decode_attention_plan_holds_on_the_card(cuda, B, S, H, KV, D,
+                                                 q_dtype, c_dtype):
+    """The plan's shared memory is the kernel's, and its blocks an SM
+    (its split count's basis) what the card reports for the tensor-core
+    kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor) where shared
+    memory binds (every D = 128 shape here), a lower bound where the
+    registers allow more than the ``TC_MIN_BLOCKS`` that
+    __launch_bounds__ guarantees; so the grid is at most one wave on
+    this card's SMs."""
+    qd, cd = DTYPES[q_dtype][0], DTYPES[c_dtype][0]
+    p = dec_ops.plan(B, S, H, KV, D, qd, cd)
+    assert p.path == "tensor"
+    smem, blocks = dec_ops.tc_occupancy(D, qd, cd, p.heads)
+    assert smem == p.smem and blocks >= p.resident
+    if p.resident < dec_ops.TC_MIN_BLOCKS:
+        assert blocks == p.resident
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert sms == dec_ops.SMS
+    assert p.splits == 1 or math.prod(p.grid) <= sms * blocks
+
+
 # -- ssd scan ----------------------------------------------------------------
 
 SSD_SHAPES = [(2, 64, 3, 16, 8, 16), (1, 128, 2, 32, 16, 32),
