@@ -1,0 +1,8 @@
+"""Share of the traced window in which no operation ran on the card."""
+
+
+def read(ctx):
+    t = ctx.tracer
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
