@@ -1,0 +1,12 @@
+"""Share of the traced window in which no operation ran on the card
+while the innermost open program span was the round's or the execution
+loop's own time (``round``, ``simulate``, ``execute``, ``loop.batch``
+less their children): each idle gap split by the program spans
+(``harness/spans.py``)."""
+
+from harness.spans import idle_pct_by_layer
+
+
+def read(ctx):
+    split = idle_pct_by_layer(ctx)
+    return None if split is None else split["loop"]

@@ -36,6 +36,7 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
+from repro_torch import obs
 from repro_torch.api.protocols import WorkloadOutput
 from repro_torch.api.registry import (ALLOCATORS, EXECUTORS, SCHEDULERS,
                                       register_executor)
@@ -76,7 +77,8 @@ def make_session(workload, plan: BatchPlan, generator=None, *,
                 "no executor: attach a named workload or pass "
                 f"executor= (registered: {EXECUTORS.names()})")
     factory = EXECUTORS.resolve(executor)
-    return factory(workload, plan, generator, **(executor_kwargs or {}))
+    with obs.span("session.open"):
+        return factory(workload, plan, generator, **(executor_kwargs or {}))
 
 
 def execute_plan(scenario, plan: BatchPlan, alloc, workload=None, *,
@@ -102,17 +104,23 @@ def execute_plan(scenario, plan: BatchPlan, alloc, workload=None, *,
     if exec_engine is not None:
         executor_kwargs = dict(executor_kwargs or {})
         executor_kwargs.setdefault("exec_engine", exec_engine)
-    session = make_session(workload, plan, generator, executor=executor,
-                           executor_kwargs=executor_kwargs)
-    loop = ExecutionLoop(
-        scenario, plan, alloc, session, delay=delay, quality=quality,
-        scheduler=SCHEDULERS.resolve(scheduler),
-        allocator=ALLOCATORS.resolve(allocator),
-        mode=mode, window=window, drift_tol=drift_tol,
-        min_batches=min_batches, max_replans=max_replans,
-        headroom=headroom, validate=validate, engine=engine,
-        exec_engine=(executor_kwargs or {}).get("exec_engine"))
-    return loop.run()
+    with obs.span("execute") as sp:
+        session = make_session(workload, plan, generator,
+                               executor=executor,
+                               executor_kwargs=executor_kwargs)
+        loop = ExecutionLoop(
+            scenario, plan, alloc, session, delay=delay, quality=quality,
+            scheduler=SCHEDULERS.resolve(scheduler),
+            allocator=ALLOCATORS.resolve(allocator),
+            mode=mode, window=window, drift_tol=drift_tol,
+            min_batches=min_batches, max_replans=max_replans,
+            headroom=headroom, validate=validate, engine=engine,
+            exec_engine=(executor_kwargs or {}).get("exec_engine"))
+        result = loop.run()
+        # the loop's clock: the sum of measured batch seconds, the time
+        # its deadline verdicts and replans count
+        sp.set(loop_clock_s=result.wall_clock)
+    return result
 
 
 def execute_report(report, workload=None, *, mode: str = "closed",

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.base import BaseProvisioner
 from repro_torch.api.execution import execute_plan, with_kwargs
 from repro_torch.api.protocols import WorkloadOutput
@@ -191,14 +192,14 @@ class Provisioner(BaseProvisioner):
     # -- pipeline stages ------------------------------------------------
     def allocate(self) -> np.ndarray:
         """P1: bandwidth allocation under the current delay/quality."""
-        with self._planning():
+        with obs.span("allocate"), self._planning():
             return np.asarray(self.allocator(
                 self.scenario, self.scheduler, self.delay, self.quality,
                 **self.allocator_kwargs))
 
     def plan(self, alloc: np.ndarray) -> Tuple[Dict[int, float], BatchPlan]:
         """P2: generation budgets + batch plan under an allocation."""
-        with self._planning():
+        with obs.span("plan"), self._planning():
             return make_plan(self.scenario, alloc, self.scheduler,
                              self.delay, self.quality)
 
@@ -236,50 +237,54 @@ class Provisioner(BaseProvisioner):
             ``generator``, itself seeded from ``seed=`` when not given),
             in the one-shot and the loop paths alike.
         """
-        mode = self._resolve_execute(execute)
-        generator = self._resolve_generator(generator)
-        if mode is None:
-            mode = True                    # default: one-shot execution
-        if refit:
-            if mode is False or self.workload is None:
-                raise ValueError(
-                    "refit=True needs measured timings: attach a workload "
-                    "and keep execute=True")
-            timed = True                   # refit is meaningless untimed
-        if calibrate:
-            self.calibrate(generator)
-        alloc = self.allocate()
-        tp, plan = self.plan(alloc)
-        if validate:
-            plan.validate(gen_deadlines=tp)
-        sim = simulate(self.scenario, alloc, plan, self.quality)
-        out = WorkloadOutput(content=None)
-        execution = None
-        if mode is True and self.workload is not None:
-            out = self.workload.execute(plan, generator, timed=timed,
-                                        latents=latents)
-        elif mode in ("open", "closed"):
-            kw = dict(self.execute_kwargs)
-            if latents is not None:
-                kw["executor_kwargs"] = dict(kw.get("executor_kwargs") or {},
-                                             latents=latents)
-            with device_scope(self.device):
-                execution = execute_plan(
-                    self.scenario, plan, alloc, self.workload, mode=mode,
-                    generator=generator, scheduler=self.scheduler,
-                    allocator=with_kwargs(self.allocator,
-                                          self.allocator_kwargs),
-                    delay=self.delay, quality=self.quality,
-                    engine=self.engine, validate=validate, **kw)
-            out = WorkloadOutput(content=execution.content,
-                                 timings=execution.timings)
-        report = ProvisionReport(
-            scenario=self.scenario, allocation=alloc, tau_prime=tp,
-            plan=plan, sim=sim, content=out.content, timings=out.timings,
-            delay=self.delay, quality=self.quality,
-            scheduler_name=self.scheduler_name,
-            allocator_name=self.allocator_name,
-            workload_name=self.workload_name, execution=execution)
-        if refit:
-            self.delay = report.refit_delay()
-        return report
+        with obs.span("round", K=self.scenario.K):
+            mode = self._resolve_execute(execute)
+            generator = self._resolve_generator(generator)
+            if mode is None:
+                mode = True                    # default: one-shot execution
+            if refit:
+                if mode is False or self.workload is None:
+                    raise ValueError(
+                        "refit=True needs measured timings: attach a "
+                        "workload and keep execute=True")
+                timed = True                   # refit is meaningless untimed
+            if calibrate:
+                self.calibrate(generator)
+            alloc = self.allocate()
+            tp, plan = self.plan(alloc)
+            if validate:
+                with obs.span("validate"):
+                    plan.validate(gen_deadlines=tp)
+            with obs.span("simulate"):
+                sim = simulate(self.scenario, alloc, plan, self.quality)
+            out = WorkloadOutput(content=None)
+            execution = None
+            if mode is True and self.workload is not None:
+                out = self.workload.execute(plan, generator, timed=timed,
+                                            latents=latents)
+            elif mode in ("open", "closed"):
+                kw = dict(self.execute_kwargs)
+                if latents is not None:
+                    kw["executor_kwargs"] = dict(
+                        kw.get("executor_kwargs") or {}, latents=latents)
+                with device_scope(self.device):
+                    execution = execute_plan(
+                        self.scenario, plan, alloc, self.workload,
+                        mode=mode, generator=generator,
+                        scheduler=self.scheduler,
+                        allocator=with_kwargs(self.allocator,
+                                              self.allocator_kwargs),
+                        delay=self.delay, quality=self.quality,
+                        engine=self.engine, validate=validate, **kw)
+                out = WorkloadOutput(content=execution.content,
+                                     timings=execution.timings)
+            report = ProvisionReport(
+                scenario=self.scenario, allocation=alloc, tau_prime=tp,
+                plan=plan, sim=sim, content=out.content,
+                timings=out.timings, delay=self.delay, quality=self.quality,
+                scheduler_name=self.scheduler_name,
+                allocator_name=self.allocator_name,
+                workload_name=self.workload_name, execution=execution)
+            if refit:
+                self.delay = report.refit_delay()
+            return report

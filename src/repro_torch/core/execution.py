@@ -39,6 +39,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import arrays
 from repro_torch.core.bandwidth import make_plan
 from repro_torch.core.delay_model import DelayModel, RollingDelayFit
@@ -311,23 +312,26 @@ class ExecutionLoop:
         while self.i < len(self.batches):
             ks = [k for k, _ in self.batches[self.i]]
             predicted = self.delay.g(len(ks))
-            dt = float(self.session.run_batch(ks, timed=True))
-            t_end = t + dt
-            for k in ks:
-                st = self.states[k]
-                st.steps_done += 1
-                self.executed_log.append((t, k, st.steps_done))
-            self.records.append(BatchRecord(
-                index=len(self.records), size=len(ks),
-                predicted_s=predicted, measured_s=dt,
-                t_start=t, t_end=t_end))
-            for k in ks:
-                if self.last.get(k) == self.i:
-                    self._complete(self.states[k], t_end,
-                                   self.alloc_map[k])
-            self.fit.observe(len(ks), dt)
-            self._drift.append(abs(dt - predicted) /
-                               max(predicted, 1e-12))
+            with obs.span("loop.batch", size=len(ks),
+                          predicted_s=predicted) as sp:
+                dt = float(self.session.run_batch(ks, timed=True))
+                sp.set(measured_s=dt)
+                t_end = t + dt
+                for k in ks:
+                    st = self.states[k]
+                    st.steps_done += 1
+                    self.executed_log.append((t, k, st.steps_done))
+                self.records.append(BatchRecord(
+                    index=len(self.records), size=len(ks),
+                    predicted_s=predicted, measured_s=dt,
+                    t_start=t, t_end=t_end))
+                for k in ks:
+                    if self.last.get(k) == self.i:
+                        self._complete(self.states[k], t_end,
+                                       self.alloc_map[k])
+                self.fit.observe(len(ks), dt)
+                self._drift.append(abs(dt - predicted) /
+                                   max(predicted, 1e-12))
             t = t_end
             self.i += 1
             if (self.mode == "closed" and self.pending
@@ -335,7 +339,8 @@ class ExecutionLoop:
                     and len(self._drift) >= self.min_batches
                     and self.replans < self.max_replans
                     and float(np.mean(self._drift)) > self.drift_tol):
-                self._replan(t)
+                with obs.span("loop.replan", batches=len(self.records)):
+                    self._replan(t)
         return self._finalize(t)
 
     def _replan(self, t: float) -> None:
@@ -397,7 +402,8 @@ class ExecutionLoop:
             st = self.states[k]
             if st.steps_done > 0 and not st.gen_complete:
                 self._complete(st, t, self.alloc_map[k])
-        content = self.session.finish()
+        with obs.span("session.finish"):
+            content = self.session.finish()
         if self.fit.ready:
             # final refit from the telemetry window, in both modes —
             # result.delay always reflects the measured hardware

@@ -58,6 +58,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.execution import shape_bucket
 from repro_torch.diffusion.executor import (BatchDenoisingExecutor,
                                             DenoiseSession, _sync)
@@ -174,24 +175,28 @@ class _Pool:
         ex = self.ex
         C, _, Bp = ts.shape
         if self.tensor.is_cuda:
-            static = self._seat()
-            key = ("bstep", self.rows, Bp) if C == 1 else \
-                ("bscan", self.rows, Bp, C)
-            prog = ex.program(key, lambda: _Graph(ex, static, Bp, C))
-            lanes = np.concatenate([idx[None], ts.reshape(2 * C, Bp)])
+            with obs.span("engine.prep"):
+                static = self._seat()
+                key = ("bstep", self.rows, Bp) if C == 1 else \
+                    ("bscan", self.rows, Bp, C)
+                prog = ex.program(key, lambda: _Graph(ex, static, Bp, C))
+                lanes = np.concatenate([idx[None],
+                                        ts.reshape(2 * C, Bp)])
             run = lambda: prog(lanes)               # noqa: E731
         else:
             i, t = torch.from_numpy(idx), torch.from_numpy(ts)
             run = lambda: pool_scan(ex.step_fn, self.tensor, i, t)  # noqa: E731
         dt = 0.0
         if timed:
-            _sync(self.tensor.device)
+            with obs.span("engine.wait"):
+                _sync(self.tensor.device)
             t0 = time.perf_counter()
+        with obs.span("engine.launch"):
             run()
-            _sync(self.tensor.device)
+        if timed:
+            with obs.span("engine.wait"):
+                _sync(self.tensor.device)
             dt = time.perf_counter() - t0
-        else:
-            run()
         ex.dispatches += 1
         return dt
 
@@ -241,13 +246,16 @@ class BucketedDenoiseSession(DenoiseSession):
         return idx, t_now, t_next
 
     def run_batch(self, ks: List[int], timed: bool = False) -> float:
-        idx, t_now, t_next = self._lanes(ks)
-        Bp = len(idx)
-        dt = self._pool.run(idx, np.stack([t_now, t_next])[None], timed)
-        self._dispatch[Bp] = self._dispatch.get(Bp, 0) + 1
-        for k in ks:
-            self._remaining[k].pop(0)
-            self.steps_done[k] += 1
+        Bp = shape_bucket(len(ks))
+        with obs.span("engine.batch", rows=len(ks), bucket=Bp):
+            with obs.span("engine.prep"):
+                idx, t_now, t_next = self._lanes(ks)
+                ts = np.stack([t_now, t_next])[None]
+            dt = self._pool.run(idx, ts, timed)
+            self._dispatch[Bp] = self._dispatch.get(Bp, 0) + 1
+            for k in ks:
+                self._remaining[k].pop(0)
+                self.steps_done[k] += 1
         return dt
 
     def run_plan(self, batches: List[List[int]]) -> None:
@@ -276,18 +284,21 @@ class BucketedDenoiseSession(DenoiseSession):
 
     def _run_scan(self, ks: List[int], C: int) -> None:
         Bp = shape_bucket(len(ks))
-        idx = np.full((Bp,), self._scratch, np.int64)
-        ts = np.full((C, 2, Bp), -1, np.int64)
-        for lane, k in enumerate(ks):
-            idx[lane] = self._row[k]
-            rem = self._remaining[k]
-            for c in range(C):
-                ts[c, 0, lane] = rem[c]
-                ts[c, 1, lane] = rem[c + 1] if c + 1 < len(rem) else -1
+        with obs.span("engine.prep"):
+            idx = np.full((Bp,), self._scratch, np.int64)
+            ts = np.full((C, 2, Bp), -1, np.int64)
+            for lane, k in enumerate(ks):
+                idx[lane] = self._row[k]
+                rem = self._remaining[k]
+                for c in range(C):
+                    ts[c, 0, lane] = rem[c]
+                    ts[c, 1, lane] = rem[c + 1] if c + 1 < len(rem) else -1
         off = 0
         for chunk in _SCAN_CHUNKS:
             while C - off >= chunk:
-                self._pool.run(idx, ts[off:off + chunk])
+                with obs.span("engine.batch", rows=len(ks), bucket=Bp,
+                              steps=chunk):
+                    self._pool.run(idx, ts[off:off + chunk])
                 key = (Bp, chunk)
                 self._scan_dispatch[key] = \
                     self._scan_dispatch.get(key, 0) + 1

@@ -31,7 +31,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.configs.ddim_cifar10 import UNetConfig
 from repro_torch.core.execution import EXEC_ENGINES, exec_engine_default
 from repro_torch.core.plan import BatchPlan
@@ -100,13 +100,16 @@ class BatchDenoisingExecutor:
     def program(self, key: tuple, build):
         """The program cached under ``key``, built by ``build()`` (a
         CUDA graph capture) at first use, its seconds logged in
-        ``compile_log``."""
+        ``compile_log`` and, under a profiler, as an ``engine.capture``
+        span on the same clock readings."""
         prog = self._programs.get(key)
         if prog is None:
             t0 = time.perf_counter()
             prog = build()
             _sync(self.device)
-            self.compile_log.append((key, time.perf_counter() - t0))
+            t1 = time.perf_counter()
+            self.compile_log.append((key, t1 - t0))
+            obs.record("engine.capture", t0, t1, key=repr(key))
             self._programs[key] = prog
         return prog
 

@@ -36,7 +36,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.config import ModelConfig, RunConfig
 from repro_torch.core.delay_model import DelayModel, fit
 from repro_torch.core.plan import BatchPlan
@@ -210,12 +210,14 @@ class ServingEngine:
         for rid in todo:
             by_len.setdefault(len(self.requests[rid].prompt), []).append(rid)
         for group in by_len.values():
-            toks = np.stack([self.requests[rid].prompt for rid in group])
-            _, cache = self.prefill(toks)
-            for i, rid in enumerate(group):
-                self.requests[rid].cache = _tree_map(
-                    lambda ax, x: x[_slice_at(x.dim(), ax, i)],
-                    self._batch_axes, cache)
+            with obs.span("serving.prefill", rows=len(group)):
+                toks = np.stack([self.requests[rid].prompt
+                                 for rid in group])
+                _, cache = self.prefill(toks)
+                for i, rid in enumerate(group):
+                    self.requests[rid].cache = _tree_map(
+                        lambda ax, x: x[_slice_at(x.dim(), ax, i)],
+                        self._batch_axes, cache)
 
     def step_batch(self, rids: List[int], timed: bool = False) -> float:
         """One batched decode step for ``rids``: gather their B=1 KV
@@ -227,31 +229,32 @@ class ServingEngine:
         calls.  The reference runs the decode twice and times the second
         (a jit warm-up); eager PyTorch needs no warm-up, and the tokens
         are the same either way."""
-        self._ensure_prefilled(rids)
-        caches = [self.requests[rid].cache for rid in rids]
-        stacked = _tree_map(lambda ax, *xs: torch.cat(xs, dim=ax),
-                            self._batch_axes, *caches)
-        last = np.stack(
-            [[self.requests[rid].generated[-1]
-              if self.requests[rid].generated
-              else self.requests[rid].prompt[-1]] for rid in rids])
-        toks = self._tokens(last)
-        dt = 0.0
-        if timed:
-            _sync(self.device)
-            t0 = time.perf_counter()
-            logits, stacked = self.decode(toks, stacked)
-            _sync(self.device)
-            dt = time.perf_counter() - t0
-            self.last_timings.append((len(rids), dt))
-        else:
-            logits, stacked = self.decode(toks, stacked)
-        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
-        for i, rid in enumerate(rids):
-            self.requests[rid].generated.append(int(nxt[i]))
-            self.requests[rid].cache = _tree_map(
-                lambda ax, x: x[_slice_at(x.dim(), ax, i)],
-                self._batch_axes, stacked)
+        with obs.span("serving.decode", rows=len(rids)):
+            self._ensure_prefilled(rids)
+            caches = [self.requests[rid].cache for rid in rids]
+            stacked = _tree_map(lambda ax, *xs: torch.cat(xs, dim=ax),
+                                self._batch_axes, *caches)
+            last = np.stack(
+                [[self.requests[rid].generated[-1]
+                  if self.requests[rid].generated
+                  else self.requests[rid].prompt[-1]] for rid in rids])
+            toks = self._tokens(last)
+            dt = 0.0
+            if timed:
+                _sync(self.device)
+                t0 = time.perf_counter()
+                logits, stacked = self.decode(toks, stacked)
+                _sync(self.device)
+                dt = time.perf_counter() - t0
+                self.last_timings.append((len(rids), dt))
+            else:
+                logits, stacked = self.decode(toks, stacked)
+            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            for i, rid in enumerate(rids):
+                self.requests[rid].generated.append(int(nxt[i]))
+                self.requests[rid].cache = _tree_map(
+                    lambda ax, x: x[_slice_at(x.dim(), ax, i)],
+                    self._batch_axes, stacked)
         return dt
 
     def execute(self, plan: BatchPlan,
